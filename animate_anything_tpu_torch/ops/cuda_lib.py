@@ -1,0 +1,124 @@
+"""Build and load the port's hand-written Hopper kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, bound with ``ctypes``. The build happens at
+first use, into ``build/torch_kernels/`` at the repository root, and is
+redone whenever the sources' hash changes. Nothing here runs at import time:
+the CPU tests import every module of the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, b, sq, sk, heads, d, scale_log2, stream
+    "aat_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, ln_s, ln_b, w1, b1, w2, b2, y, n, c, eps, stream
+    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, stream
+    "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # h, w, bias, res, y, s1, s2, n, s, k, c, stream
+    "aat_proj_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libaat_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the library for the current sources is missing.
+    The ptxas report (registers, shared memory, spills) lands beside it as
+    ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.aat_error_string.argtypes = [ctypes.c_int]
+            lib.aat_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Launch ``name`` on the current stream; raise if the launch failed."""
+    lib = library()
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}: "
+                           f"{lib.aat_error_string(err).decode()}")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape, layout."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 32:  # WMMA fragment loads need 32-byte alignment
+        raise ValueError(f"{name}: data pointer is not 32-byte aligned")

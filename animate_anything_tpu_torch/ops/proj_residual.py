@@ -1,0 +1,55 @@
+"""Kernel 4: transformer output projection + residual + GroupNorm-stats
+epilogue (``csrc/proj_residual.cu``).
+
+Replaces ``animate_anything_tpu/ops/proj_residual.py::_pallas_proj``:
+``y = h·Wᵀ + bias + residual`` with per-(n, c) fp32 (Σy, Σy²) of the STORED
+y, which the consumer GroupNorm takes through ``group_affine(sums=)``. The
+weight is the torch Linear layout (c, k). Design note in the source header.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from animate_anything_tpu_torch.ops import cuda_lib
+
+launches = 0  # kernel launches by proj_residual_stats
+
+
+def proj_residual_reference(h, w, bias, residual):
+    """Plain version: fp32 accumulation, one rounding of y, sums of the
+    rounded y."""
+    y = h.float() @ w.float().t() + bias.float() + residual.float()
+    yc = y.to(h.dtype)
+    yf = yc.float()
+    return yc, (yf.sum(1), yf.square().sum(1))
+
+
+def _launch(h, w, bias, residual):
+    n, s, k = h.shape
+    c = w.shape[0]
+    if k % 8 or c % 8:
+        raise ValueError(f"proj_residual_stats: k={k} and c={c} must be multiples of 8")
+    bf = torch.bfloat16
+    cuda_lib.check_cuda("proj_residual h", h, bf, (n, s, k))
+    cuda_lib.check_cuda("proj_residual w", w, bf, (c, k))
+    cuda_lib.check_cuda("proj_residual bias", bias, torch.float32, (c,))
+    cuda_lib.check_cuda("proj_residual residual", residual, bf, (n, s, c))
+    y = torch.empty_like(residual)
+    s1 = torch.zeros((n, c), device=h.device, dtype=torch.float32)
+    s2 = torch.zeros_like(s1)
+    cuda_lib.call("aat_proj_residual", h.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                  residual.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, s, k, c)
+    global launches
+    launches += 1
+    return y, (s1, s2)
+
+
+def proj_residual_stats(h, w, bias, residual):
+    """h (n, s, k), w (c, k), bias (c,), residual (n, s, c) →
+    ``(y, (Σy, Σy²))`` with the sums per (n, c) in fp32."""
+    dt = h.dtype
+    args = (h, w.to(dt).contiguous(), bias.float().contiguous(), residual.to(dt))
+    if h.device.type == "cpu":
+        return proj_residual_reference(*args)
+    return _launch(*args)

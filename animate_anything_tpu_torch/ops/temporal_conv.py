@@ -1,0 +1,98 @@
+"""Kernel 3: GroupNorm-apply → SiLU → 3-tap frame conv (+ residual) with a
+per-(batch, frame, channel) stats epilogue (``csrc/temporal_conv.cu``).
+
+Replaces ``animate_anything_tpu/ops/temporal_conv.py::_pallas_stage``. The
+GroupNorm statistics fold stays plain torch through ``group_affine``, as in
+JAX; the kernel takes the folded (a, b). Unlike the TPU path (gated to
+c ≤ 640 by VMEM) the kernel runs at every width, and it always emits the
+stats of its stored output. Design note in the source header.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops.group_norm import group_affine
+
+K_TILE = 32  # the kernel's K tile: cin must be a multiple so no tile straddles taps
+
+launches = 0  # kernel launches by tap_conv
+
+
+def pack_taps(w: torch.Tensor) -> torch.Tensor:
+    """Conv3d weight (cout, cin, 3, 1, 1) → (cout, 3, cin): one (cout, cin)
+    matrix per frame tap, the layout the kernel streams as a (cout, 3·cin)
+    GEMM operand."""
+    cout, cin = w.shape[:2]
+    return w.reshape(cout, cin, 3).permute(0, 2, 1).contiguous()
+
+
+def tap_conv_reference(x, a, b, w, bias, residual):
+    """Plain version: x (bsz, f, s, cin), a/b (bsz, cin) fp32, w (cout, 3,
+    cin), bias (cout,), residual (bsz, f, s, cout) or None →
+    ``(y, (Σy, Σy²))`` with the sums per (bsz, f, cout) of the stored y."""
+    act = F.silu(x.float() * a[:, None, None, :] + b[:, None, None, :])
+    act = act.to(x.dtype).float()
+    prev = F.pad(act[:, :-1], (0, 0, 0, 0, 1, 0))
+    nxt = F.pad(act[:, 1:], (0, 0, 0, 0, 0, 1))
+    # one GEMM with K = 3·cin over [prev ‖ act ‖ next], as the kernel runs it
+    taps = torch.cat([prev, act, nxt], -1)
+    y = taps @ w.float().reshape(w.shape[0], -1).t() + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    yc = y.to(x.dtype)
+    yf = yc.float()
+    return yc, (yf.sum(2), yf.square().sum(2))
+
+
+def _launch(x, a, b, w, bias, residual):
+    bsz, f, s, cin = x.shape
+    cout = w.shape[0]
+    if cin % K_TILE or cout % 8:
+        raise ValueError(f"tap_conv: cin={cin} must be a multiple of {K_TILE}, "
+                         f"cout={cout} of 8")
+    bf, f32 = torch.bfloat16, torch.float32
+    cuda_lib.check_cuda("tap_conv x", x, bf, (bsz, f, s, cin))
+    cuda_lib.check_cuda("tap_conv a", a, f32, (bsz, cin))
+    cuda_lib.check_cuda("tap_conv b", b, f32, (bsz, cin))
+    cuda_lib.check_cuda("tap_conv w", w, bf, (cout, 3, cin))
+    cuda_lib.check_cuda("tap_conv bias", bias, f32, (cout,))
+    if residual is not None:
+        cuda_lib.check_cuda("tap_conv residual", residual, bf, (bsz, f, s, cout))
+    y = torch.empty((bsz, f, s, cout), device=x.device, dtype=bf)
+    s1 = torch.zeros((bsz, f, cout), device=x.device, dtype=f32)
+    s2 = torch.zeros_like(s1)
+    cuda_lib.call("aat_tap_conv", x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+                  bias.data_ptr(), None if residual is None else residual.data_ptr(),
+                  y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz, f, s, cin, cout)
+    global launches
+    launches += 1
+    return y, (s1, s2)
+
+
+def tap_conv(x, a, b, w, bias, residual=None):
+    """One fused stage on the folded affine: see ``tap_conv_reference``.
+    ``w`` is packed (cout, 3, cin)."""
+    dt = x.dtype
+    args = (x, a.float().contiguous(), b.float().contiguous(), w.to(dt).contiguous(),
+            bias.float().contiguous(), None if residual is None else residual.to(dt))
+    if x.device.type == "cpu":
+        return tap_conv_reference(*args)
+    return _launch(*args)
+
+
+def gn_silu_tap_conv(x, gn_scale, gn_bias, w, bias, *, groups: int, eps: float = 1e-5,
+                     residual=None, sums=None):
+    """One TemporalConvLayer stage: GroupNorm(+affine) → SiLU → 3-tap frame
+    conv (zero frames past the ends) → + residual.
+
+    x (bsz, f, s, cin); w the Conv3d weight (cout, cin, 3, 1, 1); GroupNorm
+    statistics per (bsz, group) over (f, s, cin/groups). ``sums``: optional
+    per-(bsz, cin) fp32 (Σx, Σx²) of x from its producer. Returns
+    ``(y, (Σy, Σy²))`` with the sums per (bsz, f, cout) of the stored y."""
+    bsz, f, s, cin = x.shape
+    a, b = group_affine(x.reshape(bsz, f * s, cin), gn_scale, gn_bias, groups, eps,
+                        sums=sums)
+    return tap_conv(x, a, b, pack_taps(w), bias, residual)

@@ -1,0 +1,108 @@
+"""LatentToVideo pipeline: masked image animation from partially noised
+latents — the port of ``animate_anything_tpu/pipelines/latent2video.py``.
+
+- sampling starts from the image latent repeated per frame and noised at
+  the first timestep of the grid;
+- CFG doubles the batch: [negative, positive] prompt embeddings, the same
+  condition latent, mask and motion for both halves;
+- the denoise loop is a plain Python loop over DPM-Solver++ steps, then the
+  VAE decodes every frame.
+
+Text arrives as embeddings (``prompt_embeds`` / ``negative_prompt_embeds``):
+the CLIP text encoder and tokenizer are not part of this port yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from animate_anything_tpu_torch.diffusion import (ddpm_forward_mask,
+                                                  ddpm_forward_timesteps, dpmpp_timesteps,
+                                                  make_schedule, sample_loop)
+from animate_anything_tpu_torch.models.layers import resize_nearest
+from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
+from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, encode_video
+
+
+class LatentToVideoPipeline:
+    def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL):
+        self.unet = unet
+        self.vae = vae
+        self.schedule = make_schedule()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.unet.parameters()).device
+
+    def get_timesteps(self, num_inference_steps: int) -> np.ndarray:
+        return dpmpp_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
+
+    def prepare_init_latents(self, image_latent: torch.Tensor, num_frames: int,
+                             timesteps: np.ndarray, generator: Optional[torch.Generator] = None,
+                             mask: Optional[torch.Tensor] = None,
+                             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """image_latent (b, 1, h, w, 4) → (b, num_frames, h, w, 4) start latents.
+        ``noise`` (fp32, the video latents' shape) overrides the generator."""
+        if mask is not None:
+            return ddpm_forward_mask(self.schedule, image_latent, mask, num_frames, timesteps,
+                                     generator, noise)
+        return ddpm_forward_timesteps(self.schedule, image_latent, num_frames, timesteps,
+                                      generator, noise)
+
+    @torch.no_grad()
+    def __call__(self, *, prompt_embeds: torch.Tensor, negative_prompt_embeds: torch.Tensor,
+                 latents: torch.Tensor, condition_latent: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None, motion: Optional[torch.Tensor] = None,
+                 timesteps: Optional[np.ndarray] = None, num_inference_steps: int = 25,
+                 guidance_scale: float = 9.0):
+        """Returns (video, latents); video is (b, f, 8h, 8w, 3) in [-1, 1]."""
+        if timesteps is None:
+            timesteps = self.get_timesteps(num_inference_steps)
+        b = latents.shape[0]
+        embeds = torch.cat([negative_prompt_embeds, prompt_embeds])
+        cond2 = torch.cat([condition_latent, condition_latent])
+        mask2 = None if mask is None else torch.cat([mask, mask])
+        motion2 = None if motion is None else torch.cat([motion, motion]).float()
+        gs = float(guidance_scale)
+
+        def model_fn(x: torch.Tensor, t: int) -> torch.Tensor:
+            out = self.unet(torch.cat([x, x]), t, embeds, cond2, mask2, motion2)
+            uncond, cond = out[:b], out[b:]
+            return uncond.float() + gs * (cond - uncond).float()
+
+        latents = sample_loop(self.schedule, latents, timesteps, model_fn)
+        return decode_video(self.vae, latents), latents
+
+    @torch.no_grad()
+    def animate_image(self, image: np.ndarray, *, prompt_embeds: torch.Tensor,
+                      negative_prompt_embeds: torch.Tensor,
+                      mask_img: Optional[np.ndarray] = None,
+                      motion_strength: Optional[float] = None, num_frames: int = 16,
+                      num_inference_steps: int = 25, guidance_scale: float = 9.0,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None):
+        """Image → video: encode the image, build the latent mask, seed the
+        start latents, denoise, decode. image (h, w, 3) uint8;
+        mask_img (h, w) uint8 in {0, 255}, 255 = may move."""
+        dev = self.device
+        pixels = torch.as_tensor(np.asarray(image), dtype=torch.float32, device=dev)
+        image_latent = encode_video(self.vae, (pixels / 127.5 - 1.0)[None, None])
+        h8, w8 = image_latent.shape[2], image_latent.shape[3]
+
+        mask = None
+        if mask_img is not None:
+            m = torch.as_tensor(np.asarray(mask_img, np.float32) / 255.0, device=dev)
+            m = resize_nearest(m[None, :, :, None], (h8, w8))[0, :, :, 0]
+            mask = (m >= 0.5).float()[None, None, :, :, None]
+
+        ts = self.get_timesteps(num_inference_steps)
+        latents = self.prepare_init_latents(image_latent, num_frames, ts, generator, mask, noise)
+        motion = None if motion_strength is None else torch.tensor(
+            [motion_strength], dtype=torch.float32, device=dev)
+        return self(prompt_embeds=prompt_embeds.to(dev),
+                    negative_prompt_embeds=negative_prompt_embeds.to(dev),
+                    latents=latents, condition_latent=image_latent, mask=mask, motion=motion,
+                    timesteps=ts, guidance_scale=guidance_scale)

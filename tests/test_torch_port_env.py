@@ -1,0 +1,121 @@
+"""Properties of the PyTorch port that need no JAX reference: it never
+imports JAX, its smoke script refuses to run without a CUDA device, its
+kernel wrappers never fall back to the plain version for a non-CPU tensor,
+and its initialisers draw what the flax ones draw."""
+
+import math
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_importing_the_whole_port_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import animate_anything_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'animate_anything_tpu'))\n"
+        "assert len(names) >= 17, names\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _run_smoke(cwd: Path):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=300, env={"PATH": "/usr/bin:/bin",
+                                                       "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, device="meta", dtype=dtype)
+
+
+@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj"])
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
+    """A tensor that is not on the CPU goes to the kernel path, whose checks
+    refuse anything but a CUDA tensor: there is no silent fallback."""
+    from animate_anything_tpu_torch.ops import flash_attention, geglu, proj_residual, \
+        temporal_conv
+
+    f32 = torch.float32
+    calls = {
+        "flash": lambda: flash_attention.flash_attention(*(_meta(1, 128, 2, 64),) * 3),
+        "geglu": lambda: geglu.ln_geglu_ff(_meta(4, 32), _meta(32, dtype=f32),
+                                           _meta(32, dtype=f32), _meta(256, 32),
+                                           _meta(256, dtype=f32), _meta(32, 128),
+                                           _meta(32, dtype=f32)),
+        "tap_conv": lambda: temporal_conv.tap_conv(_meta(1, 3, 4, 32), _meta(1, 32, dtype=f32),
+                                                   _meta(1, 32, dtype=f32), _meta(32, 3, 32),
+                                                   _meta(32, dtype=f32)),
+        "proj": lambda: proj_residual.proj_residual_stats(_meta(2, 4, 16), _meta(8, 16),
+                                                          _meta(8, dtype=f32), _meta(2, 4, 8)),
+    }
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        calls[op]()
+
+
+def test_kernel_sources_cover_every_entry_point():
+    from animate_anything_tpu_torch.ops import cuda_lib
+
+    text = "\n".join(p.read_text() for p in cuda_lib.sources())
+    for name in cuda_lib._SIGNATURES:
+        assert f"AAT_EXPORT int {name}(" in text
+    assert cuda_lib.library_path().parent == REPO / "build" / "torch_kernels"
+
+
+def test_init_matches_flax_initialisers():
+    from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
+    from animate_anything_tpu_torch.utils.convert import init_unet3d_
+
+    m = init_unet3d_(UNet3DConditionModel(UNet3DConfig.tiny(motion_mask=True,
+                                                             motion_strength=True)),
+                     torch.Generator().manual_seed(0))
+    params = {k: p.detach() for k, p in m.named_parameters()}
+    conv4 = [k for k in params if ".conv4.3." in k]
+    assert conv4 and all(float(params[k].abs().max()) == 0.0 for k in conv4)
+    assert all(float(p.abs().max()) == 0.0 for k, p in params.items() if k.endswith(".bias"))
+    norms = [p for k, p in params.items() if p.ndim == 1 and k.endswith(".weight")]
+    assert norms and all(bool((p == 1).all()) for p in norms)
+    # lecun normal: std 1/sqrt(fan_in), truncated at 2/0.8796 of that
+    w = params["down_blocks.1.resnets.0.conv1.weight"]           # (64, 32, 3, 3)
+    fan_in = 32 * 9
+    assert abs(float(w.std()) * math.sqrt(fan_in) - 1.0) < 0.05
+    assert float(w.abs().max()) * math.sqrt(fan_in) <= 2.0 / 0.87962566103423978 + 1e-6
+
+
+def test_profiler_groups_kernels_and_times_a_call():
+    from animate_anything_tpu_torch.utils.profiling import device_profile, kernel_group
+
+    assert kernel_group("void flash_fwd_kernel<64>(Params)") == "flash_attention (kernel 1)"
+    assert kernel_group("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"
+    assert kernel_group("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul (cuBLAS)"
+    assert kernel_group("nvjet_tst_128x64_64x4") == "matmul (cuBLAS)"
+    assert kernel_group("vectorized_elementwise_kernel<4, silu>") == "elementwise/other"
+    prof = device_profile(lambda: torch.ones(64, 64) @ torch.ones(64, 64))
+    assert prof["wall_ms"] > 0
+    assert prof["kernels"] == [] and prof["kernel_ms"] == 0   # no device on this host
