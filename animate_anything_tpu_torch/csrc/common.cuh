@@ -26,6 +26,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i, and r[i] receives, in lane
+// (g = lane / 4, t = lane % 4), elements [g][2t..2t+1] of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+// Two matrices: lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* smem_row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+// Transposed: r[i] receives elements [2t][g] and [2t+1][g] of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Two floats -> one .b32 register of two bf16, `lo` in the low half (the
 // lower-indexed element of an mma fragment pair).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -72,7 +96,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // (+ residual) is stored as bf16, and Σy, Σy² of the STORED values are added
 // into the per-(slab, channel) fp32 sums, a slab being slab_rows consecutive
 // rows.  Blocks finish in no order, so the sums are fp32 atomics into buffers
-// the wrapper zeroed, one per column and slab run of the tile.
+// the wrapper zeroed, one per column and slab run of the tile.  With s1 null
+// only y is stored.
 template <int TM, int TN, int THREADS, int CLD>
 __device__ __forceinline__ void bias_residual_stats(
     const float* Cs, const float* __restrict__ bias, const bf16* __restrict__ res,
@@ -88,9 +113,10 @@ __device__ __forceinline__ void bias_residual_stats(
   int slab = (m0 + r_begin) / slab_rows;
   int slab_end = (slab + 1) * slab_rows;
   float a1 = 0.f, a2 = 0.f;
+  const bool sums = s1 != nullptr;
   for (int r = r_begin; r < r_end; ++r) {
     const int row = m0 + r;
-    if (row == slab_end) {
+    if (sums && row == slab_end) {
       atomicAdd(s1 + (size_t)slab * N + gc, a1);
       atomicAdd(s2 + (size_t)slab * N + gc, a2);
       a1 = a2 = 0.f;
@@ -106,6 +132,7 @@ __device__ __forceinline__ void bias_residual_stats(
     a1 += vr;
     a2 += vr * vr;
   }
+  if (!sums) return;
   atomicAdd(s1 + (size_t)slab * N + gc, a1);
   atomicAdd(s2 + (size_t)slab * N + gc, a2);
 }

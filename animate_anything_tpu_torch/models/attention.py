@@ -1,15 +1,20 @@
 """Spatial and temporal transformer modules — the port of
 ``animate_anything_tpu/models/attention.py`` on its ``attn_impl="pallas"``
-path, with the temporal blocks on the composite (non-fused) branch.
+path.
 
 - spatial: seq = h·w per frame, batch = b·f; self-attention through kernel
   1 (ops/attention.py), cross-attention over the text tokens plain; the
   feed-forward tail through kernel 2; the output projection + residual +
   GroupNorm sums through kernel 4.
-- temporal: seq = f per spatial location on the (b, f, h·w, c) view; the
-  einsum frame attention and the exact-erf GEGLU feed-forward are plain
-  torch, as the JAX composite ``TemporalBasicBlock``; the output projection
-  runs kernel 4.
+- temporal: seq = f per spatial location on the (b, f, h·w, inner) view,
+  inner = heads·head_dim. JAX's gate ``fused_ok(f, inner, heads, head_dim)``
+  picks the branch, as in its ``TemporalTransformer._hidden``: the fused
+  branch runs norm1+attn1 and norm2+attn2 each as kernel 5 and the
+  norm3+feed-forward tail as kernel 2 (tanh GELU); the composite branch
+  runs the einsum frame attention and the exact-erf GEGLU feed-forward in
+  plain torch. At full width every temporal transformer takes the fused
+  branch, ``transformer_in`` (inner = 8 × 64 = 512 on 320 channels)
+  included. The output projection runs kernel 4.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from animate_anything_tpu_torch.ops.attention import attention
 from animate_anything_tpu_torch.ops.geglu import ln_geglu_ff
 from animate_anything_tpu_torch.ops.proj_residual import proj_residual_stats
 from animate_anything_tpu_torch.ops.temporal_attention import temporal_attention
+from animate_anything_tpu_torch.ops.temporal_block import fused_ok, temporal_block
 
 
 class CrossAttention(nn.Module):
@@ -149,8 +155,10 @@ class TemporalSelfAttention(nn.Module):
 
 class TemporalBasicBlock(nn.Module):
     """Double-self-attention block on (b, f, s, c): LN → frame attention ×2 →
-    LN → GEGLU feed-forward (exact erf), each with a residual. Keys as
-    BasicTransformerBlock."""
+    LN → GEGLU feed-forward, each with a residual. Keys as
+    BasicTransformerBlock. ``fused``: each LN + attention through kernel 5,
+    the tail through kernel 2 (tanh GELU); otherwise plain torch with the
+    exact-erf GELU."""
 
     def __init__(self, dim: int, heads: int, head_dim: int):
         super().__init__()
@@ -161,8 +169,14 @@ class TemporalBasicBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, fused: bool) -> torch.Tensor:
         dt = self.attn1.to_q.weight.dtype
+        if fused:
+            for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
+                h = temporal_block(h.to(dt), norm.weight, norm.bias, attn.to_q.weight,
+                                   attn.to_k.weight, attn.to_v.weight, attn.to_out[0].weight,
+                                   attn.to_out[0].bias, heads=attn.heads, eps=norm.eps)
+            return self.ff.fused_tail(h.to(dt), self.norm3)
         h = h + self.attn1(layer_norm(h, self.norm1, dt))
         h = h + self.attn2(layer_norm(h, self.norm2, dt))
         return h + self.ff(layer_norm(h, self.norm3, dt))
@@ -177,6 +191,7 @@ class TemporalTransformer(nn.Module):
                  groups: int = 32):
         super().__init__()
         inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
         self.norm = FusedGroupNorm(channels, groups, eps=1e-6)
         self.proj_in = Linear(channels, inner)
         self.transformer_blocks = nn.ModuleList(
@@ -191,8 +206,9 @@ class TemporalTransformer(nn.Module):
         b = bf // num_frames
         h = self.norm(x.reshape(b, num_frames, hh, ww, c), sums=entry_sums)
         h = self.proj_in(h.reshape(b, num_frames, hh * ww, c))
+        fused = fused_ok(num_frames, self.heads * self.head_dim, self.heads, self.head_dim)
         for block in self.transformer_blocks:
-            h = block(h)
+            h = block(h, fused)
         dt = self.proj_out.weight.dtype
         y, sums = proj_residual_stats(h.reshape(bf, hh * ww, -1).to(dt), self.proj_out.weight,
                                       self.proj_out.bias, x.reshape(bf, hh * ww, c).to(dt))

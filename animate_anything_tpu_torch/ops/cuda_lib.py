@@ -34,6 +34,9 @@ _SIGNATURES = {
     "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # h, w, bias, res, y, s1, s2, n, s, k, c, stream
     "aat_proj_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, ln_s, ln_b, wq, wk, wv, wo, bo, o, y, b, f, s, c, heads, eps, scale, stream
+    "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                           _P],
 }
 
 _lock = threading.Lock()
@@ -67,20 +70,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels if the library for the current sources is missing.
-    The ptxas report (registers, shared memory, spills) lands beside it as
-    ``.log``."""
+    """Compile the kernels if the library for the current sources is missing:
+    one ``nvcc -c`` per source, all started together, then one link. The
+    ptxas report (registers, shared memory, spills) lands beside the library
+    as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    compile_flags = [fl for fl in NVCC_FLAGS if fl != "-shared"]
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode})")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(o) for o, _ in jobs]],
+                              capture_output=True, text=True, check=False)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    log = "".join(logs)
+    out.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log[-8000:]}")
     os.replace(tmp, out)
     return out
 

@@ -25,11 +25,15 @@ HEAD_DIMS = (32, 64, 128)
 launches = 0  # kernel launches by flash_attention (reset by callers that count)
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        is_causal: bool = False) -> torch.Tensor:
     """Plain version: softmax(q·kᵀ/√d)·v over (B, S, H, D) in fp32, cast back
-    to q's dtype."""
+    to q's dtype. ``is_causal``: query i attends keys ≤ i."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if is_causal:
+        keep = torch.ones(scores.shape[-2:], dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
     out = torch.einsum("bhqk,bkhd->bqhd", scores.softmax(dim=-1), v.float())
     return out.to(q.dtype)
 

@@ -8,8 +8,9 @@ latents — the port of ``animate_anything_tpu/pipelines/latent2video.py``.
 - the denoise loop is a plain Python loop over DPM-Solver++ steps, then the
   VAE decodes every frame.
 
-Text arrives as embeddings (``prompt_embeds`` / ``negative_prompt_embeds``):
-the CLIP text encoder and tokenizer are not part of this port yet.
+``animate_image(image, prompt)`` encodes its prompt (and the empty negative
+prompt) through the pipeline's tokenizer and CLIP text encoder
+(``encode_prompt``), as JAX's does; ``__call__`` takes the embeddings.
 """
 
 from __future__ import annotations
@@ -22,23 +23,49 @@ import torch
 from animate_anything_tpu_torch.diffusion import (ddpm_forward_mask,
                                                   ddpm_forward_timesteps, dpmpp_timesteps,
                                                   make_schedule, sample_loop)
+from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
 from animate_anything_tpu_torch.models.layers import resize_nearest
 from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
 from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, encode_video
 
 
 class LatentToVideoPipeline:
-    def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL):
+    def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL,
+                 text_encoder: Optional[CLIPTextModel] = None, tokenizer=None):
+        """tokenizer: ``models/tokenizers.py::HashTokenizer`` or
+        ``models/clip_tokenizer.py::CLIPBPETokenizer`` (called as HF's)."""
         self.unet = unet
         self.vae = vae
+        self.text_encoder = text_encoder
+        self.tokenizer = tokenizer
         self.schedule = make_schedule()
 
     @property
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
 
-    def get_timesteps(self, num_inference_steps: int) -> np.ndarray:
-        return dpmpp_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
+    @torch.no_grad()
+    def encode_prompt(self, prompt, negative_prompt=""):
+        """Prompt(s) → (prompt_embeds, negative_prompt_embeds), each (n, seq,
+        hidden) fp32: one text-encoder call on the prompts and then the
+        negatives, padded to the tokenizer's length."""
+        if self.tokenizer is None or self.text_encoder is None:
+            raise ValueError("pipeline built without text encoder/tokenizer")
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        negs = ([negative_prompt] * len(prompts) if isinstance(negative_prompt, str)
+                else list(negative_prompt))
+        ids = self.tokenizer(prompts + negs, padding="max_length", truncation=True,
+                             max_length=77, return_tensors="np").input_ids
+        dev = next(self.text_encoder.parameters()).device
+        embeds = self.text_encoder(torch.as_tensor(np.asarray(ids), device=dev))
+        return embeds[:len(prompts)], embeds[len(prompts):]
+
+    def get_timesteps(self, num_inference_steps: int,
+                      t_start_fraction: float = 0.0) -> np.ndarray:
+        """The DPM-Solver++ grid; ``t_start_fraction`` > 0 drops that share
+        of its noisiest steps (the truncated schedule)."""
+        ts = dpmpp_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
+        return ts[int(len(ts) * t_start_fraction):]
 
     def prepare_init_latents(self, image_latent: torch.Tensor, num_frames: int,
                              timesteps: np.ndarray, generator: Optional[torch.Generator] = None,
@@ -77,16 +104,16 @@ class LatentToVideoPipeline:
         return decode_video(self.vae, latents), latents
 
     @torch.no_grad()
-    def animate_image(self, image: np.ndarray, *, prompt_embeds: torch.Tensor,
-                      negative_prompt_embeds: torch.Tensor,
+    def animate_image(self, image: np.ndarray, prompt: str, *,
                       mask_img: Optional[np.ndarray] = None,
                       motion_strength: Optional[float] = None, num_frames: int = 16,
                       num_inference_steps: int = 25, guidance_scale: float = 9.0,
+                      t_start_fraction: float = 0.0,
                       generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None):
-        """Image → video: encode the image, build the latent mask, seed the
-        start latents, denoise, decode. image (h, w, 3) uint8;
-        mask_img (h, w) uint8 in {0, 255}, 255 = may move."""
+        """Image + prompt → video: encode the prompt and the image, build the
+        latent mask, seed the start latents, denoise, decode. image (h, w, 3)
+        uint8; mask_img (h, w) uint8 in {0, 255}, 255 = may move."""
         dev = self.device
         pixels = torch.as_tensor(np.asarray(image), dtype=torch.float32, device=dev)
         image_latent = encode_video(self.vae, (pixels / 127.5 - 1.0)[None, None])
@@ -98,10 +125,11 @@ class LatentToVideoPipeline:
             m = resize_nearest(m[None, :, :, None], (h8, w8))[0, :, :, 0]
             mask = (m >= 0.5).float()[None, None, :, :, None]
 
-        ts = self.get_timesteps(num_inference_steps)
+        ts = self.get_timesteps(num_inference_steps, t_start_fraction)
         latents = self.prepare_init_latents(image_latent, num_frames, ts, generator, mask, noise)
         motion = None if motion_strength is None else torch.tensor(
             [motion_strength], dtype=torch.float32, device=dev)
+        prompt_embeds, negative_prompt_embeds = self.encode_prompt(prompt)
         return self(prompt_embeds=prompt_embeds.to(dev),
                     negative_prompt_embeds=negative_prompt_embeds.to(dev),
                     latents=latents, condition_latent=image_latent, mask=mask, motion=motion,

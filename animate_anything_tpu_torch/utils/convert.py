@@ -1,16 +1,18 @@
 """Weight carry-over from the JAX package, and the flax initialisers in torch.
 
-``unet3d_state_dict`` / ``vae_state_dict`` take the JAX package's param trees
-(nested dicts of numpy-convertible arrays, optionally under ``"params"``)
-and return the port's state dicts in the diffusers key layout. They are a
-numpy-only copy of ``animate_anything_tpu/utils/import_torch.py``
-(``_flatten_tree``, ``_unflatten_lists``, ``_export_tensor``,
-``export_unet3d``, ``export_vae``), so this module needs no JAX.
+``unet3d_state_dict`` / ``vae_state_dict`` / ``clip_text_state_dict`` take
+the JAX package's param trees (nested dicts of numpy-convertible arrays,
+optionally under ``"params"``) and return the port's state dicts in the
+diffusers / HF key layout. They are a numpy-only copy of
+``animate_anything_tpu/utils/import_torch.py`` (``_flatten_tree``,
+``_unflatten_lists``, ``_export_tensor``, ``export_unet3d``, ``export_vae``,
+``export_clip_text``), so this module needs no JAX.
 
-``init_unet3d_`` / ``init_vae_`` draw fresh weights the way the flax modules
-initialise theirs (lecun-normal kernels, zero biases, unit norm scales, the
-zero-initialised last temporal conv), from an explicit ``torch.Generator``;
-the machine with the card has no JAX.
+``init_unet3d_`` / ``init_vae_`` / ``init_clip_text_`` draw fresh weights the
+way the flax modules initialise theirs (lecun-normal kernels, zero biases,
+unit norm scales, the zero-initialised last temporal conv, normal
+embeddings), from an explicit ``torch.Generator``; the machine with the card
+has no JAX.
 """
 
 from __future__ import annotations
@@ -84,6 +86,22 @@ def unet3d_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def clip_text_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextModel`` params → the port's state dict (HF key layout)."""
+    tree = params.get("params", params)
+    out = {}
+    for key, w in _flatten_tree(tree).items():
+        k = _unflatten_lists(key)
+        k = re.sub(r"^layers\.", "encoder.layers.", k)
+        k = re.sub(r"\.([qkv]_proj|out_proj)\.", r".self_attn.\1.", k)
+        k = k.replace(".fc1.", ".mlp.fc1.").replace(".fc2.", ".mlp.fc2.")
+        if k.startswith(("token_embedding.", "position_embedding.")):
+            k = "embeddings." + k
+        k, w = _export_tensor(k, np.asarray(w), False)
+        out["text_model." + k] = _to_torch(w)
+    return out
+
+
 def vae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``AutoencoderKL`` params → the port's state dict."""
     tree = params.get("params", params)
@@ -144,4 +162,23 @@ def init_unet3d_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
 
 def init_vae_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     _init_flax_(module, generator)
+    return module
+
+
+@torch.no_grad()
+def init_clip_text_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw the CLIP text encoder's weights as the flax modules do: embeddings
+    by ``nn.Embed``'s default (variance scaling 1, fan-in, normal: N(0, 1/hidden)
+    over an (vocab, hidden) table), lecun-normal Dense kernels, zero biases,
+    unit LayerNorm scales."""
+    for name, p in module.named_parameters():
+        if name.endswith("embedding.weight"):
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
+                    / math.sqrt(p.shape[1]))
+        elif name.endswith(".bias"):
+            p.zero_()
+        elif p.ndim == 1:
+            p.fill_(1.0)
+        else:
+            _lecun_normal_(p, p.shape[1], generator)
     return module

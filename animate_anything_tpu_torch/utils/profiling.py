@@ -2,10 +2,11 @@
 
     python -m animate_anything_tpu_torch.utils.profiling
 
-Builds the full-width mask+motion UNet and the SD VAE in bf16 from a seeded
-generator, as ``chip_smoke.py`` does, then profiles one CFG UNet forward
-(batch 2 × (16 + 1) frames at 64×64 latents, one denoise step) and one
-16-frame VAE decode with ``torch.profiler``. For each it prints the wall
+Builds the full-width mask+motion UNet, the SD VAE and the CLIP text encoder
+in bf16 from a seeded generator, as ``chip_smoke.py`` does, then profiles
+one CFG UNet forward (batch 2 × (16 + 1) frames at 64×64 latents, one
+denoise step), one 16-frame VAE decode and one text encode (a prompt and
+the empty negative, 77 tokens each) with ``torch.profiler``. For each it prints the wall
 time, the device kernel time, the device idle share (1 − kernel time / wall
 time; one stream, so kernels do not overlap), the kernel time by group, and
 the largest kernels. The last line is one JSON object with those numbers.
@@ -26,6 +27,7 @@ KERNEL_GROUPS = (
     ("ln_geglu (kernel 2)", ("ln_geglu",)),
     ("tap_conv (kernel 3)", ("tap_conv",)),
     ("proj_residual (kernel 4)", ("proj_residual",)),
+    ("temporal_block (kernel 5)", ("temporal_block",)),
     ("conv (cuDNN)", ("conv", "fprop", "implicit", "cudnn", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "cublas", "matmul", "bmm", "nvjet")),
     ("softmax", ("softmax",)),
@@ -97,8 +99,10 @@ def main(seed: int = 0) -> int:
         raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
     from animate_anything_tpu_torch.core.dtypes import cast_module_
     from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
+    from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
+    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
     from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig, decode_video
-    from animate_anything_tpu_torch.utils.convert import init_unet3d_, init_vae_
+    from animate_anything_tpu_torch.utils.convert import init_clip_text_, init_unet3d_, init_vae_
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -108,6 +112,11 @@ def main(seed: int = 0) -> int:
         vae = AutoencoderKL(VAEConfig())
     cast_module_(init_unet3d_(unet, gen)).eval()
     cast_module_(init_vae_(vae, gen)).eval()
+    with torch.device("cuda"):
+        text = CLIPTextModel()
+    cast_module_(init_clip_text_(text, gen)).eval()
+    ids = torch.as_tensor(HashTokenizer()(["a red ball rolls across a wooden table", ""],
+                                          padding="max_length").input_ids, device="cuda")
 
     x = torch.randn(2, 16, 64, 64, 4, generator=gen, device="cuda")
     cond = torch.randn(2, 1, 64, 64, 4, generator=gen, device="cuda").to(torch.bfloat16)
@@ -123,8 +132,13 @@ def main(seed: int = 0) -> int:
     def vae_decode():
         return decode_video(vae, x[:1])
 
+    @torch.no_grad()
+    def text_encode():
+        return text(ids)
+
     out = {}
-    for name, fn in (("unet_cfg_forward", unet_forward), ("vae_decode_16f", vae_decode)):
+    for name, fn in (("unet_cfg_forward", unet_forward), ("vae_decode_16f", vae_decode),
+                     ("clip_text_encode_2x77", text_encode)):
         out[name] = device_profile(fn)
         _report(name, out[name])
         out[name]["kernels"] = out[name]["kernels"][:20]

@@ -7,11 +7,18 @@
 2. builds the hand-written Hopper kernels from ``animate_anything_tpu_torch/csrc``;
 3. checks each kernel against its plain PyTorch version at the main path's
    shapes (bf16 inputs; the plain version computes in fp32 on the same
-   inputs) and times both with CUDA events;
-4. builds the full-width mask+motion UNet and the SD VAE in bf16 from a seeded
-   generator and answers two 512x512 / 16-frame image-to-video requests
-   through ``LatentToVideoPipeline.animate_image`` (CFG 9, DPM-Solver++);
-5. checks that every kernel was launched during the requests, prints one JSON
+   inputs) and times both with CUDA events; times one temporal transformer
+   per width on its fused path (kernel 5 + kernel 2) against the composite
+   path;
+4. runs a small UNet on the card through the kernels (every temporal site on
+   the fused path) and holds it against the same weights through the plain
+   versions on the CPU;
+5. builds the full-width mask+motion UNet, the SD VAE and the CLIP text
+   encoder in bf16 from a seeded generator and answers two 512x512 /
+   16-frame image-to-video requests, each an image and a prompt string
+   (hash tokenizer), through ``LatentToVideoPipeline.animate_image`` (CFG 9,
+   DPM-Solver++);
+6. checks that every kernel was launched during the requests, prints one JSON
    line with the kernels' numbers, and last the device line.
 
 Exits non-zero without a CUDA device, or when any phase fails.
@@ -45,6 +52,11 @@ REQUESTS = 2
 FRAMES = 16
 RES = 512
 GUIDANCE = 9.0
+PROMPTS = ("a red ball rolls across a wooden table", "clouds drift over a mountain lake")
+# The full-width temporal sites: (locations h·w, width c) at f = 17, b = 2
+# (CFG); heads = c / 64. (4096, 512) is transformer_in (8 heads x 64 on 320
+# channels).
+TEMPORAL_SITES = ((4096, 512), (4096, 320), (1024, 640), (256, 1280), (64, 1280))
 
 
 def log(msg: str) -> None:
@@ -129,7 +141,8 @@ def check_geglu(gen) -> dict:
     from animate_anything_tpu_torch.ops import geglu
 
     total_ms = total_plain = max_err = 0.0
-    for n, c in ((34 * 4096, 320), (34 * 1024, 640), (34 * 256, 1280), (34 * 64, 1280)):
+    for n, c in ((34 * 4096, 320), (34 * 4096, 512), (34 * 1024, 640), (34 * 256, 1280),
+                 (34 * 64, 1280)):
         x = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
         s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
         b = 0.1 * torch.randn(c, generator=gen, device="cuda")
@@ -213,7 +226,37 @@ def check_proj_residual(gen) -> dict:
                 max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
 
 
-KERNEL_CHECKS = (check_flash, check_geglu, check_tap_conv, check_proj_residual)
+def check_temporal_block(gen) -> dict:
+    from animate_anything_tpu_torch.ops import temporal_block as tb
+
+    total_ms = total_plain = max_err = 0.0
+    b, f = 2, FRAMES + 1
+    for s, c in TEMPORAL_SITES:
+        heads = c // 64
+        x = torch.randn(b, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+        ln_s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        ln_b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        ws = [_lecun(gen, c, c, fan_in=c) for _ in range(4)]
+        bo = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        args = (x, ln_s, ln_b, *ws, bo)
+        got = tb.temporal_block(*args, heads=heads)
+        want = tb.temporal_block_reference(*args, heads=heads)
+        tag = f"temporal_block b={b} f={f} s={s} c={c} heads={heads}"
+        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        err = _err(got, want)
+        ms = cuda_ms(lambda: tb.temporal_block(*args, heads=heads))
+        plain = cuda_ms(lambda: tb.temporal_block_reference(*args, heads=heads), warmup=1,
+                        iters=3)
+        log(f"  {tag}: max|err| {err:.3g}  kernel {ms:.3f} ms  plain {plain:.3f} ms")
+        total_ms, total_plain, max_err = total_ms + ms, total_plain + plain, max(max_err, err)
+    return dict(name="temporal_block", route="cuda",
+                source="animate_anything_tpu_torch/csrc/temporal_block.cu",
+                replaces="animate_anything_tpu/ops/temporal_block.py:399",
+                max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
+
+
+KERNEL_CHECKS = (check_flash, check_geglu, check_tap_conv, check_proj_residual,
+                 check_temporal_block)
 
 
 def check_kernels(seed: int = 0) -> list[dict]:
@@ -226,10 +269,42 @@ def check_kernels(seed: int = 0) -> list[dict]:
 
 
 def kernel_modules() -> dict:
-    from animate_anything_tpu_torch.ops import flash_attention, geglu, proj_residual, temporal_conv
+    from animate_anything_tpu_torch.ops import (flash_attention, geglu, proj_residual,
+                                                temporal_block, temporal_conv)
 
     return {"flash_attention": flash_attention, "ln_geglu_ff": geglu,
-            "tap_conv": temporal_conv, "proj_residual_stats": proj_residual}
+            "tap_conv": temporal_conv, "proj_residual_stats": proj_residual,
+            "temporal_block": temporal_block}
+
+
+def time_temporal_paths(seed: int = 0) -> None:
+    """One full-width temporal transformer per site, bf16: its forward on the
+    fused path (what the gate picks) against the composite path (the gate
+    forced off: plain frame attention, exact-erf feed-forward)."""
+    from animate_anything_tpu_torch.core.dtypes import cast_module_
+    from animate_anything_tpu_torch.models import attention
+    from animate_anything_tpu_torch.models.attention import TemporalTransformer
+    from animate_anything_tpu_torch.utils.convert import init_unet3d_
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gate = attention.fused_ok
+    for s, c in TEMPORAL_SITES:
+        channels, heads = (320, 8) if c == 512 else (c, c // 64)
+        with torch.device("cuda"):
+            tt = TemporalTransformer(channels, heads, 64)
+        cast_module_(init_unet3d_(tt, gen)).eval()
+        hw = int(s ** 0.5)
+        x = torch.randn(2 * (FRAMES + 1), hw, hw, channels, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            fused = cuda_ms(lambda: tt(x, FRAMES + 1))
+            attention.fused_ok = lambda *a, **k: False
+            try:
+                composite = cuda_ms(lambda: tt(x, FRAMES + 1))
+            finally:
+                attention.fused_ok = gate
+        log(f"  temporal transformer s={s} channels={channels} inner={heads * 64}: "
+            f"fused {fused:.3f} ms  composite {composite:.3f} ms")
 
 
 # A small UNet whose every kernel site is kernel-eligible (head dim 32, 16x16
@@ -261,13 +336,20 @@ def check_small_unet(seed: int = 0) -> float:
     with torch.no_grad():
         want = ref(sample, 500, ctx, cond, mask, motion)
         gpu = cast_module_(ref.to("cuda"))
+        mods = kernel_modules()
+        for mod in mods.values():
+            mod.launches = 0
         got = gpu(sample.cuda(), 500, ctx.cuda(), cond.cuda(), mask.cuda(),
                   motion.cuda()).float().cpu()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"small UNet: kernels never launched: {missing}")
     if not torch.isfinite(got).all():
         raise AssertionError("small UNet: non-finite output on the card")
     rel = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
     log(f"small UNet forward, card (kernels, bf16) vs CPU (plain, fp32): relative RMS {rel:.4g}"
-        f" (limit {SMALL_REL_RMS})")
+        f" (limit {SMALL_REL_RMS}); launches {launches}")
     if rel > SMALL_REL_RMS:
         raise AssertionError(f"small UNet disagrees with its CPU reference: {rel:.4g}")
     return rel
@@ -276,41 +358,39 @@ def check_small_unet(seed: int = 0) -> float:
 def build_pipeline(seed: int = 0):
     from animate_anything_tpu_torch.core.dtypes import cast_module_
     from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
+    from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
+    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
     from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig
     from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
-    from animate_anything_tpu_torch.utils.convert import init_unet3d_, init_vae_
+    from animate_anything_tpu_torch.utils.convert import init_clip_text_, init_unet3d_, init_vae_
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("cuda"):
         unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True))
         vae = AutoencoderKL(VAEConfig())
-    init_unet3d_(unet, gen)
-    init_vae_(vae, gen)
-    cast_module_(unet)
-    cast_module_(vae)
-    n_params = sum(p.numel() for p in unet.parameters())
-    log(f"unet: {n_params / 1e9:.3f} B params, vae: "
-        f"{sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M params (bf16 weights)")
-    return LatentToVideoPipeline(unet.eval(), vae.eval())
+        text = CLIPTextModel()
+    for module, init in ((unet, init_unet3d_), (vae, init_vae_), (text, init_clip_text_)):
+        cast_module_(init(module, gen)).eval()
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log(f"unet: {count(unet) / 1e9:.3f} B params, vae: {count(vae) / 1e6:.1f} M, "
+        f"CLIP text: {count(text) / 1e6:.1f} M (bf16 weights)")
+    return LatentToVideoPipeline(unet, vae, text_encoder=text, tokenizer=HashTokenizer())
 
 
 def make_requests(seed: int = 0) -> list[dict]:
-    """Two image-to-video requests: image, motion mask, strength, prompt
-    embeddings — each its own."""
+    """Two image-to-video requests: image, motion mask, strength, prompt —
+    each its own."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     reqs = []
-    for _ in range(REQUESTS):
+    for prompt in PROMPTS[:REQUESTS]:
         image = rng.integers(0, 256, (RES, RES, 3), dtype=np.uint8)
         mask = np.zeros((RES, RES), np.uint8)
         y0, x0 = rng.integers(0, RES // 2, 2)
         mask[y0:y0 + RES // 2, x0:x0 + RES // 2] = 255
-        reqs.append(dict(
-            image=image, mask_img=mask, motion_strength=float(rng.uniform(2.0, 10.0)),
-            prompt_embeds=torch.randn(1, 77, 1024, generator=gen, device="cuda"),
-            negative_prompt_embeds=torch.randn(1, 77, 1024, generator=gen, device="cuda")))
+        reqs.append(dict(image=image, prompt=prompt, mask_img=mask,
+                         motion_strength=float(rng.uniform(2.0, 10.0))))
     return reqs
 
 
@@ -364,6 +444,8 @@ def main() -> int:
 
     log("kernel checks (kernel vs plain version, bf16 inputs):")
     rows = check_kernels()
+    log("temporal transformers, fused vs composite path (bf16, b=2, f=17):")
+    time_temporal_paths()
     check_small_unet()
 
     launches = run_requests()

@@ -24,7 +24,9 @@ def test_importing_the_whole_port_never_imports_jax():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'animate_anything_tpu'))\n"
-        "assert len(names) >= 17, names\n"
+        "assert len(names) >= 21, names\n"
+        "assert {pkg.__name__ + '.' + m for m in ('ops.temporal_block', 'models.clip_text',\n"
+        "        'models.clip_tokenizer', 'models.tokenizers')} <= set(names), names\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -55,12 +57,12 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, device="meta", dtype=dtype)
 
 
-@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj"])
+@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj", "temporal_block"])
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
     """A tensor that is not on the CPU goes to the kernel path, whose checks
     refuse anything but a CUDA tensor: there is no silent fallback."""
     from animate_anything_tpu_torch.ops import flash_attention, geglu, proj_residual, \
-        temporal_conv
+        temporal_block, temporal_conv
 
     f32 = torch.float32
     calls = {
@@ -74,6 +76,9 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
                                                    _meta(32, dtype=f32)),
         "proj": lambda: proj_residual.proj_residual_stats(_meta(2, 4, 16), _meta(8, 16),
                                                           _meta(8, dtype=f32), _meta(2, 4, 8)),
+        "temporal_block": lambda: temporal_block.temporal_block(
+            _meta(1, 4, 8, 64), _meta(64, dtype=f32), _meta(64, dtype=f32),
+            *(_meta(64, 64),) * 4, _meta(64, dtype=f32), heads=2),
     }
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         calls[op]()
@@ -86,6 +91,22 @@ def test_kernel_sources_cover_every_entry_point():
     for name in cuda_lib._SIGNATURES:
         assert f"AAT_EXPORT int {name}(" in text
     assert cuda_lib.library_path().parent == REPO / "build" / "torch_kernels"
+
+
+@pytest.mark.parametrize("source,replaces", [
+    ("flash_attention.cu", "ops/flash_attention.py::_flash_forward"),
+    ("geglu.cu", "ops/geglu.py::_pallas_ln_geglu"),
+    ("temporal_conv.cu", "ops/temporal_conv.py::_pallas_stage"),
+    ("proj_residual.cu", "ops/proj_residual.py::_pallas_proj"),
+    ("temporal_block.cu", "ops/temporal_block.py::_build_bfsc"),
+])
+def test_every_kernel_source_names_the_tpu_kernel_it_replaces(source, replaces):
+    from animate_anything_tpu_torch.ops import cuda_lib
+
+    path = cuda_lib.CSRC / source
+    assert path in cuda_lib.sources()
+    header = path.read_text().split("#include", 1)[0]
+    assert "animate_anything_tpu/" + replaces in header.replace("\n// ", " ")
 
 
 def test_init_matches_flax_initialisers():

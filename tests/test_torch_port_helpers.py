@@ -9,8 +9,11 @@ compile), and carried into the port with ``utils/convert.py`` and
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -56,3 +59,16 @@ def n(x) -> np.ndarray:
 def load_into(module: torch.nn.Module, state: dict) -> torch.nn.Module:
     module.load_state_dict(state, strict=True)
     return module.eval()
+
+
+@contextlib.contextmanager
+def composite_temporal():
+    """Both sides on the composite temporal path: JAX's gate ``fused_ok`` and
+    the port's copy of it (as ``models/attention.py`` uses it) answer False."""
+    from animate_anything_tpu.ops import temporal_block
+    from animate_anything_tpu_torch.models import attention
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(temporal_block, "fused_ok", lambda *a, **k: False)
+        mp.setattr(attention, "fused_ok", lambda *a, **k: False)
+        yield

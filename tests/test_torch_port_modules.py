@@ -2,10 +2,12 @@
 
 One numpy-drawn JAX param tree drives both sides: it is carried into the
 port by ``utils/convert.py`` and loaded with ``strict=True``. The JAX side
-runs its ``attn_impl="pallas"`` path (the Pallas kernels in interpret mode,
-the fused temporal block gated off through ``fused_ok``, as the port's
-slice does). Tolerance 5e-5 absolute: fp32 accumulation-order noise through
-a few stacked matmuls on magnitude-1 activations.
+runs its ``attn_impl="pallas"`` path (the Pallas kernels in interpret mode);
+the temporal-transformer cases here pin both sides to the composite path
+through ``fused_ok`` (the fused path is held in
+``test_torch_port_temporal_block.py``). Tolerance 5e-5 absolute: fp32
+accumulation-order noise through a few stacked matmuls on magnitude-1
+activations.
 """
 
 import jax.numpy as jnp
@@ -14,16 +16,16 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import test_torch_port_helpers as helpers
 from test_torch_port_helpers import jax_params, load_into, n, t
 
 ATOL = 5e-5
 
 
 @pytest.fixture
-def composite_temporal(monkeypatch):
-    from animate_anything_tpu.ops import temporal_block
-
-    monkeypatch.setattr(temporal_block, "fused_ok", lambda *a, **k: False)
+def composite_temporal():
+    with helpers.composite_temporal():
+        yield
 
 
 def _sd(params, prefix: str = ""):

@@ -1,18 +1,19 @@
 """The port's image-to-video pipeline against the JAX package's, end to end
 on the CPU in fp32: ``LatentToVideoPipeline.animate_image`` with the tiny
-mask+motion UNet (``attn_impl="pallas"``, flash in interpret mode, the fused
-temporal block gated off as in the port's slice), the tiny VAE, 2
-DPM-Solver++ steps under CFG 9.
+mask+motion UNet (``attn_impl="pallas"``, flash in interpret mode, the
+temporal blocks on the composite path on both sides through ``fused_ok``),
+the tiny VAE, 2 DPM-Solver++ steps under CFG 9. The fused temporal path,
+with the prompt encoded by the CLIP text encoder, is held in
+``test_torch_port_clip.py``.
 
-The JAX pipeline takes a prompt string and encodes it; this repository has
-no tokenizer files, so its ``encode_prompt`` is replaced, for this test
-only, by one that returns the shared embeddings. The noise JAX draws for
-the start latents is drawn again from the same key and handed to the port.
-Tolerances: CFG 9 multiplies the difference of two UNet outputs by 9, on
-top of fp32 noise through UNet, sampler and VAE. With random weights the
-latents reach magnitude ~90, so theirs is relative to the largest value,
-2e-5·max|want| (5e-6 measured); the decoded video (magnitude ~3) is held at
-2e-4 absolute (1.5e-5 measured).
+Both pipelines take a prompt string; here ``encode_prompt`` is replaced on
+both sides by one that returns shared random embeddings. The noise JAX
+draws for the start latents is drawn again from the same key and handed to
+the port. Tolerances: CFG 9 multiplies the difference of two UNet outputs
+by 9, on top of fp32 noise through UNet, sampler and VAE. With random
+weights the latents reach magnitude ~90, so theirs is relative to the
+largest value, 2e-5·max|want| (5e-6 measured); the decoded video (magnitude
+~3) is held at 2e-4 absolute (1.5e-5 measured).
 """
 
 import jax
@@ -22,7 +23,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from test_torch_port_helpers import jax_params, load_into, n, t
+from test_torch_port_helpers import composite_temporal, jax_params, load_into, n, t
 
 VIDEO_ATOL, LATENT_REL = 2e-4, 2e-5
 FRAMES, STEPS, RES = 3, 2, 128
@@ -34,7 +35,6 @@ def case():
     from animate_anything_tpu.models import UNet3DConfig as JaxCfg
     from animate_anything_tpu.models.vae import AutoencoderKL as JaxVAE
     from animate_anything_tpu.models.vae import VAEConfig as JaxVAECfg
-    from animate_anything_tpu.ops import temporal_block
     from animate_anything_tpu.pipelines import LatentToVideoPipeline as JaxPipeline
 
     r = np.random.default_rng(0)
@@ -57,8 +57,7 @@ def case():
     pipe.encode_prompt = lambda prompt, negative_prompt="": (
         jnp.asarray(req["prompt_embeds"]), jnp.asarray(req["negative_prompt_embeds"]))
     key = jax.random.PRNGKey(11)
-    with pytest.MonkeyPatch.context() as mp, pltpu.force_tpu_interpret_mode():
-        mp.setattr(temporal_block, "fused_ok", lambda *a, **k: False)
+    with composite_temporal(), pltpu.force_tpu_interpret_mode():
         video, latents = pipe.animate_image(
             req["image"], "", mask_img=req["mask_img"], motion_strength=req["motion_strength"],
             num_frames=FRAMES, num_inference_steps=STEPS, guidance_scale=9.0, rng=key)
@@ -79,11 +78,12 @@ def port_result(case):
                      unet3d_state_dict(uparams))
     vae = load_into(AutoencoderKL(VAEConfig.tiny()), vae_state_dict(vparams))
     pipe = LatentToVideoPipeline(unet, vae)
-    return pipe.animate_image(
-        req["image"], prompt_embeds=t(req["prompt_embeds"]),
-        negative_prompt_embeds=t(req["negative_prompt_embeds"]), mask_img=req["mask_img"],
-        motion_strength=req["motion_strength"], num_frames=FRAMES, num_inference_steps=STEPS,
-        guidance_scale=9.0, noise=t(noise))
+    pipe.encode_prompt = lambda prompt, negative_prompt="": (
+        t(req["prompt_embeds"]), t(req["negative_prompt_embeds"]))
+    with composite_temporal():
+        return pipe.animate_image(
+            req["image"], "", mask_img=req["mask_img"], motion_strength=req["motion_strength"],
+            num_frames=FRAMES, num_inference_steps=STEPS, guidance_scale=9.0, noise=t(noise))
 
 
 def test_two_step_pipeline_latents_match_jax(case, port_result):
@@ -99,3 +99,16 @@ def test_two_step_pipeline_video_matches_jax(case, port_result):
     assert video.shape == want.shape == (1, FRAMES, RES, RES, 3)
     assert np.isfinite(n(video)).all()
     np.testing.assert_allclose(n(video), want, atol=VIDEO_ATOL)
+
+
+@pytest.mark.parametrize("steps,fraction", [(25, 0.0), (25, 0.3), (10, 0.5)])
+def test_truncated_timesteps_match_jax(steps, fraction):
+    """``t_start_fraction`` drops the noisiest share of the DPM-Solver++ grid,
+    as JAX's ``get_timesteps`` does."""
+    from animate_anything_tpu.pipelines import LatentToVideoPipeline as JaxPipeline
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+
+    want = JaxPipeline(None, None, None, None).get_timesteps(steps, fraction)
+    got = LatentToVideoPipeline(None, None).get_timesteps(steps, fraction)
+    assert len(got) == steps - int(steps * fraction)
+    np.testing.assert_array_equal(got, want)
