@@ -6,9 +6,18 @@ stay fp32. ``cast_module_`` applies that split to a module's parameters:
 matrices and conv kernels (ndim ≥ 2) take the compute dtype, vectors (norm
 scales, biases) stay fp32. Layers compute in the dtype of their weight,
 casting inputs and biases to it, as flax modules with ``dtype=`` do.
+
+Training (JAX's ``Policy``: fp32 parameters, bf16 compute) keeps two copies:
+the fp32 masters that the optimizer updates (``master_params``) and the
+working module in the policy's dtypes that the kernels read. After each
+optimizer step ``copy_masters_`` rounds the masters into the working module.
+A weight's gradient comes out of a bf16 product in JAX too, where the cast
+of the fp32 parameter to bf16 sits inside the differentiated function.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -21,3 +30,19 @@ def cast_module_(module: torch.nn.Module) -> torch.nn.Module:
         if p.is_floating_point():
             p.data = p.data.to(COMPUTE_DTYPE if p.ndim >= 2 else torch.float32)
     return module
+
+
+def master_params(module: torch.nn.Module,
+                  names: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+    """fp32 copies of ``module``'s parameters (only ``names``, if given)."""
+    keep = None if names is None else set(names)
+    return {name: p.detach().float().clone() for name, p in module.named_parameters()
+            if keep is None or name in keep}
+
+
+@torch.no_grad()
+def copy_masters_(module: torch.nn.Module, masters: Dict[str, torch.Tensor]) -> None:
+    """Round each master into the working parameter of the same name."""
+    for name, p in module.named_parameters():
+        if name in masters:
+            p.copy_(masters[name])

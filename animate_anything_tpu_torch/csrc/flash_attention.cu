@@ -17,6 +17,16 @@
 // stride inside the (b, s, h·d) rows, so no head transpose is ever made, and
 // odd head counts need no pairing.  The ragged K edge is masked in-kernel.
 //
+// Arithmetic: q is pre-scaled by 1/√d and rounded to bf16 before Q·Kᵀ, as
+// the TPU backward kernels round q̂, so that the stored lse matches the
+// scores the backward rebuilds; the softmax then runs in the exp2 domain
+// (scores × log2 e in fp32).  The TPU forward kernels differ by where log2 e
+// goes: they fold it into the pre-scale (q·log2 e/√d, then rounded).  When
+// autograd needs it, the kernel also stores each row's log-sum-exp in the
+// exp2 domain, lse2 = m + log2(l), fp32 (b, heads, sq), so the backward
+// kernels (flash_attention_bwd.cu) rebuild P = exp2(s·log2 e − lse2) in one
+// pass.
+//
 // Block: 4 warps x 16 query rows; grid (ceil(sq/64), b·h).
 #include "common.cuh"
 
@@ -26,12 +36,13 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr int WARPS = 4;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk,
-                 int heads, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, int heads, float scale) {
   constexpr int LD = D + 8;
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per head row
   __shared__ __align__(16) bf16 Ks[BKV][LD];
@@ -47,13 +58,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)bi * sk * C + hi * D;
   bf16* ob = o + (size_t)bi * sq * C + hi * D;
 
-  // Q tile staged through Ks, then held in registers as A fragments.
-  for (int idx = tid; idx < BQ * CHUNKS; idx += WARPS * 32) {
-    const int r = idx / CHUNKS, cc = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < sq) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * C + cc * 8);
-    *reinterpret_cast<uint4*>(&Ks[r][cc * 8]) = val;
-  }
+  // Q tile, pre-scaled by 1/√d and rounded to bf16, staged through Ks, then
+  // held in registers as A fragments.
+  stage_rows<D, BQ, LD, WARPS * 32, true>(Ks, qb, q0, sq, C, scale);
   __syncthreads();
   const int r0 = warp * 16;
   uint32_t qf[D / 16][4];
@@ -106,7 +113,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < sk ? s[j][e] * scale_log2 : -CUDART_INF_F;
+        const float val = col < sk ? s[j][e] * kLog2e : -CUDART_INF_F;
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -164,6 +171,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
   const int row_a = q0 + r0 + g, row_b = row_a + 8;
+  if (lse != nullptr && t == 0) {
+    float* lb = lse + (size_t)blockIdx.y * sq;
+    if (row_a < sq) lb[row_a] = m_run[0] + log2f(l_run[0]);
+    if (row_b < sq) lb[row_b] = m_run[1] + log2f(l_run[1]);
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + 2 * t;
@@ -177,26 +189,29 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
-            int heads, float scale_log2, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
+            int sk, int heads, float scale, cudaStream_t stream) {
   dim3 grid((sq + BQ - 1) / BQ, b * heads);
   flash_fwd_kernel<D><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, sk, heads, scale_log2);
+      static_cast<bf16*>(o), lse, sq, sk, heads, scale);
 }
 
 }  // namespace
 }  // namespace aat
 
 // q, o: (b, sq, heads·d); k, v: (b, sk, heads·d); all contiguous bf16.
-AAT_EXPORT int aat_flash_attention(const void* q, const void* k, const void* v, void* o, int b,
-                                   int sq, int sk, int heads, int d, float scale_log2,
-                                   void* stream) {
+// lse: null, or fp32 (b, heads, sq) for the row log-sum-exp (log2 domain).
+// scale: 1/√d.
+AAT_EXPORT int aat_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int b, int sq, int sk, int heads, int d,
+                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
-    case 32: aat::launch<32>(q, k, v, o, b, sq, sk, heads, scale_log2, st); break;
-    case 64: aat::launch<64>(q, k, v, o, b, sq, sk, heads, scale_log2, st); break;
-    case 128: aat::launch<128>(q, k, v, o, b, sq, sk, heads, scale_log2, st); break;
+    case 32: aat::launch<32>(q, k, v, o, l, b, sq, sk, heads, scale, st); break;
+    case 64: aat::launch<64>(q, k, v, o, l, b, sq, sk, heads, scale, st); break;
+    case 128: aat::launch<128>(q, k, v, o, l, b, sq, sk, heads, scale, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -3,11 +3,13 @@ from animate_anything_tpu_torch.diffusion.samplers import (dpmpp_init, dpmpp_ste
 from animate_anything_tpu_torch.diffusion.schedule import (DiffusionSchedule, add_noise,
                                                            ddpm_forward_mask,
                                                            ddpm_forward_timesteps,
-                                                           make_schedule, pred_x0,
-                                                           rescale_zero_terminal_snr)
+                                                           get_velocity, make_schedule,
+                                                           pred_epsilon, pred_x0,
+                                                           rescale_zero_terminal_snr,
+                                                           sample_noise)
 
 __all__ = [
     "DiffusionSchedule", "add_noise", "ddpm_forward_mask", "ddpm_forward_timesteps",
-    "dpmpp_init", "dpmpp_step", "dpmpp_timesteps", "make_schedule", "pred_x0",
-    "rescale_zero_terminal_snr", "sample_loop",
+    "dpmpp_init", "dpmpp_step", "dpmpp_timesteps", "get_velocity", "make_schedule",
+    "pred_epsilon", "pred_x0", "rescale_zero_terminal_snr", "sample_loop", "sample_noise",
 ]

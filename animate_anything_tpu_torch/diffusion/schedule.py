@@ -83,7 +83,8 @@ def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
 
 def _extract(table: torch.Tensor, t, like: torch.Tensor) -> torch.Tensor:
     """Gather per-sample fp32 schedule values, shaped to broadcast over like."""
-    vals = table[torch.as_tensor(t, dtype=torch.long)].to(like.device, torch.float32)
+    idx = torch.as_tensor(t, dtype=torch.long, device=like.device)
+    vals = table.to(like.device)[idx].float()
     return vals.reshape(vals.shape + (1,) * (like.ndim - vals.ndim))
 
 
@@ -92,6 +93,14 @@ def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor
     sa = _extract(schedule.sqrt_alphas_cumprod, t, x0)
     sb = _extract(schedule.sqrt_one_minus_alphas_cumprod, t, x0)
     return (sa * x0.float() + sb * noise.float()).to(x0.dtype)
+
+
+def get_velocity(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor,
+                 t) -> torch.Tensor:
+    """The v-prediction target sqrt(ā_t)·ε − sqrt(1 − ā_t)·x0, in x0's dtype."""
+    sa = _extract(schedule.sqrt_alphas_cumprod, t, x0)
+    sb = _extract(schedule.sqrt_one_minus_alphas_cumprod, t, x0)
+    return (sa * noise.float() - sb * x0.float()).to(x0.dtype)
 
 
 def pred_x0(schedule: DiffusionSchedule, model_output: torch.Tensor, sample: torch.Tensor,
@@ -108,6 +117,43 @@ def pred_x0(schedule: DiffusionSchedule, model_output: torch.Tensor, sample: tor
     if schedule.prediction_type == "sample":
         return model_output
     raise ValueError(schedule.prediction_type)
+
+
+def pred_epsilon(schedule: DiffusionSchedule, model_output: torch.Tensor,
+                 sample: torch.Tensor, t) -> torch.Tensor:
+    """ε̂ from the model output under the schedule's prediction type, fp32."""
+    sample = sample.float()
+    model_output = model_output.float()
+    sa = _extract(schedule.sqrt_alphas_cumprod, t, sample)
+    sb = _extract(schedule.sqrt_one_minus_alphas_cumprod, t, sample)
+    if schedule.prediction_type == "epsilon":
+        return model_output
+    if schedule.prediction_type == "v_prediction":
+        return sa * model_output + sb * sample
+    if schedule.prediction_type == "sample":
+        return (sample - sa * model_output) / sb
+    raise ValueError(schedule.prediction_type)
+
+
+def sample_noise(shape: tuple, offset_noise_strength: float = 0.0,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 normals: Optional[tuple] = None) -> torch.Tensor:
+    """Gaussian noise of ``shape`` (b, f, h, w, c), fp32, plus offset noise
+    shared across f, h, w per (sample, channel) when
+    ``offset_noise_strength`` is set. ``normals``: the two draws (the full
+    normal and the (b, 1, 1, 1, c) offset normal) handed in instead of drawn
+    from ``generator``, as the tests feed JAX's."""
+    if normals is None:
+        noise = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        offset = None
+        if offset_noise_strength:
+            offset = torch.randn((shape[0], 1, 1, 1, shape[-1]), generator=generator,
+                                 device=device, dtype=torch.float32)
+    else:
+        noise, offset = normals
+    if offset_noise_strength:
+        noise = noise + offset_noise_strength * offset
+    return noise
 
 
 def ddpm_forward_timesteps(schedule: DiffusionSchedule, x0: torch.Tensor, num_frames: int,

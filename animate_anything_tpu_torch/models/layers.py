@@ -145,8 +145,9 @@ class TemporalConvLayer(nn.Module):
     (ops/temporal_conv.py), each stage's output sums feeding the next stage's
     GroupNorm. Submodules keep the diffusers ``nn.Sequential`` indices
     (conv1 = [norm, SiLU, conv], conv2..4 = [norm, SiLU, dropout, conv]); they
-    hold the parameters, the kernel does the arithmetic. Inference only: the
-    dropout between SiLU and conv belongs to training."""
+    hold the parameters, the kernel does the arithmetic. The dropout modules
+    are never called, in training too: JAX's train step applies the UNet
+    with ``deterministic=True``, so its kernel path runs there as well."""
 
     def __init__(self, in_dim: int, out_dim: Optional[int] = None, groups: int = 32):
         super().__init__()
@@ -165,14 +166,17 @@ class TemporalConvLayer(nn.Module):
         self.conv3 = stage(in_dim, in_dim, True)
         self.conv4 = stage(in_dim, in_dim, True)
 
-    def forward(self, x: torch.Tensor, num_frames: int):
+    def forward(self, x: torch.Tensor, num_frames: int, in_sums=None):
         """x (b·f, h, w, c) → (y, entry_sums) with entry_sums the per-(b·f, c)
-        fp32 (Σy, Σy²) of the output, for the next module's GroupNorm."""
+        fp32 (Σy, Σy²) of the output, for the next module's GroupNorm.
+        ``in_sums``: the per-(b·f, c) sums of x from its producer, for stage
+        1's GroupNorm (its gradient flows back into the producer's sums)."""
         bf, hh, ww, c = x.shape
         b = bf // num_frames
         h = x.reshape(b, num_frames, hh * ww, c)
         identity = h
-        sums = None
+        sums = None if in_sums is None else tuple(
+            s.reshape(b, num_frames, c).sum(1) for s in in_sums)
         for idx, seq in enumerate((self.conv1, self.conv2, self.conv3, self.conv4), start=1):
             norm, conv = seq[0], seq[-1]
             h, stats = gn_silu_tap_conv(

@@ -1,5 +1,5 @@
 """Mask + motion-strength conditioned 3D UNet — the port of
-``animate_anything_tpu/models/unet3d.py`` (inference path).
+``animate_anything_tpu/models/unet3d.py``.
 
 Conditioning as in the reference:
 - the first-frame latent joins along the FRAME axis and the output strips
@@ -46,6 +46,9 @@ class UNet3DConfig:
     attention_head_dim: int = 64
     motion_mask: bool = False
     motion_strength: bool = False
+    # per-sub-layer activation checkpointing while autograd records
+    # (unet3d_blocks._run); JAX's per-sub-layer nn.remat
+    gradient_checkpointing: bool = False
 
     @classmethod
     def tiny(cls, **kw) -> "UNet3DConfig":
@@ -64,6 +67,7 @@ class UNet3DConditionModel(nn.Module):
         ch0, temb = ch[0], ch[0] * 4
         g, eps, hd, xd = cfg.norm_num_groups, cfg.norm_eps, cfg.attention_head_dim, \
             cfg.cross_attention_dim
+        remat = cfg.gradient_checkpointing
 
         self.time_embedding = TimestepEmbedding(ch0, temb, ch0 if cfg.motion_strength else None)
         if cfg.motion_mask:
@@ -78,16 +82,16 @@ class UNet3DConditionModel(nn.Module):
             last = i == len(ch) - 1
             if kind == "CrossAttnDownBlock3D":
                 blk = CrossAttnDownBlock3D(prev, ch[i], temb, cfg.layers_per_block, hd, xd, g, eps,
-                                           add_downsample=not last)
+                                           add_downsample=not last, remat=remat)
             elif kind == "DownBlock3D":
                 blk = DownBlock3D(prev, ch[i], temb, cfg.layers_per_block, g, eps,
-                                  add_downsample=not last)
+                                  add_downsample=not last, remat=remat)
             else:
                 raise ValueError(kind)
             self.down_blocks.append(blk)
             prev = ch[i]
 
-        self.mid_block = UNetMidBlock3DCrossAttn(ch[-1], temb, 1, hd, xd, g, eps)
+        self.mid_block = UNetMidBlock3DCrossAttn(ch[-1], temb, 1, hd, xd, g, eps, remat=remat)
 
         rev = list(reversed(ch))
         self.up_blocks = nn.ModuleList()
@@ -98,10 +102,10 @@ class UNet3DConditionModel(nn.Module):
             last = i == len(cfg.up_block_types) - 1
             if kind == "CrossAttnUpBlock3D":
                 blk = CrossAttnUpBlock3D(skip_in, prev, rev[i], temb, n_layers, hd, xd, g, eps,
-                                         add_upsample=not last)
+                                         add_upsample=not last, remat=remat)
             elif kind == "UpBlock3D":
                 blk = UpBlock3D(skip_in, prev, rev[i], temb, n_layers, g, eps,
-                                add_upsample=not last)
+                                add_upsample=not last, remat=remat)
             else:
                 raise ValueError(kind)
             self.up_blocks.append(blk)

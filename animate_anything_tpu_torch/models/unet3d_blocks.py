@@ -1,5 +1,5 @@
 """Down/mid/up blocks of the mask-conditioned 3D UNet — the port of
-``animate_anything_tpu/models/unet3d_blocks.py`` (inference path).
+``animate_anything_tpu/models/unet3d_blocks.py``.
 
 Block graphs as in the reference:
 - CrossAttnDownBlock3D / CrossAttnUpBlock3D: [resnet → temp_conv →
@@ -12,6 +12,13 @@ Block graphs as in the reference:
 GroupNorm sums thread between producers and consumers: each kernel epilogue
 (temporal conv, transformer output projection) hands per-(b·f, c) (Σ, Σ²) to
 the next GroupNorm, including across the skip concatenations.
+
+Gradient checkpointing (``remat=True``, JAX's ``_sub_layers``) wraps each
+sub-layer call (resnet, temp_conv, spatial transformer, temporal
+transformer) in ``torch.utils.checkpoint`` while autograd records: only the
+sub-layers' inputs and outputs, the GroupNorm sums that cross a boundary
+among them, stay alive until the backward, which re-runs one sub-layer's
+forward (its kernels included) at a time.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from animate_anything_tpu_torch.models.attention import SpatialTransformer, TemporalTransformer
 from animate_anything_tpu_torch.models.layers import (Downsample2D, ResnetBlock2D,
@@ -40,6 +48,14 @@ def _concat_sums(a, b):
     if a is None or b is None:
         return None
     return torch.cat([a[0], b[0]], dim=1), torch.cat([a[1], b[1]], dim=1)
+
+
+def _run(remat: bool, layer: nn.Module, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+    return layer(*args)
 
 
 class _Layered(nn.Module):
@@ -64,8 +80,10 @@ class _Layered(nn.Module):
 class CrossAttnDownBlock3D(_Layered):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  num_layers: int = 2, head_dim: int = 64, cross_attention_dim: int = 1024,
-                 groups: int = 32, eps: float = 1e-5, add_downsample: bool = True):
+                 groups: int = 32, eps: float = 1e-5, add_downsample: bool = True,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         ins = [in_channels] + [out_channels] * (num_layers - 1)
         self._build(ins, out_channels, temb_channels, groups, eps, head_dim,
                     cross_attention_dim)
@@ -75,14 +93,15 @@ class CrossAttnDownBlock3D(_Layered):
         outputs, out_sums, cur = [], [], in_sums
         for resnet, tconv, attn, tattn in zip(self.resnets, self.temp_convs, self.attentions,
                                               self.temp_attentions):
-            x = resnet(x, temb, cur)
+            x = _run(self.remat, resnet, x, temb, cur)
             entry = None
             if num_frames > 1:
-                x, entry = tconv(x, num_frames)
-            x, sp = attn(x, context, entry)
+                x, entry = _run(self.remat, tconv, x, num_frames)
+            x, sp = _run(self.remat, attn, x, context, entry)
             cur = sp
             if num_frames > 1:
-                x, cur = tattn(x, num_frames, _fold_frames(sp, num_frames))
+                x, cur = _run(self.remat, tattn, x, num_frames,
+                              _fold_frames(sp, num_frames))
             outputs.append(x)
             out_sums.append(cur)
         if self.downsamplers is not None:
@@ -96,8 +115,9 @@ class CrossAttnDownBlock3D(_Layered):
 class DownBlock3D(_Layered):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  num_layers: int = 2, groups: int = 32, eps: float = 1e-5,
-                 add_downsample: bool = True):
+                 add_downsample: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ins = [in_channels] + [out_channels] * (num_layers - 1)
         self._build(ins, out_channels, temb_channels, groups, eps, None, None)
         self.downsamplers = nn.ModuleList([Downsample2D(out_channels)]) if add_downsample else None
@@ -105,10 +125,10 @@ class DownBlock3D(_Layered):
     def forward(self, x, temb, num_frames: int, in_sums=None):
         outputs, out_sums, cur = [], [], in_sums
         for resnet, tconv in zip(self.resnets, self.temp_convs):
-            x = resnet(x, temb, cur)
+            x = _run(self.remat, resnet, x, temb, cur)
             cur = None
             if num_frames > 1:
-                x, cur = tconv(x, num_frames)
+                x, cur = _run(self.remat, tconv, x, num_frames)
             outputs.append(x)
             out_sums.append(cur)
         if self.downsamplers is not None:
@@ -122,8 +142,9 @@ class DownBlock3D(_Layered):
 class UNetMidBlock3DCrossAttn(nn.Module):
     def __init__(self, in_channels: int, temb_channels: int, num_layers: int = 1,
                  head_dim: int = 64, cross_attention_dim: int = 1024, groups: int = 32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, remat: bool = False):
         super().__init__()
+        self.remat = remat
         heads = in_channels // head_dim
         n = num_layers + 1
         self.resnets = nn.ModuleList(
@@ -138,20 +159,21 @@ class UNetMidBlock3DCrossAttn(nn.Module):
              for _ in range(num_layers)])
 
     def forward(self, x, temb, context, num_frames: int, in_sums=None):
-        x = self.resnets[0](x, temb, in_sums)
+        x = _run(self.remat, self.resnets[0], x, temb, in_sums)
         entry = None
         if num_frames > 1:
-            x, entry = self.temp_convs[0](x, num_frames)
+            x, entry = _run(self.remat, self.temp_convs[0], x, num_frames)
         cur = entry
         for i, (attn, tattn) in enumerate(zip(self.attentions, self.temp_attentions)):
-            x, sp = attn(x, context, entry)
+            x, sp = _run(self.remat, attn, x, context, entry)
             cur = sp
             if num_frames > 1:
-                x, cur = tattn(x, num_frames, _fold_frames(sp, num_frames))
-            x = self.resnets[i + 1](x, temb, cur)
+                x, cur = _run(self.remat, tattn, x, num_frames,
+                              _fold_frames(sp, num_frames))
+            x = _run(self.remat, self.resnets[i + 1], x, temb, cur)
             entry = None
             if num_frames > 1:
-                x, entry = self.temp_convs[i + 1](x, num_frames)
+                x, entry = _run(self.remat, self.temp_convs[i + 1], x, num_frames)
             cur = entry
         return x, cur
 
@@ -160,8 +182,9 @@ class CrossAttnUpBlock3D(_Layered):
     def __init__(self, in_channels: int, prev_channels: int, out_channels: int,
                  temb_channels: int, num_layers: int = 3, head_dim: int = 64,
                  cross_attention_dim: int = 1024, groups: int = 32, eps: float = 1e-5,
-                 add_upsample: bool = True):
+                 add_upsample: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ins = [(prev_channels if i == 0 else out_channels)
                + (in_channels if i == num_layers - 1 else out_channels)
                for i in range(num_layers)]
@@ -176,14 +199,15 @@ class CrossAttnUpBlock3D(_Layered):
                                               self.temp_attentions):
             sk_sums = skip_sums.pop() if skip_sums else None
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = resnet(x, temb, _concat_sums(cur, sk_sums))
+            x = _run(self.remat, resnet, x, temb, _concat_sums(cur, sk_sums))
             entry = None
             if num_frames > 1:
-                x, entry = tconv(x, num_frames)
-            x, sp = attn(x, context, entry)
+                x, entry = _run(self.remat, tconv, x, num_frames)
+            x, sp = _run(self.remat, attn, x, context, entry)
             cur = sp
             if num_frames > 1:
-                x, cur = tattn(x, num_frames, _fold_frames(sp, num_frames))
+                x, cur = _run(self.remat, tattn, x, num_frames,
+                              _fold_frames(sp, num_frames))
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, output_size)
             cur = None
@@ -193,8 +217,9 @@ class CrossAttnUpBlock3D(_Layered):
 class UpBlock3D(_Layered):
     def __init__(self, in_channels: int, prev_channels: int, out_channels: int,
                  temb_channels: int, num_layers: int = 3, groups: int = 32, eps: float = 1e-5,
-                 add_upsample: bool = True):
+                 add_upsample: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ins = [(prev_channels if i == 0 else out_channels)
                + (in_channels if i == num_layers - 1 else out_channels)
                for i in range(num_layers)]
@@ -207,10 +232,10 @@ class UpBlock3D(_Layered):
         for resnet, tconv in zip(self.resnets, self.temp_convs):
             sk_sums = skip_sums.pop() if skip_sums else None
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = resnet(x, temb, _concat_sums(cur, sk_sums))
+            x = _run(self.remat, resnet, x, temb, _concat_sums(cur, sk_sums))
             cur = None
             if num_frames > 1:
-                x, cur = tconv(x, num_frames)
+                x, cur = _run(self.remat, tconv, x, num_frames)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, output_size)
             cur = None

@@ -26,8 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, b, sq, sk, heads, d, scale_log2, stream
-    "aat_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, b, sq, sk, heads, d, scale, stream
+    "aat_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, heads, d, scale, stream
+    "aat_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _P],
     # x, ln_s, ln_b, w1, b1, w2, b2, y, n, c, eps, stream
     "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, stream

@@ -1,14 +1,19 @@
-"""Kernel 1: flash attention forward (``csrc/flash_attention.cu``).
+"""Kernel 1: flash attention, forward (``csrc/flash_attention.cu``) and
+backward (``csrc/flash_attention_bwd.cu``).
 
-Replaces ``animate_anything_tpu/ops/flash_attention.py::_flash_forward_lanes``
-(d = 64) and ``::_flash_forward`` (other head sizes). The CUDA kernel takes d
-in {32, 64, 128} and reads q/k/v straight from the ``(b, s, h·d)`` projection
-outputs, one head per block column, by stride. What bounds it on the H100
-and how its design answers that is in the source's header note.
+The forward replaces ``animate_anything_tpu/ops/flash_attention.py::
+_flash_forward_lanes`` (d = 64) and ``::_flash_forward`` (other head sizes);
+the backward replaces ``::_flash_backward_lanes`` and ``::_flash_backward``
+(the dq and dk/dv Pallas kernels). The CUDA kernels take d in {32, 64, 128}
+and read q/k/v (and o, dO) straight from the ``(b, s, h·d)`` projection
+outputs, one head per block column, by stride. What bounds them on the H100
+and how their design answers that is in the sources' header notes.
 
-``flash_attention`` is the wrapper: a CPU tensor goes to the plain PyTorch
-version, a CUDA tensor to the kernel (or an error). The dispatch between this
-kernel and plain attention lives in ``ops/attention.py``.
+``flash_attention`` is the wrapper: ``FlashAttention`` (an autograd
+Function) runs the plain PyTorch versions for CPU tensors and the kernels
+for CUDA tensors (or raises). When autograd needs it, the forward kernel
+also stores each row's log-sum-exp for the backward. The dispatch between
+this kernel and plain attention lives in ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -16,13 +21,14 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from animate_anything_tpu_torch.ops import cuda_lib
 
-LOG2E = 1.4426950408889634
 HEAD_DIMS = (32, 64, 128)
 
-launches = 0  # kernel launches by flash_attention (reset by callers that count)
+launches = 0      # forward kernel launches
+bwd_launches = 0  # backward launches (each one dq and one dk/dv kernel)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,10 +44,27 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention, q (B, Sq, H, D), k/v (B, Sk, H, D) → (B, Sq, H, D)."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
+def flash_attention_backward_reference(q, k, v, o, do):
+    """Plain backward with the JAX kernels' arithmetic (``_bwd_dq_kernel``,
+    ``_bwd_dkv_kernel``): q pre-scaled by 1/√d and rounded to q's dtype
+    before q̂·kᵀ; p = exp(s − lse); Δ = rowsum(dO ⊙ O) in fp32; ds = p ⊙ (dp −
+    Δ), rounded before dq = ds·k/√d and dk = dsᵀ·q̂; p rounded before dv =
+    pᵀ·dO. All (B, S, H, D); returns (dq, dk, dv) in the input dtypes."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    do = do.to(q.dtype)
+    qh = (q.float() * scale).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), k.float())
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qh.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q, k, v):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if d not in HEAD_DIMS:
@@ -49,9 +72,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     cuda_lib.check_cuda("flash_attention q", q, torch.bfloat16, (b, sq, h, d))
     cuda_lib.check_cuda("flash_attention k", k, torch.bfloat16, (b, sk, h, d))
     cuda_lib.check_cuda("flash_attention v", v, torch.bfloat16, (b, sk, h, d))
+    return b, sq, sk, h, d
+
+
+def flash_forward_with_lse(q, k, v, with_lse: bool = True):
+    """Kernel 1 on CUDA tensors, returning ``(o, lse)``: with ``with_lse``
+    it also stores each row's log-sum-exp (fp32 (b, h, sq), log2 domain of
+    the pre-scaled scores), the residual the backward kernels take."""
+    b, sq, sk, h, d = _check(q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if with_lse
+           else None)
     cuda_lib.call("aat_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, sq, sk, h, d, LOG2E / math.sqrt(d))
+                  out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, sk, h, d,
+                  1.0 / math.sqrt(d))
     global launches
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, o, do, lse=None):
+    """(dq, dk, dv) of non-causal attention for the cotangent ``do``: the
+    plain version for CPU tensors, the dq and dk/dv kernels for CUDA tensors
+    (``lse`` from ``flash_forward_with_lse`` is required there)."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, do)
+    b, sq, sk, h, d = _check(q, k, v)
+    if lse is None:
+        raise ValueError("flash_attention_backward: the kernels need the forward's lse")
+    cuda_lib.check_cuda("flash_attention o", o, torch.bfloat16, (b, sq, h, d))
+    cuda_lib.check_cuda("flash_attention dO", do, torch.bfloat16, (b, sq, h, d))
+    cuda_lib.check_cuda("flash_attention lse", lse, torch.float32, (b, h, sq))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    cuda_lib.call("aat_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d, 1.0 / math.sqrt(d))
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Non-causal attention with the kernels' backward: the forward saves
+    q, k, v, o (and, on the card, the row log-sum-exp), as JAX's
+    ``_flash_attention_p`` saves its residuals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            o, lse = attention_reference(q, k, v), None
+        else:
+            o, lse = flash_forward_with_lse(q, k, v, with_lse=any(ctx.needs_input_grad))
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_backward(q, k, v, o, do.to(q.dtype).contiguous(), lse)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention, q (B, Sq, H, D), k/v (B, Sk, H, D) → (B, Sq, H, D)."""
+    return FlashAttention.apply(q, k, v)

@@ -9,6 +9,10 @@ columns at a time) is in the source's header.
 
 Weights arrive in the torch Linear layout: ``w1`` (8c, c) with the val rows
 first and the gate rows second (diffusers ``GEGLU.proj``), ``w2`` (c, 4c).
+
+Gradients: ``ops/autograd.Recompute`` saves the inputs and differentiates
+``ln_geglu_twin``, the torch twin of JAX's ``_reference_lean`` (the
+custom_vjp's remat target), as JAX has no backward kernel here either.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops.autograd import Recompute
 
 MAX_C = 1280
 
@@ -36,6 +41,23 @@ def ln_geglu_reference(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     act = (val * F.gelu(gate, approximate="tanh")).to(x2.dtype)
     y = act.float() @ w2.float().t() + b2.float() + xf
     return y.to(x2.dtype)
+
+
+def ln_geglu_twin(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """Differentiable twin of JAX's ``_reference_lean`` in x2's dtype: LN in
+    fp32 stored in x's dtype; both products on x-dtype operands with fp32
+    accumulation; the (n, 8c) hidden h stored in x's dtype; tanh GELU in
+    fp32. In fp32 it is ``ln_geglu_reference``."""
+    dt = x2.dtype
+    xf = x2.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    ln = ((xf - mu) * torch.rsqrt(var + eps) * s.float() + b.float()).to(dt)
+    h = F.linear(ln, w1, b1.to(dt))
+    val, gate = h.chunk(2, dim=-1)
+    act = (val.float() * F.gelu(gate.float(), approximate="tanh")).to(dt)
+    y = F.linear(act, w2).float() + b2.float() + xf
+    return y.to(dt)
 
 
 def _launch(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
@@ -67,8 +89,5 @@ def ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5) -> t
     args = (x2, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
             w1.to(dt).contiguous(), b1.float().contiguous(), w2.to(dt).contiguous(),
             b2.float().contiguous())
-    if x.device.type == "cpu":
-        out = ln_geglu_reference(*args, eps)
-    else:
-        out = _launch(*args, eps)
-    return out.reshape(shape)
+    run = ln_geglu_reference if x.device.type == "cpu" else _launch
+    return Recompute.apply(run, ln_geglu_twin, *args, eps).reshape(shape)

@@ -5,13 +5,19 @@ Replaces ``animate_anything_tpu/ops/proj_residual.py::_pallas_proj``:
 ``y = h·Wᵀ + bias + residual`` with per-(n, c) fp32 (Σy, Σy²) of the STORED
 y, which the consumer GroupNorm takes through ``group_affine(sums=)``. The
 weight is the torch Linear layout (c, k). Design note in the source header.
+
+Gradients: ``ops/autograd.Recompute`` differentiates ``proj_residual_twin``
+(JAX's ``_reference``, the custom_vjp's remat target) with all three
+cotangents: the sums feed the next GroupNorm, so theirs is not zero.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 
 launches = 0  # kernel launches by proj_residual_stats
 
@@ -23,6 +29,16 @@ def proj_residual_reference(h, w, bias, residual):
     yc = y.to(h.dtype)
     yf = yc.float()
     return yc, (yf.sum(1), yf.square().sum(1))
+
+
+def proj_residual_twin(h, w, bias, residual):
+    """Differentiable twin of JAX's ``_reference`` in h's dtype, flat
+    ``(y, Σy, Σy²)``: the product on h-dtype operands with fp32
+    accumulation, bias and residual added in fp32, sums of the rounded y."""
+    y = F.linear(h, w).float() + bias.float() + residual.float()
+    yc = y.to(h.dtype)
+    yf = yc.float()
+    return yc, yf.sum(1), yf.square().sum(1)
 
 
 def _launch(h, w, bias, residual):
@@ -50,6 +66,6 @@ def proj_residual_stats(h, w, bias, residual):
     ``(y, (Σy, Σy²))`` with the sums per (n, c) in fp32."""
     dt = h.dtype
     args = (h, w.to(dt).contiguous(), bias.float().contiguous(), residual.to(dt))
-    if h.device.type == "cpu":
-        return proj_residual_reference(*args)
-    return _launch(*args)
+    run = proj_residual_reference if h.device.type == "cpu" else _launch
+    y, s1, s2 = Recompute.apply(flat_stats(run), proj_residual_twin, *args)
+    return y, (s1, s2)

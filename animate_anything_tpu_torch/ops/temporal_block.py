@@ -16,6 +16,10 @@ Weights arrive in the torch Linear layout (out, in): ``to_q``, ``to_k``,
 temporal path. It decides the GELU form of the block's feed-forward (tanh on
 the fused path, exact erf on the composite one), so the port keeps it as it
 is for every shape, not only for the shapes the kernel takes.
+
+Gradients: ``ops/autograd.Recompute`` differentiates ``temporal_block_twin``
+(JAX's ``_reference_bfsc``, the custom_vjp's remat target); above
+``SPLIT_C`` one Function covers both launches.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops.autograd import Recompute
 
 MAX_FRAMES = 32   # two 16-row query tiles per location
 MAX_HEAD_DIM = 64
@@ -79,6 +85,27 @@ def temporal_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads:
     return out.to(dt)
 
 
+def temporal_block_twin(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int,
+                        eps: float) -> torch.Tensor:
+    """Differentiable twin of JAX's ``_reference_bfsc`` in x's dtype: the
+    four projections on x-dtype operands with fp32 accumulation, the
+    17-frame attention in fp32 as in ``temporal_block_reference`` (which it
+    is, in fp32)."""
+    b, f, s, c = x.shape
+    d = c // heads
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    ln = ((xf - mu) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(dt)
+    q, k, v = (F.linear(ln, w).reshape(b, f, s, heads, d) for w in (wq, wk, wv))
+    scores = torch.einsum("bfshd,bgshd->bshfg", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    probs = scores.softmax(dim=-1).to(dt)
+    o = torch.einsum("bshfg,bgshd->bfshd", probs.float(), v.float()).to(dt)
+    out = F.linear(o.reshape(b, f, s, c), wo).float() + bo.float() + xf
+    return out.to(dt)
+
+
 def _launch(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int, eps: float) -> torch.Tensor:
     b, f, s, c = x.shape
     if heads < 1 or c % heads:
@@ -117,6 +144,10 @@ def temporal_block(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads: int,
     args = (x, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
             wq.to(dt).contiguous(), wk.to(dt).contiguous(), wv.to(dt).contiguous(),
             wo.to(dt).contiguous(), bo.float().contiguous())
-    if x.device.type == "cpu":
-        return temporal_block_reference(*args, heads=heads, eps=eps)
-    return _launch(*args, heads, eps)
+    run = _reference if x.device.type == "cpu" else _launch
+    return Recompute.apply(run, temporal_block_twin, *args, heads, eps)
+
+
+def _reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int, eps: float):
+    return temporal_block_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads=heads,
+                                    eps=eps)

@@ -6,6 +6,11 @@ GroupNorm statistics fold stays plain torch through ``group_affine``, as in
 JAX; the kernel takes the folded (a, b). Unlike the TPU path (gated to
 c ≤ 640 by VMEM) the kernel runs at every width, and it always emits the
 stats of its stored output. Design note in the source header.
+
+Gradients: ``ops/autograd.Recompute`` differentiates ``tap_conv_twin`` (JAX's
+``_reference_stage_stats``, the custom_vjp's remat target) with all three
+cotangents (y, Σy, Σy²): the sums feed the next stage's GroupNorm, and
+through ``group_affine`` the folded (a, b) get their gradients too.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.group_norm import group_affine
 
 K_TILE = 32  # the kernel's K tile: cin must be a multiple so no tile straddles taps
@@ -47,6 +53,22 @@ def tap_conv_reference(x, a, b, w, bias, residual):
     return yc, (yf.sum(2), yf.square().sum(2))
 
 
+def tap_conv_twin(x, a, b, w, bias, residual):
+    """Differentiable twin of ``tap_conv_reference`` in x's dtype, flat
+    ``(y, Σy, Σy²)``: the taps GEMM on x-dtype operands with fp32
+    accumulation, bias and residual in fp32, sums of the rounded y."""
+    act = F.silu(x.float() * a[:, None, None, :] + b[:, None, None, :]).to(x.dtype)
+    prev = F.pad(act[:, :-1], (0, 0, 0, 0, 1, 0))
+    nxt = F.pad(act[:, 1:], (0, 0, 0, 0, 0, 1))
+    y = F.linear(torch.cat([prev, act, nxt], -1), w.reshape(w.shape[0], -1)).float()
+    y = y + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    yc = y.to(x.dtype)
+    yf = yc.float()
+    return yc, yf.sum(2), yf.square().sum(2)
+
+
 def _launch(x, a, b, w, bias, residual):
     bsz, f, s, cin = x.shape
     cout = w.shape[0]
@@ -78,9 +100,9 @@ def tap_conv(x, a, b, w, bias, residual=None):
     dt = x.dtype
     args = (x, a.float().contiguous(), b.float().contiguous(), w.to(dt).contiguous(),
             bias.float().contiguous(), None if residual is None else residual.to(dt))
-    if x.device.type == "cpu":
-        return tap_conv_reference(*args)
-    return _launch(*args)
+    run = tap_conv_reference if x.device.type == "cpu" else _launch
+    y, s1, s2 = Recompute.apply(flat_stats(run), tap_conv_twin, *args)
+    return y, (s1, s2)
 
 
 def gn_silu_tap_conv(x, gn_scale, gn_bias, w, bias, *, groups: int, eps: float = 1e-5,

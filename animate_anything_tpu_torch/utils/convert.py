@@ -67,23 +67,44 @@ def _to_torch(w) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _unet3d_renamed(key: str) -> str:
+    """A flattened JAX UNet param path → the diffusers key, leaf name kept."""
+    k = _unflatten_lists(key)
+    if "temp_convs" in key:
+        k = re.sub(r"\.norm(\d)\.", r".conv\1.0.", k)
+        k = re.sub(r"\.conv1\.(kernel|bias)$", r".conv1.2.\1", k)
+        k = re.sub(r"\.conv([234])\.(kernel|bias)$", r".conv\1.3.\2", k)
+    k = k.replace(".to_out_0.", ".to_out.0.")
+    k = k.replace(".ff.net_0_proj.", ".ff.net.0.proj.")
+    return k.replace(".ff.net_2.", ".ff.net.2.")
+
+
 def unet3d_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``UNet3DConditionModel`` params → the port's state dict."""
     tree = params.get("params", params)
     out = {}
     for key, w in _flatten_tree(tree).items():
-        temporal = "temp_convs" in key
-        k = _unflatten_lists(key)
-        if temporal:
-            k = re.sub(r"\.norm(\d)\.", r".conv\1.0.", k)
-            k = re.sub(r"\.conv1\.(kernel|bias)$", r".conv1.2.\1", k)
-            k = re.sub(r"\.conv([234])\.(kernel|bias)$", r".conv\1.3.\2", k)
-        k = k.replace(".to_out_0.", ".to_out.0.")
-        k = k.replace(".ff.net_0_proj.", ".ff.net.0.proj.")
-        k = k.replace(".ff.net_2.", ".ff.net.2.")
-        k, w = _export_tensor(k, np.asarray(w), temporal)
+        k, w = _export_tensor(_unet3d_renamed(key), np.asarray(w), "temp_convs" in key)
         out[k] = _to_torch(w)
     return out
+
+
+def flax_path(name: str, ndim: int) -> str:
+    """The inverse of ``unet3d_state_dict``'s key map: a port parameter name
+    (diffusers layout) and its rank → the dotted flax path of the same
+    parameter, ``params.`` prefix included, as JAX's trainer matches it
+    (``trainable_label_tree``). Works for any module of the port's naming
+    (``Linear``/``Conv`` weights → ``kernel``, 1-d weights → ``scale``)."""
+    k = name
+    if k.endswith(".weight"):
+        k = k[: -len(".weight")] + (".kernel" if ndim >= 2 else ".scale")
+    if "temp_convs" in k:
+        k = re.sub(r"\.conv(\d)\.0\.", r".norm\1.", k)
+        k = re.sub(r"\.conv(\d)\.[23]\.(kernel|bias)$", r".conv\1.\2", k)
+    k = k.replace(".to_out.0.", ".to_out_0.")
+    k = k.replace(".ff.net.0.proj.", ".ff.net_0_proj.")
+    k = k.replace(".ff.net.2.", ".ff.net_2.")
+    return "params." + re.sub(rf"\b({_LIST_ATTRS})\.(\d+)", r"\1_\2", k)
 
 
 def clip_text_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -5,11 +5,14 @@
 Builds the full-width mask+motion UNet, the SD VAE and the CLIP text encoder
 in bf16 from a seeded generator, as ``chip_smoke.py`` does, then profiles
 one CFG UNet forward (batch 2 × (16 + 1) frames at 64×64 latents, one
-denoise step), one 16-frame VAE decode and one text encode (a prompt and
-the empty negative, 77 tokens each) with ``torch.profiler``. For each it prints the wall
-time, the device kernel time, the device idle share (1 − kernel time / wall
-time; one stream, so kernels do not overlap), the kernel time by group, and
-the largest kernels. The last line is one JSON object with those numbers.
+denoise step), one 16-frame VAE decode, one text encode (a prompt and
+the empty negative, 77 tokens each) and, last, one training step of the
+flagship finetune (``train.mask_motion_finetune``: one 16-frame 512 px clip,
+VAE encode and text inside the step, per-sub-layer checkpointing, AdamW on
+fp32 masters) with ``torch.profiler``. For each it prints the wall time, the
+device kernel time, the device idle share (1 − kernel time / wall time; one
+stream, so kernels do not overlap), the kernel time by group, and the
+largest kernels. The last line is one JSON object with those numbers.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 # Kernel name → group; the first group with a matching substring wins.
 KERNEL_GROUPS = (
     ("flash_attention (kernel 1)", ("flash_fwd",)),
+    ("flash_attention backward", ("flash_bwd",)),
     ("ln_geglu (kernel 2)", ("ln_geglu",)),
     ("tap_conv (kernel 3)", ("tap_conv",)),
     ("proj_residual (kernel 4)", ("proj_residual",)),
@@ -33,6 +37,7 @@ KERNEL_GROUPS = (
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
     ("copy/cat", ("copy", "cat", "memcpy", "index", "gather", "repeat")),
+    ("optimizer (foreach)", ("multi_tensor",)),
 )
 
 
@@ -104,11 +109,17 @@ def main(seed: int = 0) -> int:
     from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig, decode_video
     from animate_anything_tpu_torch.utils.convert import init_clip_text_, init_unet3d_, init_vae_
 
+    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
+                                                  mask_motion_finetune)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("cuda"):
-        unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True))
+        # checkpointing acts only while autograd records: the inference
+        # profiles run under no_grad and are unaffected
+        unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True,
+                                                 gradient_checkpointing=True))
         vae = AutoencoderKL(VAEConfig())
     cast_module_(init_unet3d_(unet, gen)).eval()
     cast_module_(init_vae_(vae, gen)).eval()
@@ -136,12 +147,29 @@ def main(seed: int = 0) -> int:
     def text_encode():
         return text(ids)
 
+    pixels = torch.rand(1, 16, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    train_mask = torch.zeros(1, 512, 512, device="cuda")
+    train_mask[:, 128:384] = 255.0
+    batch = {"pixel_values": pixels, "mask": train_mask, "prompt_ids": ids[:1],
+             "uncond_ids": ids[1:]}
+    config, schedule = mask_motion_finetune()
+    vae.requires_grad_(False)
+    text.requires_grad_(False)
+    state = create_train_state(unet, config)
+    step = make_train_step(schedule, config, vae=vae, text_encoder=text)
+    train_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def train_step():
+        return step(state, batch, train_gen)
+
     out = {}
     for name, fn in (("unet_cfg_forward", unet_forward), ("vae_decode_16f", vae_decode),
-                     ("clip_text_encode_2x77", text_encode)):
+                     ("clip_text_encode_2x77", text_encode),
+                     ("train_step_16f_512px", train_step)):
         out[name] = device_profile(fn)
         _report(name, out[name])
-        out[name]["kernels"] = out[name]["kernels"][:20]
+        out[name]["kernels"] = [[ms, calls, kname[:120]]
+                                for ms, calls, kname in out[name]["kernels"][:20]]
     print(json.dumps(out))
     return 0
 

@@ -5,33 +5,44 @@
 
 1. prints the torch/CUDA versions and the card's name and power limit;
 2. builds the hand-written Hopper kernels from ``animate_anything_tpu_torch/csrc``;
-3. checks each kernel against its plain PyTorch version at the main path's
+3. checks each kernel against its plain PyTorch version at the main paths'
    shapes (bf16 inputs; the plain version computes in fp32 on the same
-   inputs) and times both with CUDA events; times one temporal transformer
-   per width on its fused path (kernel 5 + kernel 2) against the composite
-   path;
+   inputs) and times both with CUDA events, beside the card's bound for the
+   same work and, where one PyTorch call computes the same function, that
+   call's time (never used by the port); the flash-attention backward too,
+   at the three training shapes and one ragged d = 128 case; times one
+   temporal transformer per width on its fused path (kernel 5 + kernel 2)
+   against the composite path;
 4. runs a small UNet on the card through the kernels (every temporal site on
    the fused path) and holds it against the same weights through the plain
-   versions on the CPU;
+   versions on the CPU: its forward, then one training loss and its
+   backward with gradient checkpointing (every parameter's gradient);
 5. builds the full-width mask+motion UNet, the SD VAE and the CLIP text
    encoder in bf16 from a seeded generator and answers two 512x512 /
    16-frame image-to-video requests, each an image and a prompt string
    (hash tokenizer), through ``LatentToVideoPipeline.animate_image`` (CFG 9,
    DPM-Solver++);
-6. checks that every kernel was launched during the requests, prints one JSON
-   line with the kernels' numbers, and last the device line.
+6. frees that pipeline and trains the same full-width UNet on one
+   512x512 / 16-frame clip (the ``configs/train_mask_motion.yaml`` values):
+   the VAE encode and CLIP text inside the step, per-sub-layer gradient
+   checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps;
+7. checks that every kernel was launched on each path that runs it, prints
+   one JSON line with the kernels' numbers, and last the device line.
 
 Exits non-zero without a CUDA device, or when any phase fails.
 """
 
 from __future__ import annotations
 
+import copy
+import gc
 import json
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 # Tolerances of kernel vs plain version, both on the same bf16 inputs.
 # Outputs: bf16 rounding of the stored result (2^-8 relative) plus fp32
@@ -46,6 +57,17 @@ SUM_ATOL, SUM_RTOL = 0.5, 1e-3
 # only the fp32 summation order differs (~1e-4 at s = 4096). Sums of the
 # unrounded fp32 y would be off by ~0.1 in Σy there.
 STORED_SUM_ATOL, STORED_SUM_RTOL = 1e-2, 2e-5
+# Flash backward: dq, dk, dv are sums over s of products of bf16-rounded P
+# and dS; the kernel's fp32 exp2 may round a P or dS element to the other
+# bf16 neighbour (2^-8 relative) than the plain version's exp does, and the
+# stored gradients are bf16. Limit: 2 % of the gradient's largest magnitude
+# plus 2 % of each element.
+GRAD_ATOL_FRAC, GRAD_RTOL = 2e-2, 2e-2
+
+# The card's peaks for the bound of each kernel's work (NVIDIA H100 SXM data
+# sheet, dense): bf16 tensor cores and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 STEPS = 25
 REQUESTS = 2
@@ -57,6 +79,10 @@ PROMPTS = ("a red ball rolls across a wooden table", "clouds drift over a mounta
 # (CFG); heads = c / 64. (4096, 512) is transformer_in (8 heads x 64 on 320
 # channels).
 TEMPORAL_SITES = ((4096, 512), (4096, 320), (1024, 640), (256, 1280), (64, 1280))
+# The flash-attention sites of one UNet forward: (s, heads) at d = 64.
+FLASH_SITES = ((4096, 5), (1024, 10), (256, 20))
+TRAIN_STEPS = 3          # timed, after one warm-up step
+TRAIN_PROMPT = "a girl moves hands"
 
 
 def log(msg: str) -> None:
@@ -111,11 +137,50 @@ def _lecun(gen, *shape, fan_in: int, dev="cuda"):
     return w.to(torch.bfloat16)
 
 
+class Tally:
+    """One kernel's row of the JSON line, summed over the shapes checked:
+    kernel ms, plain-version ms, the bound (the larger of FLOP over the bf16
+    peak and the bytes each input read once and each output written once
+    over HBM's rate), the library call's ms where one exists."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                        max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                        bound_by="operations", library_ms=None)
+        self._by = {"operations": 0.0, "bytes": 0.0}
+
+    def add(self, tag: str, err: float, ms: float, plain: float, flop: float, nbytes: float,
+            library: float | None = None) -> None:
+        ops_ms, bytes_ms = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        r = self.row
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain
+        r["bound_ms"] += bound
+        self._by[by] += bound
+        r["bound_by"] = max(self._by, key=self._by.get)
+        if library is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library
+        lib = "" if library is None else f"  library {library:.3f} ms"
+        log(f"  {tag}: max|err| {err:.3g}  kernel {ms:.3f} ms  plain {plain:.3f} ms  "
+            f"bound {bound:.3f} ms ({by}, {bound / ms:.0%} of it){lib}")
+
+
+def _sdpa(q, k, v):
+    """PyTorch's fused attention on (b, s, h, d) tensors: the library yardstick
+    for kernel 1, timed only."""
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2))
+
+
 def check_flash(gen) -> dict:
     from animate_anything_tpu_torch.ops import flash_attention as fa
 
-    total_ms = total_plain = max_err = 0.0
-    for s, h in ((4096, 5), (1024, 10), (256, 20)):
+    tally = Tally("flash_attention", "animate_anything_tpu_torch/csrc/flash_attention.cu",
+                  "animate_anything_tpu/ops/flash_attention.py:233")
+    for s, h in FLASH_SITES:
         b, d = 2 * (FRAMES + 1), 64
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -123,24 +188,69 @@ def check_flash(gen) -> dict:
         got = fa.flash_attention(q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous())
         want = fa.attention_reference(q[sl], k[sl], v[sl])
         _assert_close(f"flash s={s}", got, want, Y_ATOL, Y_RTOL)
-        err = _err(got, want)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
         plain = cuda_ms(lambda: [fa.attention_reference(q[i:i + 2], k[i:i + 2], v[i:i + 2])
                                  for i in range(0, b, 2)], warmup=1, iters=2)
-        tflops = 4 * b * h * s * s * d / (ms * 1e-3) / 1e12
-        log(f"  flash_attention b={b} s={s} h={h} d={d}: max|err| {err:.3g}  "
-            f"kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s)  plain {plain:.3f} ms")
-        total_ms, total_plain, max_err = total_ms + ms, total_plain + plain, max(max_err, err)
-    return dict(name="flash_attention", route="cuda",
-                source="animate_anything_tpu_torch/csrc/flash_attention.cu",
-                replaces="animate_anything_tpu/ops/flash_attention.py:190",
-                max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
+        library = cuda_ms(lambda: _sdpa(q, k, v))
+        tally.add(f"flash_attention b={b} s={s} h={h} d={d}", _err(got, want), ms, plain,
+                  4 * b * h * s * s * d, 4 * b * s * h * d * 2, library)
+    return tally.row
+
+
+def _sdpa_backward(q, k, v, do):
+    """SDPA's flash backward alone, on the saved outputs of its forward: the
+    library yardstick for the flash backward, timed only. Called as the aten
+    op, so its time is the backward's device work, without the autograd
+    engine's host time around ``torch.autograd.grad``."""
+    qs, ks, vs, dos = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = (
+        torch.ops.aten._scaled_dot_product_flash_attention(qs, ks, vs))
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dos, qs, ks, vs, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset)
+
+
+def _flash_bwd_case(gen, b, s, h, d, tally) -> None:
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_forward_with_lse(q, k, v)
+    got = fa.flash_attention_backward(q, k, v, o, do, lse)
+    sl = slice(0, 2)
+    want = fa.flash_attention_backward_reference(q[sl], k[sl], v[sl], o[sl], do[sl])
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        tag = f"flash backward {name} b={b} s={s} h={h} d={d}"
+        _assert_close(tag, g[sl], w, GRAD_ATOL_FRAC * float(w.float().abs().max()), GRAD_RTOL)
+        err = max(err, _err(g[sl], w))
+    ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, lse))
+    plain = cuda_ms(lambda: [fa.flash_attention_backward_reference(
+        q[i:i + 2], k[i:i + 2], v[i:i + 2], o[i:i + 2], do[i:i + 2]) for i in range(0, b, 2)],
+        warmup=1, iters=2)
+    library = cuda_ms(_sdpa_backward(q, k, v, do), warmup=5, iters=20)
+    nbytes = 8 * b * s * h * d * 2 + b * h * s * 4   # q k v o dO in, dq dk dv out; lse
+    tally.add(f"flash backward b={b} s={s} h={h} d={d}", err, ms, plain,
+              10 * b * h * s * s * d, nbytes, library)
+
+
+def check_flash_backward(gen) -> dict:
+    """The dq and dk/dv kernels at the three training sites (one sample: 16
+    frames + the condition frame) and one ragged case with odd heads at
+    d = 128; SDPA's backward as the library time."""
+    tally = Tally("flash_attention_bwd", "animate_anything_tpu_torch/csrc/flash_attention_bwd.cu",
+                  "animate_anything_tpu/ops/flash_attention.py:618")
+    for s, h in FLASH_SITES:
+        _flash_bwd_case(gen, FRAMES + 1, s, h, 64, tally)
+        torch.cuda.empty_cache()
+    _flash_bwd_case(gen, 2, 1000, 3, 128, tally)
+    return tally.row
 
 
 def check_geglu(gen) -> dict:
     from animate_anything_tpu_torch.ops import geglu
 
-    total_ms = total_plain = max_err = 0.0
+    tally = Tally("ln_geglu_ff", "animate_anything_tpu_torch/csrc/geglu.cu",
+                  "animate_anything_tpu/ops/geglu.py:116")
     for n, c in ((34 * 4096, 320), (34 * 4096, 512), (34 * 1024, 640), (34 * 256, 1280),
                  (34 * 64, 1280)):
         x = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
@@ -153,22 +263,20 @@ def check_geglu(gen) -> dict:
         got = geglu.ln_geglu_ff(x, s, b, w1, b1, w2, b2)
         want = geglu.ln_geglu_reference(x, s, b, w1, b1, w2, b2, 1e-5)
         _assert_close(f"ln_geglu n={n} c={c}", got, want, Y_ATOL, Y_RTOL)
-        err = _err(got, want)
         ms = cuda_ms(lambda: geglu.ln_geglu_ff(x, s, b, w1, b1, w2, b2))
         plain = cuda_ms(lambda: geglu.ln_geglu_reference(x, s, b, w1, b1, w2, b2, 1e-5),
                         warmup=1, iters=3)
-        log(f"  ln_geglu_ff n={n} c={c}: max|err| {err:.3g}  kernel {ms:.3f} ms  "
-            f"plain {plain:.3f} ms")
-        total_ms, total_plain, max_err = total_ms + ms, total_plain + plain, max(max_err, err)
-    return dict(name="ln_geglu_ff", route="cuda", source="animate_anything_tpu_torch/csrc/geglu.cu",
-                replaces="animate_anything_tpu/ops/geglu.py:109",
-                max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
+        nbytes = 2 * n * c * 2 + 12 * c * c * 2 + (8 * c + 3 * c) * 4
+        tally.add(f"ln_geglu_ff n={n} c={c}", _err(got, want), ms, plain,
+                  24 * n * c * c, nbytes)
+    return tally.row
 
 
 def check_tap_conv(gen) -> dict:
     from animate_anything_tpu_torch.ops import temporal_conv as tc
 
-    total_ms = total_plain = max_err = 0.0
+    tally = Tally("tap_conv", "animate_anything_tpu_torch/csrc/temporal_conv.cu",
+                  "animate_anything_tpu/ops/temporal_conv.py:159")
     bsz, f = 2, FRAMES + 1
     for s, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
         x = torch.randn(bsz, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
@@ -177,6 +285,7 @@ def check_tap_conv(gen) -> dict:
         w = _lecun(gen, c, 3, c, fan_in=3 * c)
         bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
         res = torch.randn(bsz, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+        err = 0.0
         for residual in (None, res):
             y, (s1, s2) = tc.tap_conv(x, a, b, w, bias, residual)
             wy, (w1, w2) = tc.tap_conv_reference(x, a, b, w, bias, residual)
@@ -185,22 +294,21 @@ def check_tap_conv(gen) -> dict:
             _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
             _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
             _assert_stored_sums(tag, y, (s1, s2), dim=2)
-            max_err = max(max_err, _err(y, wy))
+            err = max(err, _err(y, wy))
         ms = cuda_ms(lambda: tc.tap_conv(x, a, b, w, bias, res))
         plain = cuda_ms(lambda: tc.tap_conv_reference(x, a, b, w, bias, res), warmup=1, iters=3)
-        log(f"  tap_conv bsz={bsz} f={f} s={s} c={c}: max|err| {max_err:.3g}  "
-            f"kernel {ms:.3f} ms  plain {plain:.3f} ms")
-        total_ms, total_plain = total_ms + ms, total_plain + plain
-    return dict(name="tap_conv", route="cuda",
-                source="animate_anything_tpu_torch/csrc/temporal_conv.cu",
-                replaces="animate_anything_tpu/ops/temporal_conv.py:114",
-                max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
+        rows = bsz * f * s
+        nbytes = 3 * rows * c * 2 + 3 * c * c * 2 + 2 * bsz * f * c * 4
+        tally.add(f"tap_conv bsz={bsz} f={f} s={s} c={c}", err, ms, plain,
+                  2 * rows * 3 * c * c, nbytes)
+    return tally.row
 
 
 def check_proj_residual(gen) -> dict:
     from animate_anything_tpu_torch.ops import proj_residual as pr
 
-    total_ms = total_plain = max_err = 0.0
+    tally = Tally("proj_residual_stats", "animate_anything_tpu_torch/csrc/proj_residual.cu",
+                  "animate_anything_tpu/ops/proj_residual.py:83")
     n = 2 * (FRAMES + 1)
     for s, k, c in ((4096, 512, 320), (4096, 320, 320), (1024, 640, 640), (256, 1280, 1280),
                     (64, 1280, 1280)):
@@ -215,21 +323,18 @@ def check_proj_residual(gen) -> dict:
         _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
         _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
         _assert_stored_sums(tag, y, (s1, s2), dim=1)
-        err = _err(y, wy)
         ms = cuda_ms(lambda: pr.proj_residual_stats(h, w, bias, r))
         plain = cuda_ms(lambda: pr.proj_residual_reference(h, w, bias, r), warmup=1, iters=3)
-        log(f"  {tag}: max|err| {err:.3g}  kernel {ms:.3f} ms  plain {plain:.3f} ms")
-        total_ms, total_plain, max_err = total_ms + ms, total_plain + plain, max(max_err, err)
-    return dict(name="proj_residual_stats", route="cuda",
-                source="animate_anything_tpu_torch/csrc/proj_residual.cu",
-                replaces="animate_anything_tpu/ops/proj_residual.py:80",
-                max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
+        nbytes = n * s * (k + 2 * c) * 2 + k * c * 2 + 2 * n * c * 4
+        tally.add(tag, _err(y, wy), ms, plain, 2 * n * s * k * c, nbytes)
+    return tally.row
 
 
 def check_temporal_block(gen) -> dict:
     from animate_anything_tpu_torch.ops import temporal_block as tb
 
-    total_ms = total_plain = max_err = 0.0
+    tally = Tally("temporal_block", "animate_anything_tpu_torch/csrc/temporal_block.cu",
+                  "animate_anything_tpu/ops/temporal_block.py:408")
     b, f = 2, FRAMES + 1
     for s, c in TEMPORAL_SITES:
         heads = c // 64
@@ -243,20 +348,18 @@ def check_temporal_block(gen) -> dict:
         want = tb.temporal_block_reference(*args, heads=heads)
         tag = f"temporal_block b={b} f={f} s={s} c={c} heads={heads}"
         _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
-        err = _err(got, want)
         ms = cuda_ms(lambda: tb.temporal_block(*args, heads=heads))
         plain = cuda_ms(lambda: tb.temporal_block_reference(*args, heads=heads), warmup=1,
                         iters=3)
-        log(f"  {tag}: max|err| {err:.3g}  kernel {ms:.3f} ms  plain {plain:.3f} ms")
-        total_ms, total_plain, max_err = total_ms + ms, total_plain + plain, max(max_err, err)
-    return dict(name="temporal_block", route="cuda",
-                source="animate_anything_tpu_torch/csrc/temporal_block.cu",
-                replaces="animate_anything_tpu/ops/temporal_block.py:399",
-                max_abs_err=max_err, ms=total_ms, plain_ms=total_plain)
+        rows = b * f * s
+        flop = 8 * rows * c * c + 4 * b * s * heads * f * f * 64
+        nbytes = 2 * rows * c * 2 + 4 * c * c * 2 + 3 * c * 4
+        tally.add(tag, _err(got, want), ms, plain, flop, nbytes)
+    return tally.row
 
 
-KERNEL_CHECKS = (check_flash, check_geglu, check_tap_conv, check_proj_residual,
-                 check_temporal_block)
+KERNEL_CHECKS = (check_flash, check_flash_backward, check_geglu, check_tap_conv,
+                 check_proj_residual, check_temporal_block)
 
 
 def check_kernels(seed: int = 0) -> list[dict]:
@@ -268,13 +371,35 @@ def check_kernels(seed: int = 0) -> list[dict]:
     return rows
 
 
-def kernel_modules() -> dict:
+def kernel_counters() -> dict:
+    """Each kernel's launch counter: (module, attribute)."""
     from animate_anything_tpu_torch.ops import (flash_attention, geglu, proj_residual,
                                                 temporal_block, temporal_conv)
 
-    return {"flash_attention": flash_attention, "ln_geglu_ff": geglu,
-            "tap_conv": temporal_conv, "proj_residual_stats": proj_residual,
-            "temporal_block": temporal_block}
+    return {"flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches"),
+            "ln_geglu_ff": (geglu, "launches"), "tap_conv": (temporal_conv, "launches"),
+            "proj_residual_stats": (proj_residual, "launches"),
+            "temporal_block": (temporal_block, "launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in kernel_counters().items()}
+
+
+def require_launched(path: str, counts: dict, names) -> None:
+    missing = [n for n in names if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+
+
+FORWARD_KERNELS = ("flash_attention", "ln_geglu_ff", "tap_conv", "proj_residual_stats",
+                   "temporal_block")
 
 
 def time_temporal_paths(seed: int = 0) -> None:
@@ -313,20 +438,50 @@ def time_temporal_paths(seed: int = 0) -> None:
 # in fp32 on the CPU through the plain versions. Tolerance: relative RMS
 # error of bf16 storage accumulated over ~40 layers.
 SMALL_REL_RMS = 5e-2
+# Its training loss and gradients, bf16 on the card against fp32 on the CPU:
+# the loss is a mean over many bf16-rounded outputs; the gradients pass the
+# forward's rounding and again the backward's (bf16 cotangents, P and dS
+# rounded before their products, bf16 weight gradients), through ~40 layers
+# each way.
+SMALL_LOSS_REL = 2e-2
+SMALL_GRAD_REL_RMS = 1e-1
+# The same error per parameter tensor, ‖g_card − g_cpu‖ / ‖g_cpu‖, at its
+# worst: the flattened RMS above is ruled by the largest leaves, so a wrong
+# scale on one small site's gradients could pass it; this bound does not
+# (worst reading 0.081 on the H100; a 1.25x scale on one tensor reads ~0.25).
+SMALL_GRAD_WORST_REL = 0.15
+# Some gradients are zero by construction: the biases of the temporal convs
+# that feed a GroupNorm with one channel per group (32 groups on the tiny
+# model's 32-channel levels), which removes any per-channel shift. The CPU
+# gives them fp32 rounding noise, so a relative error means nothing there.
+# A tensor whose RMS per element is under ZERO_SCALE of the typical
+# magnitude (the RMS over every gradient element) counts as zero; the log
+# shows the gap between the two classes. It must stay near zero on the
+# card: its RMS error per element under SMALL_GRAD_ZERO_NOISE of the typical
+# magnitude (worst reading 2.2e-3).
+ZERO_SCALE, SMALL_GRAD_ZERO_NOISE = 1e-4, 1e-2
 
 
-def check_small_unet(seed: int = 0) -> float:
-    from animate_anything_tpu_torch.core.dtypes import cast_module_
+def _small_unet(seed: int, **cfg_kw):
     from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
     from animate_anything_tpu_torch.utils.convert import init_unet3d_
 
-    cfg = UNet3DConfig.tiny(motion_mask=True, motion_strength=True, attention_head_dim=32)
+    cfg = UNet3DConfig.tiny(motion_mask=True, motion_strength=True, attention_head_dim=32,
+                            **cfg_kw)
     ref = UNet3DConditionModel(cfg)
     gen = torch.Generator().manual_seed(seed)
     init_unet3d_(ref, gen)
     for name, p in ref.named_parameters():   # wake the zero-initialised convs
         if "conv4.3" in name:
             p.data.normal_(0.0, 0.02, generator=gen)
+    return ref.eval(), gen
+
+
+def check_small_unet(seed: int = 0) -> float:
+    from animate_anything_tpu_torch.core.dtypes import cast_module_
+
+    ref, gen = _small_unet(seed)
+    cfg = ref.config
     b, f, hw = 2, 3, 16
     sample = torch.randn(b, f, hw, hw, 4, generator=gen)
     cond = torch.randn(b, 1, hw, hw, 4, generator=gen)
@@ -336,15 +491,11 @@ def check_small_unet(seed: int = 0) -> float:
     with torch.no_grad():
         want = ref(sample, 500, ctx, cond, mask, motion)
         gpu = cast_module_(ref.to("cuda"))
-        mods = kernel_modules()
-        for mod in mods.values():
-            mod.launches = 0
+        reset_counts()
         got = gpu(sample.cuda(), 500, ctx.cuda(), cond.cuda(), mask.cuda(),
                   motion.cuda()).float().cpu()
-    launches = {name: mod.launches for name, mod in mods.items()}
-    missing = [name for name, count in launches.items() if count == 0]
-    if missing:
-        raise AssertionError(f"small UNet: kernels never launched: {missing}")
+    launches = read_counts()
+    require_launched("small UNet forward", launches, FORWARD_KERNELS)
     if not torch.isfinite(got).all():
         raise AssertionError("small UNet: non-finite output on the card")
     rel = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
@@ -355,18 +506,106 @@ def check_small_unet(seed: int = 0) -> float:
     return rel
 
 
-def build_pipeline(seed: int = 0):
+def grad_errors(want: dict, got: dict) -> tuple[dict, dict, dict]:
+    """Per parameter tensor: ‖g_card − g_cpu‖ / ‖g_cpu‖ where the CPU's
+    gradient is of the typical magnitude; where it is zero by construction
+    (``ZERO_SCALE``), the card's RMS error per element over the typical
+    magnitude; and each tensor's RMS per element over the typical one."""
+    numel = sum(g.numel() for g in want.values())
+    typical = (sum(float(g.square().sum()) for g in want.values()) / numel) ** 0.5
+    rel, zero, scale = {}, {}, {}
+    for n, g in want.items():
+        err, norm, root = float((got[n] - g).norm()), float(g.norm()), g.numel() ** 0.5
+        scale[n] = norm / root / typical
+        if scale[n] < ZERO_SCALE:
+            zero[n] = err / root / typical
+        else:
+            rel[n] = err / norm
+    return rel, zero, scale
+
+
+def check_small_unet_grads(seed: int = 1) -> float:
+    """One training loss and its backward through the small UNet with
+    per-sub-layer checkpointing: bf16 on the card through every kernel (the
+    flash backward included) against fp32 on the CPU through the plain
+    versions, on the same noise, t and text-dropout flag."""
+    from animate_anything_tpu_torch.core.dtypes import cast_module_
+    from animate_anything_tpu_torch.train import make_loss_fn, mask_motion_finetune
+
+    ref, gen = _small_unet(seed, gradient_checkpointing=True)
+    b, f, hw = 2, 3, 16
+    batch = {"latents": torch.randn(b, f, hw, hw, 4, generator=gen),
+             "mask": torch.zeros(b, 8 * hw, 8 * hw),
+             "encoder_hidden_states": torch.randn(b, 77, ref.config.cross_attention_dim,
+                                                  generator=gen),
+             "uncond_hidden_states": torch.zeros(b, 77, ref.config.cross_attention_dim)}
+    batch["mask"][:, 32:96, 16:112] = 255.0
+    noise = torch.randn(b, f, hw, hw, 4, generator=gen)
+    t, drop = torch.tensor([123, 777]), False
+    config, schedule = mask_motion_finetune()
+    loss_fn = make_loss_fn(schedule, config)
+
+    loss_cpu, _ = loss_fn(ref, batch, noise, t, drop)
+    loss_cpu.backward()
+    want = {n: p.grad.clone() for n, p in ref.named_parameters() if p.grad is not None}
+
+    gpu = cast_module_(copy.deepcopy(ref).to("cuda"))
+    gpu.zero_grad(set_to_none=True)
+    reset_counts()
+    loss_gpu, _ = loss_fn(gpu, {k: v.cuda() for k, v in batch.items()}, noise.cuda(),
+                          t.cuda(), drop)
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require_launched("small UNet training step", launches, list(launches))
+
+    params = dict(gpu.named_parameters())
+    got = {n: (torch.zeros(g.shape) if params[n].grad is None else params[n].grad.float().cpu())
+           for n, g in want.items()}
+    if not all(torch.isfinite(g).all() for g in got.values()):
+        raise AssertionError("small UNet: non-finite gradients on the card")
+    per, zero, scale = grad_errors(want, got)
+    missing = [n for n in per if float(got[n].abs().max()) == 0.0]
+    if missing:
+        raise AssertionError(f"small UNet: no gradient on the card for {missing[:8]} "
+                             f"({len(missing)} parameters)")
+    g_cpu = torch.cat([want[n].flatten() for n in want])
+    g_gpu = torch.cat([got[n].flatten() for n in want])
+    rel = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    worst = sorted(per, key=per.get, reverse=True)
+    worst_zero = max(zero.values(), default=0.0)
+    loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    log(f"small UNet training loss + backward (checkpointed), card (kernels, bf16) vs CPU "
+        f"(plain, fp32): loss {loss_gpu:.6g} vs {loss_cpu:.6g} (relative "
+        f"{loss_rel:.3g}, limit {SMALL_LOSS_REL}); gradient relative RMS {rel:.4g} over "
+        f"{len(want)} parameters (limit {SMALL_GRAD_REL_RMS}); per parameter, worst "
+        f"{per[worst[0]]:.4g} (limit {SMALL_GRAD_WORST_REL}; "
+        + ", ".join(f"{n} {per[n]:.3g}" for n in worst[:3])
+        + f"; median {per[worst[len(worst) // 2]]:.3g}); {len(zero)} zero by construction "
+        f"(magnitude up to {max((scale[n] for n in zero), default=0.0):.3g} of the typical, "
+        f"the others from {min(scale[n] for n in per):.3g}), worst error {worst_zero:.3g} of "
+        f"the typical magnitude (limit {SMALL_GRAD_ZERO_NOISE}); launches {launches}")
+    if (loss_rel > SMALL_LOSS_REL or rel > SMALL_GRAD_REL_RMS
+            or per[worst[0]] > SMALL_GRAD_WORST_REL or worst_zero > SMALL_GRAD_ZERO_NOISE):
+        raise AssertionError(f"small UNet training step disagrees with its CPU reference: "
+                             f"loss {loss_rel:.4g}, gradients {rel:.4g}, worst parameter "
+                             f"{worst[0]} {per[worst[0]]:.4g}, zero gradients {worst_zero:.4g}")
+    return rel
+
+
+def build_models(seed: int = 0, gradient_checkpointing: bool = False):
+    """Full-width UNet, VAE and CLIP text encoder in the policy's dtypes."""
     from animate_anything_tpu_torch.core.dtypes import cast_module_
     from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
     from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
-    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
     from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
     from animate_anything_tpu_torch.utils.convert import init_clip_text_, init_unet3d_, init_vae_
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("cuda"):
-        unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True))
+        unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True,
+                                                 gradient_checkpointing=gradient_checkpointing))
         vae = AutoencoderKL(VAEConfig())
         text = CLIPTextModel()
     for module, init in ((unet, init_unet3d_), (vae, init_vae_), (text, init_clip_text_)):
@@ -374,6 +613,14 @@ def build_pipeline(seed: int = 0):
     count = lambda m: sum(p.numel() for p in m.parameters())
     log(f"unet: {count(unet) / 1e9:.3f} B params, vae: {count(vae) / 1e6:.1f} M, "
         f"CLIP text: {count(text) / 1e6:.1f} M (bf16 weights)")
+    return unet, vae, text
+
+
+def build_pipeline(seed: int = 0):
+    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+
+    unet, vae, text = build_models(seed)
     return LatentToVideoPipeline(unet, vae, text_encoder=text, tokenizer=HashTokenizer())
 
 
@@ -395,17 +642,15 @@ def make_requests(seed: int = 0) -> list[dict]:
 
 
 def run_requests() -> dict:
-    """Drive the main path; return each kernel's launch count during it."""
+    """Drive the inference path; return each kernel's launch count during it."""
     pipe = build_pipeline()
     reqs = make_requests()
-    mods = kernel_modules()
     log(f"requests: {REQUESTS} x animate_image({RES}x{RES}, {FRAMES} frames, "
         f"{STEPS} DPM-Solver++ steps, CFG {GUIDANCE})")
     gen = torch.Generator(device="cuda").manual_seed(7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts()
     for i, req in enumerate(reqs):
         t0 = time.perf_counter()
         video, latents = pipe.animate_image(
@@ -419,9 +664,77 @@ def run_requests() -> dict:
             raise AssertionError(f"request {i}: non-finite output")
         log(f"  request {i}: {dt:.3f} s  video {tuple(video.shape)} {video.dtype} "
             f"range [{float(video.min()):.3f}, {float(video.max()):.3f}]")
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = read_counts()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"kernel launches during the requests: {launches}")
+    require_launched("requests", launches, FORWARD_KERNELS)
+    return launches
+
+
+def make_train_batch(seed: int = 0) -> dict:
+    """One 512x512 / 16-frame clip (a random image drifting 4 px a frame),
+    a motion mask over half of it, the prompt's ids (hash tokenizer) and the
+    empty prompt's for the text dropout."""
+    import numpy as np
+
+    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
+
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-1.0, 1.0, (RES, RES, 3)).astype(np.float32)
+    video = np.stack([np.roll(base, 4 * i, axis=1) for i in range(FRAMES)])[None]
+    mask = np.zeros((1, RES, RES), np.float32)
+    mask[:, RES // 4:3 * RES // 4, :] = 255.0
+    tok = HashTokenizer()
+    return {"pixel_values": torch.from_numpy(video), "mask": torch.from_numpy(mask),
+            "prompt_ids": torch.from_numpy(tok(TRAIN_PROMPT).input_ids).long(),
+            "uncond_ids": torch.from_numpy(tok("").input_ids).long()}
+
+
+def run_train_steps() -> dict:
+    """Drive the training path at full width; return each kernel's launch
+    count during the timed steps."""
+    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
+                                                  mask_motion_finetune)
+
+    unet, vae, text = build_models(gradient_checkpointing=True)
+    for module in (vae, text):
+        module.requires_grad_(False)
+    config, schedule = mask_motion_finetune()
+    state = create_train_state(unet, config)
+    step = make_train_step(schedule, config, vae=vae, text_encoder=text)
+    batch = make_train_batch()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    log(f"training: 1 + {TRAIN_STEPS} steps of the full-width UNet, batch 1 x {FRAMES} frames "
+        f"x {RES}x{RES} (VAE encode + CLIP text in the step, per-sub-layer checkpointing, "
+        f"AdamW lr {config.learning_rate} on fp32 masters)")
+    before = {n: float(m.double().sum()) for n, m in state.masters.items()}
+    t0 = time.perf_counter()
+    metrics = step(state, batch, gen)
+    log(f"  warm-up step: {time.perf_counter() - t0:.3f} s  {metrics}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        log(f"  step {i}: {times[-1]:.3f} s  " + "  ".join(
+            f"{k} {v:.6g}" for k, v in metrics.items()))
+        bad = {k: v for k, v in metrics.items() if not v == v or abs(v) == float("inf")}
+        if bad:
+            raise AssertionError(f"train step {i}: non-finite {bad}")
+    launches = read_counts()
+    changed = sum(float(m.double().sum()) != before[n] for n, m in state.masters.items())
+    log(f"  s/step {sum(times) / len(times):.3f} (steps {', '.join(f'{t:.3f}' for t in times)})")
+    log(f"  peak device memory over the timed steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  fp32 masters changed: {changed} of {len(before)} parameter tensors")
+    log(f"  kernel launches during the {TRAIN_STEPS} timed steps: {launches}")
+    if changed == 0:
+        raise AssertionError("training: no parameter changed")
+    require_launched("training", launches, list(launches))
     return launches
 
 
@@ -447,13 +760,15 @@ def main() -> int:
     log("temporal transformers, fused vs composite path (bf16, b=2, f=17):")
     time_temporal_paths()
     check_small_unet()
+    check_small_unet_grads()
 
-    launches = run_requests()
+    requests = run_requests()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = run_train_steps()
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    missing = [r["name"] for r in rows if r["launches"] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        row["launches"] = train[row["name"]]
+        row["launches_requests"] = requests[row["name"]]
 
     print(json.dumps({"kernels": rows}))
     print(ident)

@@ -1,7 +1,8 @@
 """Properties of the PyTorch port that need no JAX reference: it never
 imports JAX, its smoke script refuses to run without a CUDA device, its
-kernel wrappers never fall back to the plain version for a non-CPU tensor,
-and its initialisers draw what the flax ones draw."""
+kernel wrappers (the flash backward's too) never fall back to the plain
+version for a non-CPU tensor and always hand their outputs to autograd, and
+its initialisers draw what the flax ones draw."""
 
 import math
 import shutil
@@ -26,7 +27,8 @@ def test_importing_the_whole_port_never_imports_jax():
         "             ('jax', 'jaxlib', 'flax', 'animate_anything_tpu'))\n"
         "assert len(names) >= 21, names\n"
         "assert {pkg.__name__ + '.' + m for m in ('ops.temporal_block', 'models.clip_text',\n"
-        "        'models.clip_tokenizer', 'models.tokenizers')} <= set(names), names\n"
+        "        'models.clip_tokenizer', 'models.tokenizers', 'ops.autograd', 'train.trainer',\n"
+        "        'metrics.motion')} <= set(names), names\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -57,7 +59,8 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, device="meta", dtype=dtype)
 
 
-@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj", "temporal_block"])
+@pytest.mark.parametrize("op", ["flash", "flash_backward", "geglu", "tap_conv", "proj",
+                                "temporal_block"])
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
     """A tensor that is not on the CPU goes to the kernel path, whose checks
     refuse anything but a CUDA tensor: there is no silent fallback."""
@@ -67,6 +70,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
     f32 = torch.float32
     calls = {
         "flash": lambda: flash_attention.flash_attention(*(_meta(1, 128, 2, 64),) * 3),
+        "flash_backward": lambda: flash_attention.flash_attention_backward(
+            *(_meta(1, 128, 2, 64),) * 5, lse=_meta(1, 2, 128, dtype=f32)),
         "geglu": lambda: geglu.ln_geglu_ff(_meta(4, 32), _meta(32, dtype=f32),
                                            _meta(32, dtype=f32), _meta(256, 32),
                                            _meta(256, dtype=f32), _meta(32, 128),
@@ -84,6 +89,47 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
         calls[op]()
 
 
+def _cpu(*shape, seed=0):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed),
+                       requires_grad=True)
+
+
+@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj", "temporal_block"])
+def test_kernel_wrappers_carry_gradients_on_the_cpu(op):
+    """Every wrapper's outputs hang off its autograd Function, on the CPU as
+    on the card, and every input gets a gradient: a kernel output written
+    through ``data_ptr()`` would have no ``grad_fn`` and leave every
+    parameter upstream without one."""
+    from animate_anything_tpu_torch.ops import flash_attention, geglu, proj_residual, \
+        temporal_block, temporal_conv
+
+    shapes = {
+        "flash": [(1, 128, 2, 32)] * 3,
+        "geglu": [(4, 32), (32,), (32,), (256, 32), (256,), (32, 128), (32,)],
+        "tap_conv": [(1, 3, 4, 32), (1, 32), (1, 32), (32, 3, 32), (32,), (1, 3, 4, 32)],
+        "proj": [(2, 4, 16), (8, 16), (8,), (2, 4, 8)],
+        "temporal_block": [(1, 4, 8, 64), (64,), (64,)] + [(64, 64)] * 4 + [(64,)],
+    }
+    fns = {"flash": flash_attention.flash_attention, "geglu": geglu.ln_geglu_ff,
+           "tap_conv": temporal_conv.tap_conv, "proj": proj_residual.proj_residual_stats,
+           "temporal_block": lambda *a: temporal_block.temporal_block(*a, heads=2)}
+    inputs = [_cpu(*shape, seed=i) for i, shape in enumerate(shapes[op])]
+    out = fns[op](*inputs)
+    leaves = [out] if isinstance(out, torch.Tensor) else [out[0], *out[1]]
+    assert all(y.grad_fn is not None for y in leaves)
+    sum(y.sum() for y in leaves).backward()
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in inputs)
+
+
+def test_flash_backward_wrapper_takes_the_plain_version_for_cpu_tensors():
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, o, do = (_cpu(1, 128, 2, 32, seed=i).detach() for i in range(5))
+    for got, want in zip(fa.flash_attention_backward(q, k, v, o, do),
+                         fa.flash_attention_backward_reference(q, k, v, o, do)):
+        assert torch.equal(got, want)
+
+
 def test_kernel_sources_cover_every_entry_point():
     from animate_anything_tpu_torch.ops import cuda_lib
 
@@ -99,6 +145,8 @@ def test_kernel_sources_cover_every_entry_point():
     ("temporal_conv.cu", "ops/temporal_conv.py::_pallas_stage"),
     ("proj_residual.cu", "ops/proj_residual.py::_pallas_proj"),
     ("temporal_block.cu", "ops/temporal_block.py::_build_bfsc"),
+    ("flash_attention_bwd.cu", "ops/flash_attention.py::_flash_backward_lanes"),
+    ("flash_attention_bwd.cu", "ops/flash_attention.py::_flash_backward"),
 ])
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces(source, replaces):
     from animate_anything_tpu_torch.ops import cuda_lib
@@ -133,6 +181,8 @@ def test_profiler_groups_kernels_and_times_a_call():
     from animate_anything_tpu_torch.utils.profiling import device_profile, kernel_group
 
     assert kernel_group("void flash_fwd_kernel<64>(Params)") == "flash_attention (kernel 1)"
+    assert kernel_group("void flash_bwd_dkv_kernel<64, 64>(...)") == "flash_attention backward"
+    assert kernel_group("void multi_tensor_apply_kernel<...>") == "optimizer (foreach)"
     assert kernel_group("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"
     assert kernel_group("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul (cuBLAS)"
     assert kernel_group("nvjet_tst_128x64_64x4") == "matmul (cuBLAS)"
