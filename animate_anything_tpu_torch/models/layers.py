@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from animate_anything_tpu_torch.ops.group_norm import group_norm_silu
+from animate_anything_tpu_torch.ops.spatial_conv import SPATIAL_CONV_OPTIN, gn_silu_spatial_conv
 from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv
 
 
@@ -60,17 +61,19 @@ class Conv1x1(nn.Module):
 
 class FusedGroupNorm(nn.Module):
     """GroupNorm (+ optional SiLU) on (n, ..., c), statistics in fp32,
-    optionally from precomputed per-(n, c) sums (ops/group_norm.py)."""
+    optionally from precomputed per-(n, c) sums (ops/group_norm.py).
+    ``stats="pallas"`` sends this norm's statistics through kernel 6."""
 
-    def __init__(self, channels: int, groups: int, eps: float = 1e-5, silu: bool = False):
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5, silu: bool = False,
+                 stats: Optional[str] = None):
         super().__init__()
-        self.groups, self.eps, self.silu = groups, eps, silu
+        self.groups, self.eps, self.silu, self.stats = groups, eps, silu, stats
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
 
     def forward(self, x: torch.Tensor, sums=None) -> torch.Tensor:
         return group_norm_silu(x, self.weight, self.bias, self.groups, self.eps, self.silu,
-                               sums=sums)
+                               stats=self.stats, sums=sums)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -115,7 +118,9 @@ class TimestepEmbedding(nn.Module):
 
 class ResnetBlock2D(nn.Module):
     """GN→SiLU→conv3x3 ×2 with time-embedding bias and 1×1 shortcut on the
-    fused (b·f, h, w, c) batch (diffusers ResnetBlock2D)."""
+    fused (b·f, h, w, c) batch (diffusers ResnetBlock2D). Under
+    ``SPATIAL_CONV_OPTIN()`` both stages run kernel 8 (JAX's
+    ``AA_SPATIAL_CONV`` branch of its ``impl="pallas"`` resnet)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
                  groups: int = 32, eps: float = 1e-5):
@@ -130,6 +135,8 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                 norm1_sums=None) -> torch.Tensor:
+        if SPATIAL_CONV_OPTIN():
+            return self._fused(x, temb)
         h = self.conv1(self.norm1(x, sums=norm1_sums))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
@@ -137,6 +144,20 @@ class ResnetBlock2D(nn.Module):
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+    def _fused(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+        """Two fused stages on the same parameters: the time-embedding
+        projection folds into stage 1's per-sample bias, the shortcut into
+        stage 2's residual. Statistics come from ``group_affine``: like
+        JAX's branch, this one takes no producer sums and returns none."""
+        teb = None if temb is None else self.time_emb_proj(F.silu(temb))
+        h = gn_silu_spatial_conv(x.to(self.conv1.weight.dtype), self.norm1.weight,
+                                 self.norm1.bias, self.conv1.weight, self.conv1.bias,
+                                 groups=self.norm1.groups, eps=self.norm1.eps, extra_bias=teb)
+        shortcut = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return gn_silu_spatial_conv(h, self.norm2.weight, self.norm2.bias, self.conv2.weight,
+                                    self.conv2.bias, groups=self.norm2.groups,
+                                    eps=self.norm2.eps, residual=shortcut)
 
 
 class TemporalConvLayer(nn.Module):

@@ -1,6 +1,9 @@
 """SD VAE (AutoencoderKL), pixel ↔ latent 8× codec — the port of
-``animate_anything_tpu/models/vae.py``. Plain torch throughout: the JAX
-package runs no Pallas kernel here (its mid-block attention goes to XLA).
+``animate_anything_tpu/models/vae.py``. Plain torch by default, as in the
+JAX package (its mid-block attention goes to XLA). Under
+``set_default_norm_impl("pallas")`` every GroupNorm here (widths 128, 256
+and 512) runs kernel 7 (``ops/streaming_group_norm.py``), as JAX's runs its
+streaming Pallas kernel.
 
 Channels-last (n, h, w, c); ``encode_video`` / ``decode_video`` fold the
 frame axis into the batch. Keys follow the diffusers AutoencoderKL layout.

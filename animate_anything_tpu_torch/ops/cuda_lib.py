@@ -40,6 +40,12 @@ _SIGNATURES = {
     # x, ln_s, ln_b, wq, wk, wv, wo, bo, o, y, b, f, s, c, heads, eps, scale, stream
     "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                            _P],
+    # x, work, s1, s2, n, s, c, chunks, stream
+    "aat_channel_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, scale, bias, work, y, n, s, c, groups, chunks, eps, silu, stream
+    "aat_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, a, b, w, bias, res, y, n, h, w, cin, cout, silu, stream
+    "aat_spatial_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,33 +1,148 @@
 """GroupNorm as a per-(batch, channel) affine, with optional precomputed
-sums — the port of ``animate_anything_tpu/ops/group_norm.py``
-(``group_affine`` and the composite ``group_norm_silu``).
+sums — the port of ``animate_anything_tpu/ops/group_norm.py``.
 
 Statistics are per-channel fp32 Σx, Σx² over the row axis, combined into
 per-group moments on the small (n, c) result. A producer kernel that already
 emitted the sums of its output (kernels 3 and 4) hands them in as ``sums``
-and the norm then costs only the ``a·x + b`` apply. The JAX package's
-channel-sums Pallas kernel is opt-in there (off by default) and is not part
-of this port's main path.
+and the norm then costs only the ``a·x + b`` apply.
+
+Two switches keep the JAX package's names, values and defaults ("xla",
+off); "pallas" names the hand-written CUDA kernel here:
+
+- ``set_default_stats_impl``: statistics without producer sums go through
+  kernel 6 (``stream_channel_sums``, ``csrc/group_norm.cu``, replacing
+  ``_pallas_channel_sums``); a call can ask for it with ``stats="pallas"``.
+- ``set_default_norm_impl``: every GroupNorm that JAX's gate admits runs the
+  one-pass kernel 7 (``ops/streaming_group_norm.py``), whose affine is
+  applied in fp32 with one rounding; the others keep the composite form,
+  whose (a, b) are rounded to x's dtype before the apply.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops.autograd import Recompute
+
+_DEFAULT_IMPL = "xla"
+_DEFAULT_STATS = "xla"
+
+launches = 0  # kernel launches by stream_channel_sums
+
+
+def set_default_norm_impl(impl: str) -> None:
+    """"pallas": GroupNorms that pass JAX's gate run kernel 7 (for CUDA
+    tensors; its plain version for CPU tensors); "xla": the composite form."""
+    global _DEFAULT_IMPL
+    if impl not in ("xla", "pallas"):
+        raise ValueError(impl)
+    _DEFAULT_IMPL = impl
+
+
+def set_default_stats_impl(impl: str) -> None:
+    """"auto" and "pallas": GroupNorm statistics without producer sums go
+    through kernel 6 for CUDA tensors and its plain version for CPU tensors
+    (JAX's "auto" takes the composite reduction off the TPU: the same
+    numbers up to summation order); "xla": the composite reduction."""
+    global _DEFAULT_STATS
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(impl)
+    _DEFAULT_STATS = impl
+
+
+def _largest_aligned_divisor(s: int, limit: int) -> int:
+    best, d = 0, 1
+    while d * d <= s:
+        if s % d == 0:
+            for cand in (d, s // d):
+                if cand % 8 == 0 and best < cand <= limit:
+                    best = cand
+        d += 1
+    return best
+
+
+def _pick_chunk(s: int, c: int) -> int:
+    """JAX's row chunk of the one-pass kernel: the largest divisor of s
+    (a multiple of 8) whose fp32 chunk fits ~2 MB; 0 if none. Part of the
+    gate only: the CUDA kernel does not chunk by it."""
+    return _largest_aligned_divisor(s, max(8, (2**21) // (4 * c)))
+
+
+def _stats_chunk(s: int, c: int, itemsize: int) -> int:
+    """JAX's row chunk of the channel-sums kernel (≤ ~1 MB); 0 if none."""
+    return _largest_aligned_divisor(s, max(8, (2**20) // (itemsize * c)))
+
+
+def stats_ok(x2) -> bool:
+    """Channel-sums kernel eligibility, JAX's gate: the stats switch is on
+    and the row count splits into aligned chunks."""
+    if _DEFAULT_STATS == "xla":
+        return False
+    _, s, c = x2.shape
+    return _stats_chunk(s, c, x2.element_size()) >= 8
+
 
 def channel_sums(x2: torch.Tensor):
-    """Per-(n, c) fp32 (Σx, Σx²) of x2 (n, s, c)."""
+    """Per-(n, c) fp32 (Σx, Σx²) of x2 (n, s, c): the composite reduction,
+    and kernel 6's plain version."""
     xf = x2.float()
     return xf.sum(1), xf.square().sum(1)
 
 
-def group_affine(x2, scale, bias, groups: int, eps: float, sums=None):
+THREADS, TARGET_BLOCKS = 256, 4 * 132
+
+
+def sums_chunks(n: int, s: int, c: int) -> int:
+    """Row chunks of kernel 6's first pass: about ``TARGET_BLOCKS`` blocks
+    over the card, no more chunks than each block's row lanes can fill."""
+    ct = min(32, c // 8)
+    slabs = -(-(c // 8) // ct)
+    return max(1, min(-(-s // (THREADS // ct)), math.ceil(TARGET_BLOCKS / (n * slabs))))
+
+
+def _launch_channel_sums(x2):
+    n, s, c = x2.shape
+    if c % 8:
+        raise ValueError(f"channel_sums: c={c} must be a multiple of 8")
+    cuda_lib.check_cuda("channel_sums x", x2, torch.bfloat16, (n, s, c))
+    chunks = sums_chunks(n, s, c)
+    work = torch.empty(2 * n * chunks * c, device=x2.device, dtype=torch.float32)
+    s1 = torch.empty((n, c), device=x2.device, dtype=torch.float32)
+    s2 = torch.empty_like(s1)
+    cuda_lib.call("aat_channel_sums", x2.data_ptr(), work.data_ptr(), s1.data_ptr(),
+                  s2.data_ptr(), n, s, c, chunks)
+    global launches
+    launches += 1
+    return s1, s2
+
+
+def stream_channel_sums(x2: torch.Tensor):
+    """Per-(n, c) fp32 (Σx, Σx²) of x2 (n, s, c): kernel 6 for a CUDA
+    tensor, ``channel_sums`` for a CPU tensor. The gradient is JAX's custom
+    VJP, dx = g1 + 2·x·g2, through ``channel_sums``."""
+    run = channel_sums if x2.device.type == "cpu" else _launch_channel_sums
+    s1, s2 = Recompute.apply(run, channel_sums, x2)
+    return s1, s2
+
+
+def group_affine(x2, scale, bias, groups: int, eps: float, stats=None, sums=None):
     """fp32 (a, b), each (n, c), such that ``a·x + b`` is GroupNorm(+scale,
     bias) of x2 (n, s, c), statistics pooled over s and each group's
-    channels."""
+    channels. ``sums``: the producer's per-(n, c) (Σx, Σx²); else kernel 6
+    when ``stats="pallas"`` or the stats switch admits x2, else the
+    composite reduction."""
     n, s, c = x2.shape
-    s1, s2 = channel_sums(x2) if sums is None else (sums[0].float(), sums[1].float())
+    force = stats == "pallas" and _stats_chunk(s, c, x2.element_size()) >= 8
+    if sums is not None:
+        s1, s2 = sums[0].float(), sums[1].float()
+    elif force or stats_ok(x2):
+        s1, s2 = stream_channel_sums(x2)
+    else:
+        s1, s2 = channel_sums(x2)
     g1 = s1.reshape(n, groups, c // groups).sum(-1)
     g2 = s2.reshape(n, groups, c // groups).sum(-1)
     cnt = float(s * (c // groups))
@@ -41,14 +156,31 @@ def group_affine(x2, scale, bias, groups: int, eps: float, sums=None):
     return a, b
 
 
+def streaming_ok(x2, groups: int, impl: str, sums) -> bool:
+    """JAX's gate of the one-pass kernel (``group_norm_silu`` :297-307):
+    the norm switch, no producer sums, c a multiple of 128 (and of groups)
+    and an aligned row chunk. It decides where the affine is applied in
+    fp32, so the port keeps it as is."""
+    _, s, c = x2.shape
+    return (impl == "pallas" and sums is None and c % groups == 0 and c % 128 == 0
+            and _pick_chunk(s, c) >= 8)
+
+
 def group_norm_silu(x, scale, bias, groups: int, eps: float = 1e-5, silu: bool = True,
+                    impl: str | None = None, stats: str | None = None,
                     sums=None) -> torch.Tensor:
     """GroupNorm over the last axis of x (n, ..., c), statistics pooled over
     every non-batch axis (torch GroupNorm semantics), optionally with SiLU.
-    The affine is applied in x's dtype."""
+    Past ``streaming_ok``, kernel 7; else the composite form, whose affine
+    is applied in x's dtype."""
+    impl = impl or _DEFAULT_IMPL
     shape = x.shape
     x2 = x.reshape(shape[0], -1, shape[-1])
-    a, b = group_affine(x2, scale, bias, groups, eps, sums=sums)
+    if streaming_ok(x2, groups, impl, sums):
+        from animate_anything_tpu_torch.ops.streaming_group_norm import group_norm_stream
+
+        return group_norm_stream(x2, scale, bias, groups, eps, silu).reshape(shape)
+    a, b = group_affine(x2, scale, bias, groups, eps, stats=stats, sums=sums)
     y = x2 * a[:, None, :].to(x2.dtype) + b[:, None, :].to(x2.dtype)
     if silu:
         # the JAX package's tanh identity y·(1 + tanh(y/2))/2 has the same

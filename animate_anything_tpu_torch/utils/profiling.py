@@ -1,6 +1,6 @@
 """Device-time profile of the port's main path on one CUDA device.
 
-    python -m animate_anything_tpu_torch.utils.profiling
+    python -m animate_anything_tpu_torch.utils.profiling [--opt-in]
 
 Builds the full-width mask+motion UNet, the SD VAE and the CLIP text encoder
 in bf16 from a seeded generator, as ``chip_smoke.py`` does, then profiles
@@ -13,6 +13,13 @@ fp32 masters) with ``torch.profiler``. For each it prints the wall time, the
 device kernel time, the device idle share (1 − kernel time / wall time; one
 stream, so kernels do not overlap), the kernel time by group, and the
 largest kernels. The last line is one JSON object with those numbers.
+
+``--opt-in`` (``profile_opt_in``) profiles instead one CFG UNet forward and
+one 16-frame VAE decode in the JAX package's opt-in GroupNorm and resnet-conv
+configuration (``ops/spatial_conv.opt_in_config``), each beside the same call
+in the default configuration. Kernel 7's two sum passes are the
+``channel_partial``/``channel_finish`` kernels, so they count in kernel 6's
+group.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ KERNEL_GROUPS = (
     ("tap_conv (kernel 3)", ("tap_conv",)),
     ("proj_residual (kernel 4)", ("proj_residual",)),
     ("temporal_block (kernel 5)", ("temporal_block",)),
+    ("channel_sums (kernel 6)", ("channel_partial", "channel_finish")),
+    ("group_norm_stream (kernel 7)", ("group_fold", "gn_apply")),
+    ("spatial_conv (kernel 8)", ("spatial_conv",)),
     ("conv (cuDNN)", ("conv", "fprop", "implicit", "cudnn", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "cublas", "matmul", "bmm", "nvjet")),
     ("softmax", ("softmax",)),
@@ -99,18 +109,26 @@ def _report(name: str, prof: Dict) -> None:
         print(f"   {ms:9.2f} ms  x{calls:5d}  {kname[:110]}")
 
 
-def main(seed: int = 0) -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
+def _report_all(profiles) -> None:
+    """Print each ``(name, fn)``'s profile, then all of them as one JSON line."""
+    out = {}
+    for name, fn in profiles:
+        out[name] = device_profile(fn)
+        _report(name, out[name])
+        out[name]["kernels"] = [[ms, calls, kname[:120]]
+                                for ms, calls, kname in out[name]["kernels"][:20]]
+    print(json.dumps(out))
+
+
+def _inference_setup(seed: int, gradient_checkpointing: bool):
+    """The full-width UNet, VAE and CLIP text encoder in bf16, and the CFG
+    UNet forward, 16-frame VAE decode and text encode to profile."""
     from animate_anything_tpu_torch.core.dtypes import cast_module_
     from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
     from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
     from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
     from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig, decode_video
     from animate_anything_tpu_torch.utils.convert import init_clip_text_, init_unet3d_, init_vae_
-
-    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
-                                                  mask_motion_finetune)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -119,7 +137,7 @@ def main(seed: int = 0) -> int:
         # checkpointing acts only while autograd records: the inference
         # profiles run under no_grad and are unaffected
         unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True,
-                                                 gradient_checkpointing=True))
+                                                 gradient_checkpointing=gradient_checkpointing))
         vae = AutoencoderKL(VAEConfig())
     cast_module_(init_unet3d_(unet, gen)).eval()
     cast_module_(init_vae_(vae, gen)).eval()
@@ -147,6 +165,38 @@ def main(seed: int = 0) -> int:
     def text_encode():
         return text(ids)
 
+    return unet, vae, text, ids, gen, unet_forward, vae_decode, text_encode
+
+
+def profile_opt_in(seed: int = 0) -> int:
+    """One CFG UNet forward and one 16-frame VAE decode in the opt-in
+    configuration, each after the same call in the default one."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
+    from animate_anything_tpu_torch.ops.spatial_conv import opt_in_config
+
+    *_, unet_forward, vae_decode, _ = _inference_setup(seed, gradient_checkpointing=False)
+
+    def opt_in(fn):
+        def run():
+            with opt_in_config():
+                return fn()
+        return run
+
+    _report_all((("unet_cfg_forward", unet_forward),
+                 ("unet_cfg_forward_opt_in", opt_in(unet_forward)),
+                 ("vae_decode_16f", vae_decode), ("vae_decode_16f_opt_in", opt_in(vae_decode))))
+    return 0
+
+
+def main(seed: int = 0) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
+    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
+                                                  mask_motion_finetune)
+
+    unet, vae, text, ids, gen, unet_forward, vae_decode, text_encode = _inference_setup(
+        seed, gradient_checkpointing=True)
     pixels = torch.rand(1, 16, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
     train_mask = torch.zeros(1, 512, 512, device="cuda")
     train_mask[:, 128:384] = 255.0
@@ -162,17 +212,12 @@ def main(seed: int = 0) -> int:
     def train_step():
         return step(state, batch, train_gen)
 
-    out = {}
-    for name, fn in (("unet_cfg_forward", unet_forward), ("vae_decode_16f", vae_decode),
-                     ("clip_text_encode_2x77", text_encode),
-                     ("train_step_16f_512px", train_step)):
-        out[name] = device_profile(fn)
-        _report(name, out[name])
-        out[name]["kernels"] = [[ms, calls, kname[:120]]
-                                for ms, calls, kname in out[name]["kernels"][:20]]
-    print(json.dumps(out))
+    _report_all((("unet_cfg_forward", unet_forward), ("vae_decode_16f", vae_decode),
+                 ("clip_text_encode_2x77", text_encode), ("train_step_16f_512px", train_step)))
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    import sys
+
+    raise SystemExit(profile_opt_in() if "--opt-in" in sys.argv[1:] else main())

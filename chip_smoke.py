@@ -9,10 +9,12 @@
    shapes (bf16 inputs; the plain version computes in fp32 on the same
    inputs) and times both with CUDA events, beside the card's bound for the
    same work and, where one PyTorch call computes the same function, that
-   call's time (never used by the port); the flash-attention backward too,
-   at the three training shapes and one ragged d = 128 case; times one
-   temporal transformer per width on its fused path (kernel 5 + kernel 2)
-   against the composite path;
+   call's time (never used by the port); the flash-attention forward and
+   backward at one ragged d = 128 case too, and the backward at the three
+   training shapes; the channel sums, the streaming GroupNorm (+SiLU) and the
+   fused GroupNorm-affine + SiLU -> 3x3 conv at the opt-in configuration's
+   shapes; times one temporal transformer per width on its fused path
+   (kernel 5 + kernel 2) against the composite path;
 4. runs a small UNet on the card through the kernels (every temporal site on
    the fused path) and holds it against the same weights through the plain
    versions on the CPU: its forward, then one training loss and its
@@ -21,13 +23,23 @@
    encoder in bf16 from a seeded generator and answers two 512x512 /
    16-frame image-to-video requests, each an image and a prompt string
    (hash tokenizer), through ``LatentToVideoPipeline.animate_image`` (CFG 9,
-   DPM-Solver++);
-6. frees that pipeline and trains the same full-width UNet on one
+   DPM-Solver++); none of kernels 6-8 may run there;
+6. answers one more such request in the JAX package's opt-in GroupNorm and
+   resnet-conv configuration (``ops/spatial_conv.opt_in_config``: the
+   streaming GroupNorm, the channel-sums statistics and ``AA_SPATIAL_CONV=1``),
+   which must launch kernels 6-8, then decodes its latents in both
+   configurations and holds the two videos together;
+7. frees that pipeline and trains the same full-width UNet on one
    512x512 / 16-frame clip (the ``configs/train_mask_motion.yaml`` values):
    the VAE encode and CLIP text inside the step, per-sub-layer gradient
-   checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps;
-7. checks that every kernel was launched on each path that runs it, prints
-   one JSON line with the kernels' numbers, and last the device line.
+   checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps,
+   which launch none of kernels 6-8;
+8. checks that every kernel was launched on each path that runs it, prints
+   one JSON line with the kernels' numbers (``launches``: the count on the
+   path of the slice that brought the kernel in, the requests for kernels
+   1-5, the training steps for the flash backward, the opt-in request for
+   kernels 6-8; ``launches_requests``, ``launches_opt_in`` and
+   ``launches_train`` each path's), and last the device line.
 
 Exits non-zero without a CUDA device, or when any phase fails.
 """
@@ -63,6 +75,13 @@ STORED_SUM_ATOL, STORED_SUM_RTOL = 1e-2, 2e-5
 # stored gradients are bf16. Limit: 2 % of the gradient's largest magnitude
 # plus 2 % of each element.
 GRAD_ATOL_FRAC, GRAD_RTOL = 2e-2, 2e-2
+# The two VAE decodes of the same latents, default against opt-in
+# configuration: the composite GroupNorm rounds (a, b) to bf16 and applies
+# them in bf16, the streaming kernel applies them in fp32 with one rounding;
+# that 2^-8-relative difference at each of the decoder's 30 GroupNorms is
+# carried through its convolutions. Held as a relative RMS over the video,
+# like the bf16 storage noise of the small UNet.
+DECODE_REL_RMS = 5e-2
 
 # The card's peaks for the bound of each kernel's work (NVIDIA H100 SXM data
 # sheet, dense): bf16 tensor cores and HBM3.
@@ -176,12 +195,14 @@ def _sdpa(q, k, v):
 
 
 def check_flash(gen) -> dict:
+    """The forward at the UNet's three d = 64 sites (``_flash_forward_lanes``)
+    and at the ragged d = 128 case of the backward check
+    (``_flash_forward``'s other head sizes)."""
     from animate_anything_tpu_torch.ops import flash_attention as fa
 
     tally = Tally("flash_attention", "animate_anything_tpu_torch/csrc/flash_attention.cu",
                   "animate_anything_tpu/ops/flash_attention.py:233")
-    for s, h in FLASH_SITES:
-        b, d = 2 * (FRAMES + 1), 64
+    for b, s, h, d in [(2 * (FRAMES + 1), s, h, 64) for s, h in FLASH_SITES] + [(2, 1000, 3, 128)]:
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         sl = slice(0, 2)  # plain fp32 scores for all 34 x h heads would not fit
@@ -358,8 +379,118 @@ def check_temporal_block(gen) -> dict:
     return tally.row
 
 
+def check_channel_sums(gen) -> dict:
+    """Kernel 6 at the UNet's 320-wide statistics sites of the opt-in
+    configuration: a resnet stage's input (34 frames of 64x64) and a
+    temporal conv's first stage (2 samples x 17 frames x 64x64)."""
+    from animate_anything_tpu_torch.ops import group_norm as gn
+
+    tally = Tally("channel_sums", "animate_anything_tpu_torch/csrc/group_norm.cu",
+                  "animate_anything_tpu/ops/group_norm.py:102")
+    for n, s, c in ((2 * (FRAMES + 1), 4096, 320), (2, (FRAMES + 1) * 4096, 320)):
+        x = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+        got = gn.stream_channel_sums(x)
+        want = gn.channel_sums(x)
+        tag = f"channel_sums n={n} s={s} c={c}"
+        # the same fp32 sums in another order
+        _assert_close(tag + " Σx", got[0], want[0], STORED_SUM_ATOL, STORED_SUM_RTOL)
+        _assert_close(tag + " Σx²", got[1], want[1], STORED_SUM_ATOL, STORED_SUM_RTOL)
+        ms = cuda_ms(lambda: gn.stream_channel_sums(x))
+        plain = cuda_ms(lambda: gn.channel_sums(x))
+        tally.add(tag, max(_err(got[0], want[0]), _err(got[1], want[1])), ms, plain,
+                  3 * n * s * c, n * s * c * 2 + 2 * n * c * 4)
+    return tally.row
+
+
+def check_streaming_gn(gen) -> dict:
+    """Kernel 7 at the VAE decoder's four levels at 16 frames (GroupNorm +
+    SiLU) and at the 64x64x512 level without SiLU (the mid-block attention's
+    norm); F.group_norm as the library time there."""
+    from animate_anything_tpu_torch.ops import streaming_group_norm as sg
+
+    tally = Tally("group_norm_stream", "animate_anything_tpu_torch/csrc/group_norm.cu",
+                  "animate_anything_tpu/ops/attic/streaming_group_norm.py:110")
+    for hw, c, silu in ((64, 512, True), (128, 512, True), (256, 256, True), (512, 128, True),
+                        (64, 512, False)):
+        n, s, groups = FRAMES, hw * hw, 32
+        x = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        with torch.no_grad():
+            got = sg.group_norm_stream(x, scale, bias, groups, 1e-6, silu)
+            want = sg.group_norm_stream_reference(x, scale, bias, groups, 1e-6, silu)
+            tag = f"group_norm_stream n={n} s={hw}x{hw} c={c} silu={silu}"
+            _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+            ms = cuda_ms(lambda: sg.group_norm_stream(x, scale, bias, groups, 1e-6, silu))
+            plain = cuda_ms(lambda: sg.group_norm_stream_reference(x, scale, bias, groups, 1e-6,
+                                                                   silu), warmup=1, iters=3)
+            library = None
+            if not silu:   # one call of the same function (weights in x's dtype)
+                sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+                library = cuda_ms(lambda: F.group_norm(x.transpose(1, 2), groups, sb, bb, 1e-6))
+        nbytes = 2 * n * s * c * 2 + 2 * c * 4
+        tally.add(tag, _err(got, want), ms, plain, (8 if silu else 3) * n * s * c, nbytes,
+                  library)
+        log(f"    bound with x read twice (the kernel's two passes): "
+            f"{3 * n * s * c * 2 / PEAK_HBM_BYTES * 1e3:.3f} ms")
+    return tally.row
+
+
+# (n, H, W, cin, cout, time bias, residual): the opt-in UNet's resnet stages at
+# full width (34 = 2 x 17 frames), the last one a skip-concat up-block resnet.
+SPATIAL_CONV_SITES = ((34, 64, 64, 320, 320, True, False), (34, 32, 32, 640, 640, False, False),
+                      (34, 16, 16, 2560, 1280, False, True), (34, 8, 8, 1280, 1280, False, False))
+
+
+def _spatial_conv_case(gen, tally, n, hw, cin, cout, extra, residual, silu=True,
+                       entry="gn_silu_spatial_conv") -> None:
+    from animate_anything_tpu_torch.ops import spatial_conv as sc
+
+    x = torch.randn(n, hw, hw, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    a = 1.0 + 0.1 * torch.randn(n, cin, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(n, cin, generator=gen, device="cuda")
+    w = _lecun(gen, cout, cin, 3, 3, fan_in=9 * cin)
+    bias = 0.1 * torch.randn(cout, generator=gen, device="cuda")[None, :].repeat(n, 1)
+    if extra:
+        bias = bias + 0.1 * torch.randn(n, cout, generator=gen, device="cuda")
+    res = (torch.randn(n, hw, hw, cout, generator=gen, device="cuda").to(torch.bfloat16)
+           if residual else None)
+    with torch.no_grad():
+        got = sc.spatial_conv(x, a, b, w, bias, res, silu)
+        want = sc.spatial_conv_reference(x, a, b, w, bias, res, silu)
+        tag = (f"{entry} n={n} {hw}x{hw} {cin}->{cout} time_bias={extra} "
+               f"residual={residual}")
+        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        ms = cuda_ms(lambda: sc.spatial_conv(x, a, b, w, bias, res, silu))
+        plain = cuda_ms(lambda: sc.spatial_conv_reference(x, a, b, w, bias, res, silu),
+                        warmup=1, iters=3)
+        pack = cuda_ms(lambda: sc.pack_weight(w))
+        xc = x.permute(0, 3, 1, 2)   # channels_last NCHW view, no copy
+        cudnn = cuda_ms(lambda: F.conv2d(xc, w, padding=1))
+    pixels = n * hw * hw
+    nbytes = pixels * (cin + cout * (2 if residual else 1)) * 2 + 9 * cin * cout * 2 \
+        + (2 * cin + cout) * n * 4
+    tally.add(tag, _err(got, want), ms, plain, 2 * pixels * 9 * cin * cout, nbytes)
+    tally.row["cudnn_conv_ms"] = tally.row.get("cudnn_conv_ms", 0.0) + cudnn
+    log(f"    of which the per-call weight reorder {pack:.3f} ms; cuDNN conv2d of the same "
+        f"shape (bf16, no norm, bias or residual; a reference line) {cudnn:.3f} ms")
+
+
+def check_spatial_conv(gen) -> dict:
+    """Kernel 8 at the UNet's four resnet-stage shapes, and through
+    ``gn_silu_conv3x3``'s function (no residual) at one more."""
+    tally = Tally("spatial_conv", "animate_anything_tpu_torch/csrc/spatial_conv.cu",
+                  "animate_anything_tpu/ops/attic/spatial_conv.py:197")
+    for n, hw, _, cin, cout, extra, residual in SPATIAL_CONV_SITES:
+        _spatial_conv_case(gen, tally, n, hw, cin, cout, extra, residual)
+        torch.cuda.empty_cache()
+    _spatial_conv_case(gen, tally, 34, 32, 640, 640, True, False, entry="gn_silu_conv3x3")
+    return tally.row
+
+
 KERNEL_CHECKS = (check_flash, check_flash_backward, check_geglu, check_tap_conv,
-                 check_proj_residual, check_temporal_block)
+                 check_proj_residual, check_temporal_block, check_channel_sums,
+                 check_streaming_gn, check_spatial_conv)
 
 
 def check_kernels(seed: int = 0) -> list[dict]:
@@ -373,14 +504,19 @@ def check_kernels(seed: int = 0) -> list[dict]:
 
 def kernel_counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
-    from animate_anything_tpu_torch.ops import (flash_attention, geglu, proj_residual,
-                                                temporal_block, temporal_conv)
+    from animate_anything_tpu_torch.ops import (flash_attention, geglu, group_norm,
+                                                proj_residual, spatial_conv,
+                                                streaming_group_norm, temporal_block,
+                                                temporal_conv)
 
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention_bwd": (flash_attention, "bwd_launches"),
             "ln_geglu_ff": (geglu, "launches"), "tap_conv": (temporal_conv, "launches"),
             "proj_residual_stats": (proj_residual, "launches"),
-            "temporal_block": (temporal_block, "launches")}
+            "temporal_block": (temporal_block, "launches"),
+            "channel_sums": (group_norm, "launches"),
+            "group_norm_stream": (streaming_group_norm, "launches"),
+            "spatial_conv": (spatial_conv, "launches")}
 
 
 def reset_counts() -> None:
@@ -398,8 +534,15 @@ def require_launched(path: str, counts: dict, names) -> None:
         raise AssertionError(f"{path}: kernels never launched: {missing}")
 
 
+def require_not_launched(path: str, counts: dict, names) -> None:
+    ran = {n: counts[n] for n in names if counts[n] != 0}
+    if ran:
+        raise AssertionError(f"{path}: kernels of the opt-in configuration launched: {ran}")
+
+
 FORWARD_KERNELS = ("flash_attention", "ln_geglu_ff", "tap_conv", "proj_residual_stats",
                    "temporal_block")
+OPT_IN_KERNELS = ("channel_sums", "group_norm_stream", "spatial_conv")
 
 
 def time_temporal_paths(seed: int = 0) -> None:
@@ -557,7 +700,8 @@ def check_small_unet_grads(seed: int = 1) -> float:
     loss_gpu.backward()
     torch.cuda.synchronize()
     launches = read_counts()
-    require_launched("small UNet training step", launches, list(launches))
+    require_launched("small UNet training step", launches,
+                     [n for n in launches if n not in OPT_IN_KERNELS])
 
     params = dict(gpu.named_parameters())
     got = {n: (torch.zeros(g.shape) if params[n].grad is None else params[n].grad.float().cpu())
@@ -641,9 +785,8 @@ def make_requests(seed: int = 0) -> list[dict]:
     return reqs
 
 
-def run_requests() -> dict:
+def run_requests(pipe) -> dict:
     """Drive the inference path; return each kernel's launch count during it."""
-    pipe = build_pipeline()
     reqs = make_requests()
     log(f"requests: {REQUESTS} x animate_image({RES}x{RES}, {FRAMES} frames, "
         f"{STEPS} DPM-Solver++ steps, CFG {GUIDANCE})")
@@ -668,6 +811,56 @@ def run_requests() -> dict:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"kernel launches during the requests: {launches}")
     require_launched("requests", launches, FORWARD_KERNELS)
+    require_not_launched("requests", launches, OPT_IN_KERNELS)
+    return launches
+
+
+def run_opt_in_request(pipe) -> dict:
+    """One request in the opt-in configuration, then its latents decoded in
+    both configurations; return each kernel's launch count during the
+    request."""
+    from animate_anything_tpu_torch.models.vae import decode_video
+    from animate_anything_tpu_torch.ops.spatial_conv import opt_in_config
+
+    req = make_requests(seed=1)[0]
+    log(f"opt-in request: animate_image({RES}x{RES}, {FRAMES} frames, {STEPS} DPM-Solver++ "
+        f"steps, CFG {GUIDANCE}) with the streaming GroupNorm, the channel-sums statistics "
+        f"and AA_SPATIAL_CONV=1")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with opt_in_config():
+        t0 = time.perf_counter()
+        video, latents = pipe.animate_image(
+            num_frames=FRAMES, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+            generator=gen, **req)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_counts()
+    if tuple(video.shape) != (1, FRAMES, RES, RES, 3):
+        raise AssertionError(f"opt-in request: video shape {tuple(video.shape)}")
+    if not torch.isfinite(video).all() or not torch.isfinite(latents).all():
+        raise AssertionError("opt-in request: non-finite output")
+    log(f"  opt-in request: {dt:.3f} s  video {tuple(video.shape)} {video.dtype} "
+        f"range [{float(video.min()):.3f}, {float(video.max()):.3f}]")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  kernel launches during the opt-in request: {launches}")
+    require_launched("opt-in request", launches, FORWARD_KERNELS + OPT_IN_KERNELS)
+
+    with torch.no_grad():
+        default = decode_video(pipe.vae, latents).float()
+        with opt_in_config():
+            opt_in = decode_video(pipe.vae, latents).float()
+    if not torch.isfinite(opt_in).all():
+        raise AssertionError("opt-in VAE decode: non-finite output")
+    rel = float((opt_in - default).square().mean().sqrt() / default.square().mean().sqrt())
+    log(f"  VAE decode of the opt-in request's latents, opt-in vs default configuration: "
+        f"relative RMS {rel:.4g} (limit {DECODE_REL_RMS}), max |diff| "
+        f"{_err(opt_in, default):.4g} over a range of "
+        f"[{float(default.min()):.3f}, {float(default.max()):.3f}]")
+    if rel > DECODE_REL_RMS:
+        raise AssertionError(f"opt-in VAE decode disagrees with the default one: {rel:.4g}")
     return launches
 
 
@@ -734,7 +927,8 @@ def run_train_steps() -> dict:
     log(f"  kernel launches during the {TRAIN_STEPS} timed steps: {launches}")
     if changed == 0:
         raise AssertionError("training: no parameter changed")
-    require_launched("training", launches, list(launches))
+    require_launched("training", launches, [n for n in launches if n not in OPT_IN_KERNELS])
+    require_not_launched("training", launches, OPT_IN_KERNELS)
     return launches
 
 
@@ -762,13 +956,20 @@ def main() -> int:
     check_small_unet()
     check_small_unet_grads()
 
-    requests = run_requests()
+    pipe = build_pipeline()
+    requests = run_requests(pipe)
+    opt_in = run_opt_in_request(pipe)
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train_steps()
+    own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS}}
     for row in rows:
-        row["launches"] = train[row["name"]]
-        row["launches_requests"] = requests[row["name"]]
+        name = row["name"]
+        row["launches"] = own_path.get(name, requests)[name]
+        row["launches_requests"] = requests[name]
+        row["launches_opt_in"] = opt_in[name]
+        row["launches_train"] = train[name]
 
     print(json.dumps({"kernels": rows}))
     print(ident)

@@ -25,10 +25,11 @@ def test_importing_the_whole_port_never_imports_jax():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'animate_anything_tpu'))\n"
-        "assert len(names) >= 21, names\n"
+        "assert len(names) >= 23, names\n"
         "assert {pkg.__name__ + '.' + m for m in ('ops.temporal_block', 'models.clip_text',\n"
         "        'models.clip_tokenizer', 'models.tokenizers', 'ops.autograd', 'train.trainer',\n"
-        "        'metrics.motion')} <= set(names), names\n"
+        "        'metrics.motion', 'ops.group_norm', 'ops.streaming_group_norm',\n"
+        "        'ops.spatial_conv')} <= set(names), names\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -60,12 +61,13 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("op", ["flash", "flash_backward", "geglu", "tap_conv", "proj",
-                                "temporal_block"])
+                                "temporal_block", "channel_sums", "group_norm_stream",
+                                "spatial_conv"])
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
     """A tensor that is not on the CPU goes to the kernel path, whose checks
     refuse anything but a CUDA tensor: there is no silent fallback."""
-    from animate_anything_tpu_torch.ops import flash_attention, geglu, proj_residual, \
-        temporal_block, temporal_conv
+    from animate_anything_tpu_torch.ops import flash_attention, geglu, group_norm, \
+        proj_residual, spatial_conv, streaming_group_norm, temporal_block, temporal_conv
 
     f32 = torch.float32
     calls = {
@@ -84,6 +86,12 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op):
         "temporal_block": lambda: temporal_block.temporal_block(
             _meta(1, 4, 8, 64), _meta(64, dtype=f32), _meta(64, dtype=f32),
             *(_meta(64, 64),) * 4, _meta(64, dtype=f32), heads=2),
+        "channel_sums": lambda: group_norm.stream_channel_sums(_meta(2, 16, 64)),
+        "group_norm_stream": lambda: streaming_group_norm.group_norm_stream(
+            _meta(2, 16, 128), _meta(128, dtype=f32), _meta(128, dtype=f32), 32),
+        "spatial_conv": lambda: spatial_conv.spatial_conv(
+            _meta(1, 4, 4, 32), _meta(1, 32, dtype=f32), _meta(1, 32, dtype=f32),
+            _meta(8, 32, 3, 3), _meta(1, 8, dtype=f32), _meta(1, 4, 4, 8)),
     }
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         calls[op]()
@@ -94,14 +102,15 @@ def _cpu(*shape, seed=0):
                        requires_grad=True)
 
 
-@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj", "temporal_block"])
+@pytest.mark.parametrize("op", ["flash", "geglu", "tap_conv", "proj", "temporal_block",
+                                "channel_sums", "spatial_conv"])
 def test_kernel_wrappers_carry_gradients_on_the_cpu(op):
     """Every wrapper's outputs hang off its autograd Function, on the CPU as
     on the card, and every input gets a gradient: a kernel output written
     through ``data_ptr()`` would have no ``grad_fn`` and leave every
     parameter upstream without one."""
-    from animate_anything_tpu_torch.ops import flash_attention, geglu, proj_residual, \
-        temporal_block, temporal_conv
+    from animate_anything_tpu_torch.ops import flash_attention, geglu, group_norm, \
+        proj_residual, spatial_conv, temporal_block, temporal_conv
 
     shapes = {
         "flash": [(1, 128, 2, 32)] * 3,
@@ -109,13 +118,18 @@ def test_kernel_wrappers_carry_gradients_on_the_cpu(op):
         "tap_conv": [(1, 3, 4, 32), (1, 32), (1, 32), (32, 3, 32), (32,), (1, 3, 4, 32)],
         "proj": [(2, 4, 16), (8, 16), (8,), (2, 4, 8)],
         "temporal_block": [(1, 4, 8, 64), (64,), (64,)] + [(64, 64)] * 4 + [(64,)],
+        "channel_sums": [(2, 16, 64)],
+        "spatial_conv": [(1, 4, 4, 32), (1, 32), (1, 32), (8, 32, 3, 3), (1, 8), (1, 4, 4, 8)],
     }
     fns = {"flash": flash_attention.flash_attention, "geglu": geglu.ln_geglu_ff,
            "tap_conv": temporal_conv.tap_conv, "proj": proj_residual.proj_residual_stats,
-           "temporal_block": lambda *a: temporal_block.temporal_block(*a, heads=2)}
+           "temporal_block": lambda *a: temporal_block.temporal_block(*a, heads=2),
+           "channel_sums": group_norm.stream_channel_sums,
+           "spatial_conv": spatial_conv.spatial_conv}
     inputs = [_cpu(*shape, seed=i) for i, shape in enumerate(shapes[op])]
     out = fns[op](*inputs)
-    leaves = [out] if isinstance(out, torch.Tensor) else [out[0], *out[1]]
+    leaves = ([out] if isinstance(out, torch.Tensor) else list(out) if op == "channel_sums"
+              else [out[0], *out[1]])
     assert all(y.grad_fn is not None for y in leaves)
     sum(y.sum() for y in leaves).backward()
     assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in inputs)
@@ -147,6 +161,10 @@ def test_kernel_sources_cover_every_entry_point():
     ("temporal_block.cu", "ops/temporal_block.py::_build_bfsc"),
     ("flash_attention_bwd.cu", "ops/flash_attention.py::_flash_backward_lanes"),
     ("flash_attention_bwd.cu", "ops/flash_attention.py::_flash_backward"),
+    ("group_norm.cu", "ops/group_norm.py::_pallas_channel_sums"),
+    ("group_norm.cu", "ops/attic/streaming_group_norm.py::_pallas_group_norm"),
+    ("spatial_conv.cu", "ops/attic/spatial_conv.py::_pallas_stage"),
+    ("spatial_conv.cu", "ops/attic/conv3x3.py::_pallas_stage"),
 ])
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces(source, replaces):
     from animate_anything_tpu_torch.ops import cuda_lib
@@ -183,6 +201,9 @@ def test_profiler_groups_kernels_and_times_a_call():
     assert kernel_group("void flash_fwd_kernel<64>(Params)") == "flash_attention (kernel 1)"
     assert kernel_group("void flash_bwd_dkv_kernel<64, 64>(...)") == "flash_attention backward"
     assert kernel_group("void multi_tensor_apply_kernel<...>") == "optimizer (foreach)"
+    assert kernel_group("void channel_partial_kernel(...)") == "channel_sums (kernel 6)"
+    assert kernel_group("void gn_apply_kernel(...)") == "group_norm_stream (kernel 7)"
+    assert kernel_group("void spatial_conv_kernel(...)") == "spatial_conv (kernel 8)"
     assert kernel_group("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"
     assert kernel_group("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul (cuBLAS)"
     assert kernel_group("nvjet_tst_128x64_64x4") == "matmul (cuBLAS)"
