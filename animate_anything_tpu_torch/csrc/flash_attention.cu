@@ -21,7 +21,9 @@
 // the TPU backward kernels round q̂, so that the stored lse matches the
 // scores the backward rebuilds; the softmax then runs in the exp2 domain
 // (scores × log2 e in fp32).  The TPU forward kernels differ by where log2 e
-// goes: they fold it into the pre-scale (q·log2 e/√d, then rounded).  When
+// goes: they fold it into the pre-scale (q·log2 e/√d, then rounded); a caller
+// whose q is already pre-scaled that way (kernel 11, csrc/ln_qkv.cu) passes
+// scale = 1 and exp2_scale = 1, and gets that arithmetic.  When
 // autograd needs it, the kernel also stores each row's log-sum-exp in the
 // exp2 domain, lse2 = m + log2(l), fp32 (b, heads, sq), so the backward
 // kernels (flash_attention_bwd.cu) rebuild P = exp2(s·log2 e − lse2) in one
@@ -36,13 +38,11 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr int WARPS = 4;
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, int heads, float scale) {
+                 int sq, int sk, int heads, float scale, float exp2_scale) {
   constexpr int LD = D + 8;
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per head row
   __shared__ __align__(16) bf16 Ks[BKV][LD];
@@ -106,14 +106,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // Online softmax in the exp2 domain (log2 e folded into the scale).
+    // Online softmax in the exp2 domain (scores × exp2_scale = log2 e).
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < sk ? s[j][e] * kLog2e : -CUDART_INF_F;
+        const float val = col < sk ? s[j][e] * exp2_scale : -CUDART_INF_F;
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -190,11 +190,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
-            int sk, int heads, float scale, cudaStream_t stream) {
+            int sk, int heads, float scale, float exp2_scale, cudaStream_t stream) {
   dim3 grid((sq + BQ - 1) / BQ, b * heads);
   flash_fwd_kernel<D><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, sq, sk, heads, scale);
+      static_cast<bf16*>(o), lse, sq, sk, heads, scale, exp2_scale);
 }
 
 }  // namespace
@@ -202,16 +202,17 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse, in
 
 // q, o: (b, sq, heads·d); k, v: (b, sk, heads·d); all contiguous bf16.
 // lse: null, or fp32 (b, heads, sq) for the row log-sum-exp (log2 domain).
-// scale: 1/√d.
+// scale: the pre-scale of q (1/√d); exp2_scale: the factor that takes the
+// scores to the exp2 domain (log2 e; 1 when q was pre-scaled by log2 e/√d).
 AAT_EXPORT int aat_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int b, int sq, int sk, int heads, int d,
-                                   float scale, void* stream) {
+                                   float scale, float exp2_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (d) {
-    case 32: aat::launch<32>(q, k, v, o, l, b, sq, sk, heads, scale, st); break;
-    case 64: aat::launch<64>(q, k, v, o, l, b, sq, sk, heads, scale, st); break;
-    case 128: aat::launch<128>(q, k, v, o, l, b, sq, sk, heads, scale, st); break;
+    case 32: aat::launch<32>(q, k, v, o, l, b, sq, sk, heads, scale, exp2_scale, st); break;
+    case 64: aat::launch<64>(q, k, v, o, l, b, sq, sk, heads, scale, exp2_scale, st); break;
+    case 128: aat::launch<128>(q, k, v, o, l, b, sq, sk, heads, scale, exp2_scale, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

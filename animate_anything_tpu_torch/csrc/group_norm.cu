@@ -1,8 +1,14 @@
 // Kernel 6: per-(sample, channel) fp32 Σx, Σx² of an (n, s, c) bf16 tensor,
-// and kernel 7: the one-pass GroupNorm (+SiLU) built on those sums.
+// kernel 7: the one-pass GroupNorm (+SiLU) built on those sums, and kernel 10:
+// y = x + r with the sums of the stored y.
 //
 // Kernel 6 replaces animate_anything_tpu/ops/group_norm.py::_pallas_channel_sums
-// (_stats_kernel).  Kernel 7 replaces
+// (_stats_kernel).  Kernel 10 replaces
+// animate_anything_tpu/ops/attic/add_stats.py::_pallas_add (_kernel): kernel
+// 6's first pass with the add in front (fp32 add, y rounded to bf16 and
+// stored, the sums taken of the stored value) and the same fixed-order second
+// pass, so its sums are as deterministic as kernel 6's; bound by device memory
+// (x and r read once, y written once).  Kernel 7 replaces
 // animate_anything_tpu/ops/attic/streaming_group_norm.py::_pallas_group_norm
 // (_gn_stream_kernel):
 //     y = x·a + b in fp32, then y·sigmoid(y) in fp32, one rounding to bf16,
@@ -27,9 +33,12 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// ADD: the summed rows are y = x + res, rounded to bf16 and stored.
+template <bool ADD>
 __global__ void __launch_bounds__(THREADS)
-channel_partial_kernel(const bf16* __restrict__ x, float* __restrict__ p1,
-                       float* __restrict__ p2, int s, int c, int rows_per_chunk, int ct) {
+channel_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                       bf16* __restrict__ y, float* __restrict__ p1, float* __restrict__ p2,
+                       int s, int c, int rows_per_chunk, int ct) {
   __shared__ __align__(16) float r1[THREADS * 8];
   __shared__ __align__(16) float r2[THREADS * 8];
   const int rt = THREADS / ct;
@@ -42,10 +51,22 @@ channel_partial_kernel(const bf16* __restrict__ x, float* __restrict__ p1,
 #pragma unroll
   for (int e = 0; e < 8; ++e) a1[e] = a2[e] = 0.f;
   if (ty < rt && cv * 8 < c) {
-    const bf16* src = x + (size_t)ni * s * c + (size_t)cv * 8;
+    const size_t at = (size_t)ni * s * c + (size_t)cv * 8;
 #pragma unroll 4
     for (int r = row0 + ty; r < row1; r += rt) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * c));
+      const size_t off = at + (size_t)r * c;
+      uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + off));
+      if constexpr (ADD) {
+        const uint4 rr = __ldg(reinterpret_cast<const uint4*>(res + off));
+        const bf16* xa = reinterpret_cast<const bf16*>(&raw);
+        const bf16* ra = reinterpret_cast<const bf16*>(&rr);
+        uint4 sum;
+        bf16* sv = reinterpret_cast<bf16*>(&sum);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sv[e] = f2bf(bf2f(xa[e]) + bf2f(ra[e]));
+        *reinterpret_cast<uint4*>(y + off) = sum;
+        raw = sum;
+      }
       const bf16* xv = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -148,15 +169,22 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
 }
 
 // The two passes of kernel 6 on the caller's stream; work holds the
-// (n, chunks, c) partials of Σx and of Σx².
+// (n, chunks, c) partials of Σx and of Σx².  With res, kernel 10: the sums
+// are those of y = x + res, which the first pass stores.
 int channel_sums(const bf16* x, float* work, float* s1, float* s2, int n, int s, int c,
-                 int chunks, cudaStream_t stream) {
+                 int chunks, cudaStream_t stream, const bf16* res = nullptr,
+                 bf16* y = nullptr) {
   const int ct = min(32, c / 8);
   const int rows_per_chunk = (s + chunks - 1) / chunks;
   float* p1 = work;
   float* p2 = work + (size_t)n * chunks * c;
   dim3 grid((c / 8 + ct - 1) / ct, chunks, n);
-  channel_partial_kernel<<<grid, THREADS, 0, stream>>>(x, p1, p2, s, c, rows_per_chunk, ct);
+  if (res != nullptr)
+    channel_partial_kernel<true><<<grid, THREADS, 0, stream>>>(x, res, y, p1, p2, s, c,
+                                                               rows_per_chunk, ct);
+  else
+    channel_partial_kernel<false><<<grid, THREADS, 0, stream>>>(x, nullptr, nullptr, p1, p2, s,
+                                                                c, rows_per_chunk, ct);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   channel_finish_kernel<<<(n * c + THREADS - 1) / THREADS, THREADS, 0, stream>>>(p1, p2, s1, s2,
@@ -175,6 +203,17 @@ AAT_EXPORT int aat_channel_sums(const void* x, void* work, void* s1, void* s2, i
   return aat::channel_sums(static_cast<const aat::bf16*>(x), static_cast<float*>(work),
                            static_cast<float*>(s1), static_cast<float*>(s2), n, s, c, chunks,
                            static_cast<cudaStream_t>(stream));
+}
+
+// x, r, y: (n, s, c) bf16; work: 2·n·chunks·c fp32 scratch; s1, s2: (n, c)
+// fp32 sums of the stored y.  c % 8 == 0, 1 <= chunks.
+AAT_EXPORT int aat_add_stats(const void* x, const void* r, void* y, void* work, void* s1,
+                             void* s2, int n, int s, int c, int chunks, void* stream) {
+  if (c % 8 != 0 || chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return aat::channel_sums(static_cast<const aat::bf16*>(x), static_cast<float*>(work),
+                           static_cast<float*>(s1), static_cast<float*>(s2), n, s, c, chunks,
+                           static_cast<cudaStream_t>(stream), static_cast<const aat::bf16*>(r),
+                           static_cast<aat::bf16*>(y));
 }
 
 // x, y: (n, s, c) bf16; scale, bias: (c,) fp32; work: 2·n·chunks·c + 4·n·c

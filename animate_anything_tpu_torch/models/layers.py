@@ -20,7 +20,7 @@ from torch import nn
 
 from animate_anything_tpu_torch.ops.group_norm import group_norm_silu
 from animate_anything_tpu_torch.ops.spatial_conv import SPATIAL_CONV_OPTIN, gn_silu_spatial_conv
-from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv
+from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv, pack_taps
 
 
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -118,13 +118,14 @@ class TimestepEmbedding(nn.Module):
 
 class ResnetBlock2D(nn.Module):
     """GN→SiLU→conv3x3 ×2 with time-embedding bias and 1×1 shortcut on the
-    fused (b·f, h, w, c) batch (diffusers ResnetBlock2D). Under
-    ``SPATIAL_CONV_OPTIN()`` both stages run kernel 8 (JAX's
+    fused (b·f, h, w, c) batch (diffusers ResnetBlock2D). With ``impl ==
+    "pallas"`` and ``SPATIAL_CONV_OPTIN()`` both stages run kernel 8 (JAX's
     ``AA_SPATIAL_CONV`` branch of its ``impl="pallas"`` resnet)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
-                 groups: int = 32, eps: float = 1e-5):
+                 groups: int = 32, eps: float = 1e-5, impl: str = "pallas"):
         super().__init__()
+        self.impl = impl
         self.norm1 = FusedGroupNorm(in_channels, groups, eps, silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = Linear(temb_channels, out_channels) if temb_channels else None
@@ -135,7 +136,7 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                 norm1_sums=None) -> torch.Tensor:
-        if SPATIAL_CONV_OPTIN():
+        if self.impl == "pallas" and SPATIAL_CONV_OPTIN():
             return self._fused(x, temb)
         h = self.conv1(self.norm1(x, sums=norm1_sums))
         if temb is not None:
@@ -160,26 +161,48 @@ class ResnetBlock2D(nn.Module):
                                     eps=self.norm2.eps, residual=shortcut)
 
 
+class TemporalTapConv(nn.Conv3d):
+    """Frame-axis conv (kernel (3, 1, 1), zero frames past the ends) on
+    (b, f, s, c) as three shifted matmuls (JAX's ``TemporalTapConv``), kept
+    in the Conv3d parameter layout: one GEMM over the taps side by side
+    ``[prev ‖ h ‖ next]``, fp32 accumulation rounded once to the weight's
+    dtype, then the bias."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__(in_dim, out_dim, (3, 1, 1), padding=(1, 0, 0))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        dt = self.weight.dtype
+        h = h.to(dt)
+        prev = F.pad(h[:, :-1], (0, 0, 0, 0, 1, 0))
+        nxt = F.pad(h[:, 1:], (0, 0, 0, 0, 0, 1))
+        w = pack_taps(self.weight).reshape(self.out_channels, -1)
+        return F.linear(torch.cat([prev, h, nxt], -1), w) + self.bias.to(dt)
+
+
 class TemporalConvLayer(nn.Module):
     """Pseudo-3D temporal conv: four GN→SiLU→conv(3,1,1) stages, residual;
-    the last conv starts at zero (identity at init). Every stage runs kernel 3
-    (ops/temporal_conv.py), each stage's output sums feeding the next stage's
-    GroupNorm. Submodules keep the diffusers ``nn.Sequential`` indices
-    (conv1 = [norm, SiLU, conv], conv2..4 = [norm, SiLU, dropout, conv]); they
-    hold the parameters, the kernel does the arithmetic. The dropout modules
-    are never called, in training too: JAX's train step applies the UNet
-    with ``deterministic=True``, so its kernel path runs there as well."""
+    the last conv starts at zero (identity at init). Under ``impl="pallas"``
+    every stage runs kernel 3 (ops/temporal_conv.py), each stage's output
+    sums feeding the next stage's GroupNorm. Otherwise JAX's composite path:
+    ``FusedGroupNorm`` with SiLU (stage 1 on the producer's sums, when
+    there are any) and ``TemporalTapConv``, no output sums. Submodules keep
+    the diffusers ``nn.Sequential`` indices (conv1 = [norm, SiLU, conv],
+    conv2..4 = [norm, SiLU, dropout, conv]). The dropout modules are never
+    called, in training too: JAX's train step applies the UNet with
+    ``deterministic=True``."""
 
-    def __init__(self, in_dim: int, out_dim: Optional[int] = None, groups: int = 32):
+    def __init__(self, in_dim: int, out_dim: Optional[int] = None, groups: int = 32,
+                 impl: str = "pallas"):
         super().__init__()
         out_dim = out_dim or in_dim
-        self.groups = groups
+        self.groups, self.impl = groups, impl
 
         def stage(cin, cout, dropout):
             mods = [nn.GroupNorm(groups, cin), nn.SiLU()]
             if dropout:
                 mods.append(nn.Dropout(0.1))
-            mods.append(nn.Conv3d(cin, cout, (3, 1, 1), padding=(1, 0, 0)))
+            mods.append(TemporalTapConv(cin, cout))
             return nn.Sequential(*mods)
 
         self.conv1 = stage(in_dim, out_dim, False)
@@ -189,16 +212,25 @@ class TemporalConvLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, num_frames: int, in_sums=None):
         """x (b·f, h, w, c) → (y, entry_sums) with entry_sums the per-(b·f, c)
-        fp32 (Σy, Σy²) of the output, for the next module's GroupNorm.
-        ``in_sums``: the per-(b·f, c) sums of x from its producer, for stage
-        1's GroupNorm (its gradient flows back into the producer's sums)."""
+        fp32 (Σy, Σy²) of the output, for the next module's GroupNorm (None
+        off ``"pallas"``). ``in_sums``: the per-(b·f, c) sums of x from its
+        producer, for stage 1's GroupNorm (its gradient flows back into the
+        producer's sums)."""
         bf, hh, ww, c = x.shape
         b = bf // num_frames
         h = x.reshape(b, num_frames, hh * ww, c)
         identity = h
         sums = None if in_sums is None else tuple(
             s.reshape(b, num_frames, c).sum(1) for s in in_sums)
-        for idx, seq in enumerate((self.conv1, self.conv2, self.conv3, self.conv4), start=1):
+        stages = (self.conv1, self.conv2, self.conv3, self.conv4)
+        if self.impl != "pallas":
+            for idx, seq in enumerate(stages, start=1):
+                norm, conv = seq[0], seq[-1]
+                h = group_norm_silu(h, norm.weight, norm.bias, self.groups, 1e-5,
+                                    sums=sums if idx == 1 else None)
+                h = conv(h)
+            return (identity + h).reshape(bf, hh, ww, c), None
+        for idx, seq in enumerate(stages, start=1):
             norm, conv = seq[0], seq[-1]
             h, stats = gn_silu_tap_conv(
                 h.to(conv.weight.dtype), norm.weight, norm.bias, conv.weight, conv.bias,

@@ -12,6 +12,13 @@ Conditioning as in the reference:
 
 Layout: input (b, f, h, w, c); the fused (b·(f+1), h, w, c) spatial batch
 inside. CFG is an ordinary batch doubling by the caller.
+
+``UNet3DConfig.attn_impl`` picks JAX's configuration: ``"pallas"`` (kernels
+1–5, the GroupNorm sums threaded between them), ``"xla"`` (the composite
+modules, SDPA for attention) or ``"packed"`` (``"xla"`` with kernel 9 for the
+frame attention). The parameters are the same in all three. One divergence:
+the port's default is ``"pallas"``, where JAX's ``None`` means ``"xla"``;
+every caller of the port (pipeline, trainer, configs) means ``"pallas"``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ from animate_anything_tpu_torch.models.unet3d_blocks import (CrossAttnDownBlock3
                                                              UNetMidBlock3DCrossAttn, UpBlock3D)
 
 
+ATTN_IMPLS = ("pallas", "xla", "packed")
+
+
 @dataclasses.dataclass(frozen=True)
 class UNet3DConfig:
     in_channels: int = 4
@@ -46,9 +56,16 @@ class UNet3DConfig:
     attention_head_dim: int = 64
     motion_mask: bool = False
     motion_strength: bool = False
+    # "pallas" | "xla" | "packed" (module docstring)
+    attn_impl: str = "pallas"
     # per-sub-layer activation checkpointing while autograd records
     # (unet3d_blocks._run); JAX's per-sub-layer nn.remat
     gradient_checkpointing: bool = False
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"UNet3DConfig.attn_impl must be one of {ATTN_IMPLS}, "
+                             f"got {self.attn_impl!r}")
 
     @classmethod
     def tiny(cls, **kw) -> "UNet3DConfig":
@@ -67,14 +84,14 @@ class UNet3DConditionModel(nn.Module):
         ch0, temb = ch[0], ch[0] * 4
         g, eps, hd, xd = cfg.norm_num_groups, cfg.norm_eps, cfg.attention_head_dim, \
             cfg.cross_attention_dim
-        remat = cfg.gradient_checkpointing
+        remat, impl = cfg.gradient_checkpointing, cfg.attn_impl
 
         self.time_embedding = TimestepEmbedding(ch0, temb, ch0 if cfg.motion_strength else None)
         if cfg.motion_mask:
             self.conv_in2 = Conv2d(cfg.in_channels + 1, ch0, 3, padding=1)
         else:
             self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
-        self.transformer_in = TemporalTransformer(ch0, 8, hd)
+        self.transformer_in = TemporalTransformer(ch0, 8, hd, attn_impl=impl)
 
         self.down_blocks = nn.ModuleList()
         prev = ch0
@@ -82,16 +99,17 @@ class UNet3DConditionModel(nn.Module):
             last = i == len(ch) - 1
             if kind == "CrossAttnDownBlock3D":
                 blk = CrossAttnDownBlock3D(prev, ch[i], temb, cfg.layers_per_block, hd, xd, g, eps,
-                                           add_downsample=not last, remat=remat)
+                                           add_downsample=not last, remat=remat, attn_impl=impl)
             elif kind == "DownBlock3D":
                 blk = DownBlock3D(prev, ch[i], temb, cfg.layers_per_block, g, eps,
-                                  add_downsample=not last, remat=remat)
+                                  add_downsample=not last, remat=remat, attn_impl=impl)
             else:
                 raise ValueError(kind)
             self.down_blocks.append(blk)
             prev = ch[i]
 
-        self.mid_block = UNetMidBlock3DCrossAttn(ch[-1], temb, 1, hd, xd, g, eps, remat=remat)
+        self.mid_block = UNetMidBlock3DCrossAttn(ch[-1], temb, 1, hd, xd, g, eps, remat=remat,
+                                                 attn_impl=impl)
 
         rev = list(reversed(ch))
         self.up_blocks = nn.ModuleList()
@@ -102,10 +120,10 @@ class UNet3DConditionModel(nn.Module):
             last = i == len(cfg.up_block_types) - 1
             if kind == "CrossAttnUpBlock3D":
                 blk = CrossAttnUpBlock3D(skip_in, prev, rev[i], temb, n_layers, hd, xd, g, eps,
-                                         add_upsample=not last, remat=remat)
+                                         add_upsample=not last, remat=remat, attn_impl=impl)
             elif kind == "UpBlock3D":
                 blk = UpBlock3D(skip_in, prev, rev[i], temb, n_layers, g, eps,
-                                add_upsample=not last, remat=remat)
+                                add_upsample=not last, remat=remat, attn_impl=impl)
             else:
                 raise ValueError(kind)
             self.up_blocks.append(blk)
@@ -113,6 +131,14 @@ class UNet3DConditionModel(nn.Module):
 
         self.conv_norm_out = FusedGroupNorm(ch0, g, eps, silu=True)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+
+    def with_attn_impl(self, attn_impl: str) -> "UNet3DConditionModel":
+        """This UNet under another ``attn_impl``: the parameters are the same
+        in every configuration, and the new module shares them (no copy)."""
+        with torch.device("meta"):
+            other = UNet3DConditionModel(dataclasses.replace(self.config, attn_impl=attn_impl))
+        other.load_state_dict(self.state_dict(), strict=True, assign=True)
+        return other.train(self.training)
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 condition_latent: torch.Tensor, mask: Optional[torch.Tensor] = None,

@@ -9,9 +9,11 @@ Block graphs as in the reference:
 - DownBlock3D / UpBlock3D: [resnet → temp_conv];
 - temporal modules are skipped when num_frames == 1.
 
-GroupNorm sums thread between producers and consumers: each kernel epilogue
-(temporal conv, transformer output projection) hands per-(b·f, c) (Σ, Σ²) to
-the next GroupNorm, including across the skip concatenations.
+GroupNorm sums thread between producers and consumers: under
+``attn_impl="pallas"`` each kernel epilogue (temporal conv, transformer
+output projection) hands per-(b·f, c) (Σ, Σ²) to the next GroupNorm,
+including across the skip concatenations. Off ``"pallas"`` no producer
+emits sums, as in JAX, and every GroupNorm computes its own statistics.
 
 Gradient checkpointing (``remat=True``, JAX's ``_sub_layers``) wraps each
 sub-layer call (resnet, temp_conv, spatial transformer, temporal
@@ -63,30 +65,31 @@ class _Layered(nn.Module):
     blocks, attentions and temp_attentions."""
 
     def _build(self, ins: list, out_channels: int, temb: int, groups: int, eps: float,
-               head_dim: Optional[int], cross_dim: Optional[int]):
+               head_dim: Optional[int], cross_dim: Optional[int], attn_impl: str):
         self.resnets = nn.ModuleList(
-            [ResnetBlock2D(cin, out_channels, temb, groups, eps) for cin in ins])
-        self.temp_convs = nn.ModuleList([TemporalConvLayer(out_channels) for _ in ins])
+            [ResnetBlock2D(cin, out_channels, temb, groups, eps, impl=attn_impl) for cin in ins])
+        self.temp_convs = nn.ModuleList(
+            [TemporalConvLayer(out_channels, impl=attn_impl) for _ in ins])
         if head_dim is not None:
             heads = out_channels // head_dim
             self.attentions = nn.ModuleList(
-                [SpatialTransformer(out_channels, heads, head_dim, cross_dim, groups=groups)
-                 for _ in ins])
+                [SpatialTransformer(out_channels, heads, head_dim, cross_dim, groups=groups,
+                                    attn_impl=attn_impl) for _ in ins])
             self.temp_attentions = nn.ModuleList(
-                [TemporalTransformer(out_channels, heads, head_dim, groups=groups)
-                 for _ in ins])
+                [TemporalTransformer(out_channels, heads, head_dim, groups=groups,
+                                     attn_impl=attn_impl) for _ in ins])
 
 
 class CrossAttnDownBlock3D(_Layered):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  num_layers: int = 2, head_dim: int = 64, cross_attention_dim: int = 1024,
                  groups: int = 32, eps: float = 1e-5, add_downsample: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, attn_impl: str = "pallas"):
         super().__init__()
         self.remat = remat
         ins = [in_channels] + [out_channels] * (num_layers - 1)
         self._build(ins, out_channels, temb_channels, groups, eps, head_dim,
-                    cross_attention_dim)
+                    cross_attention_dim, attn_impl)
         self.downsamplers = nn.ModuleList([Downsample2D(out_channels)]) if add_downsample else None
 
     def forward(self, x, temb, context, num_frames: int, in_sums=None):
@@ -115,11 +118,11 @@ class CrossAttnDownBlock3D(_Layered):
 class DownBlock3D(_Layered):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  num_layers: int = 2, groups: int = 32, eps: float = 1e-5,
-                 add_downsample: bool = True, remat: bool = False):
+                 add_downsample: bool = True, remat: bool = False, attn_impl: str = "pallas"):
         super().__init__()
         self.remat = remat
         ins = [in_channels] + [out_channels] * (num_layers - 1)
-        self._build(ins, out_channels, temb_channels, groups, eps, None, None)
+        self._build(ins, out_channels, temb_channels, groups, eps, None, None, attn_impl)
         self.downsamplers = nn.ModuleList([Downsample2D(out_channels)]) if add_downsample else None
 
     def forward(self, x, temb, num_frames: int, in_sums=None):
@@ -142,20 +145,21 @@ class DownBlock3D(_Layered):
 class UNetMidBlock3DCrossAttn(nn.Module):
     def __init__(self, in_channels: int, temb_channels: int, num_layers: int = 1,
                  head_dim: int = 64, cross_attention_dim: int = 1024, groups: int = 32,
-                 eps: float = 1e-5, remat: bool = False):
+                 eps: float = 1e-5, remat: bool = False, attn_impl: str = "pallas"):
         super().__init__()
         self.remat = remat
         heads = in_channels // head_dim
         n = num_layers + 1
         self.resnets = nn.ModuleList(
-            [ResnetBlock2D(in_channels, in_channels, temb_channels, groups, eps)
+            [ResnetBlock2D(in_channels, in_channels, temb_channels, groups, eps, impl=attn_impl)
              for _ in range(n)])
-        self.temp_convs = nn.ModuleList([TemporalConvLayer(in_channels) for _ in range(n)])
+        self.temp_convs = nn.ModuleList(
+            [TemporalConvLayer(in_channels, impl=attn_impl) for _ in range(n)])
         self.attentions = nn.ModuleList(
-            [SpatialTransformer(in_channels, heads, head_dim, cross_attention_dim, groups=groups)
-             for _ in range(num_layers)])
+            [SpatialTransformer(in_channels, heads, head_dim, cross_attention_dim, groups=groups,
+                                attn_impl=attn_impl) for _ in range(num_layers)])
         self.temp_attentions = nn.ModuleList(
-            [TemporalTransformer(in_channels, heads, head_dim, groups=groups)
+            [TemporalTransformer(in_channels, heads, head_dim, groups=groups, attn_impl=attn_impl)
              for _ in range(num_layers)])
 
     def forward(self, x, temb, context, num_frames: int, in_sums=None):
@@ -182,14 +186,14 @@ class CrossAttnUpBlock3D(_Layered):
     def __init__(self, in_channels: int, prev_channels: int, out_channels: int,
                  temb_channels: int, num_layers: int = 3, head_dim: int = 64,
                  cross_attention_dim: int = 1024, groups: int = 32, eps: float = 1e-5,
-                 add_upsample: bool = True, remat: bool = False):
+                 add_upsample: bool = True, remat: bool = False, attn_impl: str = "pallas"):
         super().__init__()
         self.remat = remat
         ins = [(prev_channels if i == 0 else out_channels)
                + (in_channels if i == num_layers - 1 else out_channels)
                for i in range(num_layers)]
         self._build(ins, out_channels, temb_channels, groups, eps, head_dim,
-                    cross_attention_dim)
+                    cross_attention_dim, attn_impl)
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
 
     def forward(self, x, skips, temb, context, num_frames: int, in_sums=None, skip_sums=None,
@@ -217,13 +221,13 @@ class CrossAttnUpBlock3D(_Layered):
 class UpBlock3D(_Layered):
     def __init__(self, in_channels: int, prev_channels: int, out_channels: int,
                  temb_channels: int, num_layers: int = 3, groups: int = 32, eps: float = 1e-5,
-                 add_upsample: bool = True, remat: bool = False):
+                 add_upsample: bool = True, remat: bool = False, attn_impl: str = "pallas"):
         super().__init__()
         self.remat = remat
         ins = [(prev_channels if i == 0 else out_channels)
                + (in_channels if i == num_layers - 1 else out_channels)
                for i in range(num_layers)]
-        self._build(ins, out_channels, temb_channels, groups, eps, None, None)
+        self._build(ins, out_channels, temb_channels, groups, eps, None, None, attn_impl)
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
 
     def forward(self, x, skips, temb, num_frames: int, in_sums=None, skip_sums=None,

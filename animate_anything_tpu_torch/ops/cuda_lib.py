@@ -26,8 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, b, sq, sk, heads, d, scale, stream
-    "aat_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, b, sq, sk, heads, d, scale, exp2_scale, stream
+    "aat_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, heads, d, scale, stream
     "aat_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _P],
@@ -42,10 +42,16 @@ _SIGNATURES = {
                            _P],
     # x, work, s1, s2, n, s, c, chunks, stream
     "aat_channel_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, r, y, work, s1, s2, n, s, c, chunks, stream
+    "aat_add_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, bias, work, y, n, s, c, groups, chunks, eps, silu, stream
     "aat_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, a, b, w, bias, res, y, n, h, w, cin, cout, silu, stream
     "aat_spatial_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, b, f, s, heads, d, stream
+    "aat_temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, ln_s, ln_b, wq, wk, wv, q, k, v, n, c, hd, eps, qscale, stream
+    "aat_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

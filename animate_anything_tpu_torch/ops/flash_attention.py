@@ -4,7 +4,11 @@ backward (``csrc/flash_attention_bwd.cu``).
 The forward replaces ``animate_anything_tpu/ops/flash_attention.py::
 _flash_forward_lanes`` (d = 64) and ``::_flash_forward`` (other head sizes);
 the backward replaces ``::_flash_backward_lanes`` and ``::_flash_backward``
-(the dq and dk/dv Pallas kernels). The CUDA kernels take d in {32, 64, 128}
+(the dq and dk/dv Pallas kernels). ``flash_attention`` also stands for
+``animate_anything_tpu/ops/attic/packed_flash.py::_flash_forward_packed``,
+the same function on the same layout (it takes ``exp`` of the scores where
+kernel 1 takes ``exp2`` of the scores × log2 e, in fp32 both), whose custom
+VJP differentiates plain attention as this backward does. The CUDA kernels take d in {32, 64, 128}
 and read q/k/v (and o, dO) straight from the ``(b, s, h·d)`` projection
 outputs, one head per block column, by stride. What bounds them on the H100
 and how their design answers that is in the sources' header notes.
@@ -26,6 +30,7 @@ from torch.autograd.function import once_differentiable
 from animate_anything_tpu_torch.ops import cuda_lib
 
 HEAD_DIMS = (32, 64, 128)
+LOG2E = 1.4426950408889634
 
 launches = 0      # forward kernel launches
 bwd_launches = 0  # backward launches (each one dq and one dk/dv kernel)
@@ -75,17 +80,21 @@ def _check(q, k, v):
     return b, sq, sk, h, d
 
 
-def flash_forward_with_lse(q, k, v, with_lse: bool = True):
+def flash_forward_with_lse(q, k, v, with_lse: bool = True, prescaled: bool = False):
     """Kernel 1 on CUDA tensors, returning ``(o, lse)``: with ``with_lse``
     it also stores each row's log-sum-exp (fp32 (b, h, sq), log2 domain of
-    the pre-scaled scores), the residual the backward kernels take."""
+    the pre-scaled scores), the residual the backward kernels take.
+    ``prescaled``: q already holds q·log2 e/√d rounded to bf16 (the TPU
+    forward kernels' pre-scale), so the kernel neither scales q nor the
+    scores."""
     b, sq, sk, h, d = _check(q, k, v)
+    scale, exp2_scale = (1.0, 1.0) if prescaled else (1.0 / math.sqrt(d), LOG2E)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if with_lse
            else None)
     cuda_lib.call("aat_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, sk, h, d,
-                  1.0 / math.sqrt(d))
+                  scale, exp2_scale)
     global launches
     launches += 1
     return out, lse

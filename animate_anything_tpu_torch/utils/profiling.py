@@ -1,6 +1,6 @@
 """Device-time profile of the port's main path on one CUDA device.
 
-    python -m animate_anything_tpu_torch.utils.profiling [--opt-in]
+    python -m animate_anything_tpu_torch.utils.profiling [--opt-in | --attn-impl IMPL]
 
 Builds the full-width mask+motion UNet, the SD VAE and the CLIP text encoder
 in bf16 from a seeded generator, as ``chip_smoke.py`` does, then profiles
@@ -20,6 +20,10 @@ configuration (``ops/spatial_conv.opt_in_config``), each beside the same call
 in the default configuration. Kernel 7's two sum passes are the
 ``channel_partial``/``channel_finish`` kernels, so they count in kernel 6's
 group.
+
+``--attn-impl packed`` (or ``xla``; ``profile_attn_impl``) profiles one CFG
+UNet forward with the same weights under ``UNet3DConfig(attn_impl=IMPL)``,
+beside the same forward in the default ``"pallas"`` configuration.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 
 # Kernel name → group; the first group with a matching substring wins.
 KERNEL_GROUPS = (
+    ("SDPA (library)", ("pytorch_flash", "fmha", "efficient_attention", "sdpa")),
     ("flash_attention (kernel 1)", ("flash_fwd",)),
     ("flash_attention backward", ("flash_bwd",)),
     ("ln_geglu (kernel 2)", ("ln_geglu",)),
@@ -42,6 +47,8 @@ KERNEL_GROUPS = (
     ("channel_sums (kernel 6)", ("channel_partial", "channel_finish")),
     ("group_norm_stream (kernel 7)", ("group_fold", "gn_apply")),
     ("spatial_conv (kernel 8)", ("spatial_conv",)),
+    ("temporal_attention (kernel 9)", ("temporal_attention",)),
+    ("ln_qkv (kernel 11)", ("ln_qkv",)),
     ("conv (cuDNN)", ("conv", "fprop", "implicit", "cudnn", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "cublas", "matmul", "bmm", "nvjet")),
     ("softmax", ("softmax",)),
@@ -189,6 +196,28 @@ def profile_opt_in(seed: int = 0) -> int:
     return 0
 
 
+def profile_attn_impl(impl: str, seed: int = 0) -> int:
+    """One CFG UNet forward under ``attn_impl=impl`` (the same weights),
+    after the same forward in the default configuration."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
+    unet, *_, unet_forward, _, _ = _inference_setup(seed, gradient_checkpointing=False)
+    other = unet.with_attn_impl(impl)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, 16, 64, 64, 4, generator=gen, device="cuda")
+    cond = torch.randn(2, 1, 64, 64, 4, generator=gen, device="cuda").to(torch.bfloat16)
+    mask = (torch.rand(2, 1, 64, 64, 1, generator=gen, device="cuda") > 0.5).float()
+    emb = torch.randn(2, 77, 1024, generator=gen, device="cuda")
+    motion = torch.tensor([5.0, 5.0], device="cuda")
+
+    @torch.no_grad()
+    def other_forward():
+        return other(x, 500, emb, cond, mask, motion)
+
+    _report_all((("unet_cfg_forward", unet_forward), (f"unet_cfg_forward_{impl}", other_forward)))
+    return 0
+
+
 def main(seed: int = 0) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
@@ -220,4 +249,7 @@ def main(seed: int = 0) -> int:
 if __name__ == "__main__":
     import sys
 
-    raise SystemExit(profile_opt_in() if "--opt-in" in sys.argv[1:] else main())
+    argv = sys.argv[1:]
+    if "--attn-impl" in argv:
+        raise SystemExit(profile_attn_impl(argv[argv.index("--attn-impl") + 1]))
+    raise SystemExit(profile_opt_in() if "--opt-in" in argv else main())

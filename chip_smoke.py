@@ -23,23 +23,39 @@
    encoder in bf16 from a seeded generator and answers two 512x512 /
    16-frame image-to-video requests, each an image and a prompt string
    (hash tokenizer), through ``LatentToVideoPipeline.animate_image`` (CFG 9,
-   DPM-Solver++); none of kernels 6-8 may run there;
+   DPM-Solver++); none of kernels 6-11 may run there;
 6. answers one more such request in the JAX package's opt-in GroupNorm and
    resnet-conv configuration (``ops/spatial_conv.opt_in_config``: the
    streaming GroupNorm, the channel-sums statistics and ``AA_SPATIAL_CONV=1``),
    which must launch kernels 6-8, then decodes its latents in both
    configurations and holds the two videos together;
-7. frees that pipeline and trains the same full-width UNet on one
+7. answers one more such request with the same weights in the JAX
+   package's ``attn_impl="packed"`` configuration (``UNet3DConfig(...,
+   attn_impl="packed")``: the composite modules, SDPA for attention, kernel
+   9 for the frame attention), which must launch kernel 9 850 times (34 per
+   forward) and no other kernel, then holds one CFG forward of that UNet
+   against the same forward under ``attn_impl="xla"``;
+8. frees that pipeline and trains the same full-width UNet on one
    512x512 / 16-frame clip (the ``configs/train_mask_motion.yaml`` values):
    the VAE encode and CLIP text inside the step, per-sub-layer gradient
    checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps,
-   which launch none of kernels 6-8;
-8. checks that every kernel was launched on each path that runs it, prints
+   which launch none of kernels 6-11;
+9. checks that every kernel was launched on each path that runs it, prints
    one JSON line with the kernels' numbers (``launches``: the count on the
    path of the slice that brought the kernel in, the requests for kernels
    1-5, the training steps for the flash backward, the opt-in request for
-   kernels 6-8; ``launches_requests``, ``launches_opt_in`` and
-   ``launches_train`` each path's), and last the device line.
+   kernels 6-8, the packed request for kernel 9, and for the three functions
+   that no model path reaches (the all-heads flash attention through kernel
+   1, the add with its sums, kernel 10, and LayerNorm -> q/k/v -> attention,
+   kernels 11 and 1) the run of those entry points at full width;
+   ``launches_requests``, ``launches_opt_in``, ``launches_packed``,
+   ``launches_entry_points`` and ``launches_train`` each path's), and last
+   the device line.
+
+Steps 3 and 4 also check kernel 9 against its plain version at the packed
+configuration's frame-attention shapes and at JAX's ragged test shapes, the
+three entry points' kernels at full-width and JAX's test shapes, and a small
+UNet's forward under ``attn_impl="packed"`` on the card against the CPU.
 
 Exits non-zero without a CUDA device, or when any phase fails.
 """
@@ -60,6 +76,18 @@ import torch.nn.functional as F
 # Outputs: bf16 rounding of the stored result (2^-8 relative) plus fp32
 # accumulation-order noise.
 Y_ATOL, Y_RTOL = 2e-2, 1e-2
+# Attention outputs at long sequences (rows 16 and 18): over N(0, 1) q/k/v
+# with s keys the output averages ~s/e values of v, so its RMS is about
+# sqrt(e/s), 0.026 at s = 4096, and Y_ATOL would be as large as a typical
+# value. Those rows are held to the output's own scale instead: each element
+# within ATTN_ATOL_RMS of the reference's RMS plus Y_RTOL of itself (one
+# bf16 ulp of the stored output is 2^-8 to 2^-7 of it), and the relative RMS
+# error under ATTN_REL_RMS. On the H100 the worst readings were 0.0162 of
+# the RMS beyond Y_RTOL and a relative RMS error of 0.0031 (bf16 storage of
+# both outputs, and for row 18 q rounded after its scale); a 1 % error in
+# the softmax temperature moves the output by about 1e-2 of its RMS, a wrong
+# sample or head by about 1.
+ATTN_ATOL_RMS, ATTN_REL_RMS = 0.05, 1e-2
 # Σy / Σy² epilogues: fp32 atomics sum in another order, and a different
 # accumulation order can flip a bf16 rounding of y by one ulp (≤ 2^-7·|y|)
 # at a few of the s rows of a column.
@@ -94,6 +122,15 @@ FRAMES = 16
 RES = 512
 GUIDANCE = 9.0
 PROMPTS = ("a red ball rolls across a wooden table", "clouds drift over a mountain lake")
+# The packed request's frame-attention sites at full width: (locations h·w,
+# heads) at f = 17, d = 64, b = 2 (CFG). (4096, 8) is transformer_in.
+PACKED_SITES = ((4096, 8), (4096, 5), (1024, 10), (256, 20), (64, 20))
+# Kernel 9 per UNet forward: 17 temporal transformers x 2 frame attentions.
+PACKED_PER_FORWARD = 34
+# One CFG forward under "packed" against "xla": the same weights and inputs,
+# differing only in the frame-attention core (kernel 9 against the einsum
+# form, both bf16 out); bf16 rounding carried through ~100 layers.
+PACKED_VS_XLA_REL_RMS = 5e-2
 # The full-width temporal sites: (locations h·w, width c) at f = 17, b = 2
 # (CFG); heads = c / 64. (4096, 512) is transformer_in (8 heads x 64 on 320
 # channels).
@@ -149,6 +186,29 @@ def _assert_close(name: str, got, want, atol: float, rtol: float) -> None:
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol={atol} "
                              f"rtol={rtol}; max |err| {_err(got, want):.4g}")
+
+
+def _assert_attention(name: str, got, want) -> float:
+    """An attention output against its plain version at the output's own
+    scale (``ATTN_ATOL_RMS``, ``ATTN_REL_RMS``); returns the max |err|."""
+    got, want = got.float(), want.float()
+    diff = got - want
+    rms = float(want.square().mean().sqrt())
+    rel = float(diff.square().mean().sqrt()) / rms
+    beyond = float((diff.abs() - Y_RTOL * want.abs()).clamp(min=0).max()) / rms
+    log(f"    {name}: output RMS {rms:.4g}, relative RMS error {rel:.3g} (limit "
+        f"{ATTN_REL_RMS}), largest error beyond rtol {beyond:.3g} of the RMS (limit "
+        f"{ATTN_ATOL_RMS})")
+    _assert_close(name, got, want, ATTN_ATOL_RMS * rms, Y_RTOL)
+    if rel > ATTN_REL_RMS:
+        raise AssertionError(f"{name}: relative RMS error {rel:.4g} over {ATTN_REL_RMS}")
+    return _err(got, want)
+
+
+def _first_and_last(b: int) -> list[slice]:
+    """The first two and the last two samples: the plain version's fp32
+    scores for all of a full-width batch would not fit."""
+    return [slice(0, 2)] + ([slice(b - 2, b)] if b > 2 else [])
 
 
 def _lecun(gen, *shape, fan_in: int, dev="cuda"):
@@ -488,9 +548,159 @@ def check_spatial_conv(gen) -> dict:
     return tally.row
 
 
+def check_temporal_attention(gen) -> dict:
+    """Kernel 9 at the packed request's five frame-attention sites, at JAX's
+    ragged test shapes (locations that do not fill the last pack of
+    ``_packed_forward``; below the gate's 512 locations·heads, so through the
+    kernel's wrapper directly), at a head dim of 40 and at 48 frames; SDPA
+    over the (b, s, h, f, d) permuted view as the library time."""
+    from animate_anything_tpu_torch.ops import temporal_attention as ta
+
+    tally = Tally("temporal_attention", "animate_anything_tpu_torch/csrc/temporal_attention.cu",
+                  "animate_anything_tpu/ops/temporal_attention.py:97")
+    full = [(2, FRAMES + 1, s, h, 64) for s, h in PACKED_SITES]
+    ragged = [(1, 17, 33, 2, 64), (2, 14, 40, 1, 32), (2, 2, 40, 1, 32)]
+    # a head dim padded to the kernel's next multiple of 16, and f > 32
+    padded = [(2, 17, 40, 3, 40), (1, 48, 24, 2, 64)]
+    for b, f, s, h, d in full + ragged + padded:
+        q, k, v = (torch.randn(b, f, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        with torch.no_grad():
+            got = ta.packed_temporal_attention(q, k, v)
+            want = ta.temporal_attention_reference(q, k, v)
+            tag = f"temporal_attention b={b} f={f} s={s} h={h} d={d}"
+            _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+            ms = cuda_ms(lambda: ta.packed_temporal_attention(q, k, v))
+            plain = cuda_ms(lambda: ta.temporal_attention_reference(q, k, v), warmup=1, iters=3)
+            qp, kp, vp = (x.permute(0, 2, 3, 1, 4) for x in (q, k, v))
+            library = cuda_ms(lambda: F.scaled_dot_product_attention(qp, kp, vp))
+        tally.add(tag, _err(got, want), ms, plain, 4 * b * s * h * f * f * d,
+                  4 * b * f * s * h * d * 2, library)
+    return tally.row
+
+
+def check_packed_flash(gen) -> dict:
+    """Row 16, the all-heads flash attention: ``flash_attention`` (kernel 1)
+    at the UNet's three spatial self-attention sites and at JAX's test
+    shapes, sk = 77 included, on the first and the last two samples."""
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+
+    tally = Tally("flash_attention_packed", "animate_anything_tpu_torch/csrc/flash_attention.cu",
+                  "animate_anything_tpu/ops/attic/packed_flash.py:121")
+    cases = [(2 * (FRAMES + 1), s, s, h) for s, h in FLASH_SITES] + [(2, 256, 256, 5),
+                                                                     (1, 300, 77, 2)]
+    for b, sq, sk, h in cases:
+        q = torch.randn(b, sq, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, sk, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        tag = f"flash_attention_packed b={b} sq={sq} sk={sk} h={h} d=64"
+        with torch.no_grad():
+            got = fa.flash_attention(q, k, v)
+            err = max(_assert_attention(f"{tag} samples {sl.start}:{sl.stop}", got[sl],
+                                        fa.attention_reference(q[sl], k[sl], v[sl]))
+                      for sl in _first_and_last(b))
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+            plain = cuda_ms(lambda: [fa.attention_reference(q[i:i + 2], k[i:i + 2], v[i:i + 2])
+                                     for i in range(0, b, 2)], warmup=1, iters=2)
+            library = cuda_ms(lambda: _sdpa(q, k, v))
+        tally.add(tag, err, ms, plain, 4 * b * h * sq * sk * 64,
+                  2 * b * (sq + sk) * h * 64 * 2, library)
+    return tally.row
+
+
+def check_add_stats(gen) -> dict:
+    """Kernel 10 at the resnet -> temporal-conv seams it was built for and at
+    JAX's test shape: y must equal the plain add (the same fp32 add and one
+    rounding), the sums those of the stored y in another fp32 order, and the
+    same in a second run (no atomics). No single PyTorch call adds and sums;
+    the three-call composite (add, two reductions) is a reference line."""
+    from animate_anything_tpu_torch.ops import add_stats as ad
+
+    tally = Tally("add_with_stats", "animate_anything_tpu_torch/csrc/group_norm.cu",
+                  "animate_anything_tpu/ops/attic/add_stats.py:68")
+    cfg = 2 * (FRAMES + 1)
+    composite_ms = 0.0
+    for n, s, c in ((cfg, 4096, 320), (cfg, 1024, 640), (cfg, 256, 1280), (cfg, 64, 1280),
+                    (3, 32, 128)):
+        x, r = (torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        with torch.no_grad():
+            y, (s1, s2) = ad.add_with_stats(x, r, impl="pallas")
+            wy, _ = ad.add_stats_reference(x, r)
+            tag = f"add_with_stats n={n} s={s} c={c}"
+            _assert_close(tag, y, wy, 0.0, 0.0)
+            _assert_stored_sums(tag, y, (s1, s2), dim=1)
+            _, again = ad.add_with_stats(x, r, impl="pallas")
+            if not (torch.equal(again[0], s1) and torch.equal(again[1], s2)):
+                raise AssertionError(f"{tag}: the sums differ between two runs")
+            ms = cuda_ms(lambda: ad.add_with_stats(x, r, impl="pallas"))
+            plain = cuda_ms(lambda: ad.add_stats_reference(x, r))
+
+            def composite():
+                yc = x + r
+                return yc.float().sum(1), yc.float().square().sum(1)
+            comp = cuda_ms(composite)
+        composite_ms += comp
+        log(f"    three-call composite (add, Σ, Σ²; a reference line) {comp:.3f} ms")
+        tally.add(tag, _err(y, wy), ms, plain, 3 * n * s * c, 3 * n * s * c * 2 + 2 * n * c * 4)
+    tally.row["composite_ms"] = composite_ms
+    return tally.row
+
+
+def check_ln_qkv(gen) -> dict:
+    """Kernels 11 and 1 (``ln_qkv_attention``) at the UNet's three spatial
+    self-attention sites (norm1 -> to_q/k/v -> attention) and at JAX's test
+    shapes, against the plain version on the first and the last two
+    samples. No single
+    PyTorch call computes it; the three-call composite (``F.layer_norm``, one
+    q|k|v matmul, SDPA) is a reference line."""
+    from animate_anything_tpu_torch.ops import ln_qkv_attention as lq
+
+    tally = Tally("ln_qkv_attention", "animate_anything_tpu_torch/csrc/ln_qkv.cu",
+                  "animate_anything_tpu/ops/attic/ln_qkv_attention.py:130")
+    tally.row["source_also"] = "animate_anything_tpu_torch/csrc/flash_attention.cu"
+    n = 2 * (FRAMES + 1)
+    composite_ms = 0.0
+    for b, s, c, h in ((n, 4096, 320, 5), (n, 1024, 640, 10), (n, 256, 1280, 20),
+                       (2, 256, 128, 2), (1, 300, 192, 3)):
+        hd = 64 * h
+        x = torch.randn(b, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+        lns = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        lnb = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        ws = [_lecun(gen, c, hd, fan_in=c) for _ in range(3)]
+        kw = dict(heads=h, head_dim=64, eps=1e-5)
+        tag = f"ln_qkv_attention b={b} s={s} c={c} h={h}"
+        with torch.no_grad():
+            got = lq.ln_qkv_attention(x, lns, lnb, *ws, impl="pallas", **kw)
+            err = max(_assert_attention(f"{tag} samples {sl.start}:{sl.stop}", got[sl],
+                                        lq.ln_qkv_attention_reference(x[sl], lns, lnb, *ws, **kw))
+                      for sl in _first_and_last(b))
+            ms = cuda_ms(lambda: lq.ln_qkv_attention(x, lns, lnb, *ws, impl="pallas", **kw))
+            plain = cuda_ms(lambda: [lq.ln_qkv_attention_reference(x[i:i + 2], lns, lnb, *ws, **kw)
+                                     for i in range(0, b, 2)], warmup=1, iters=2)
+            wqkv = torch.cat(ws, 1)
+            lnsb, lnbb = lns.to(x.dtype), lnb.to(x.dtype)
+
+            def composite():
+                qkv = F.layer_norm(x, (c,), lnsb, lnbb, 1e-5) @ wqkv
+                q, k, v = (t.reshape(b, s, h, 64) for t in qkv.split(hd, -1))
+                return _sdpa(q, k, v)
+            comp = cuda_ms(composite)
+        composite_ms += comp
+        log(f"    three-call composite (layer_norm, q|k|v matmul, SDPA; a reference line) "
+            f"{comp:.3f} ms")
+        flop = 4 * b * h * s * s * 64 + 6 * b * s * c * hd
+        nbytes = b * s * (c + hd) * 2 + 3 * c * hd * 2 + 2 * c * 4
+        tally.add(tag, err, ms, plain, flop, nbytes)
+        torch.cuda.empty_cache()
+    tally.row["composite_ms"] = composite_ms
+    return tally.row
+
+
 KERNEL_CHECKS = (check_flash, check_flash_backward, check_geglu, check_tap_conv,
                  check_proj_residual, check_temporal_block, check_channel_sums,
-                 check_streaming_gn, check_spatial_conv)
+                 check_streaming_gn, check_spatial_conv, check_temporal_attention,
+                 check_packed_flash, check_add_stats, check_ln_qkv)
 
 
 def check_kernels(seed: int = 0) -> list[dict]:
@@ -504,10 +714,10 @@ def check_kernels(seed: int = 0) -> list[dict]:
 
 def kernel_counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
-    from animate_anything_tpu_torch.ops import (flash_attention, geglu, group_norm,
-                                                proj_residual, spatial_conv,
-                                                streaming_group_norm, temporal_block,
-                                                temporal_conv)
+    from animate_anything_tpu_torch.ops import (add_stats, flash_attention, geglu, group_norm,
+                                                ln_qkv_attention, proj_residual, spatial_conv,
+                                                streaming_group_norm, temporal_attention,
+                                                temporal_block, temporal_conv)
 
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention_bwd": (flash_attention, "bwd_launches"),
@@ -516,7 +726,10 @@ def kernel_counters() -> dict:
             "temporal_block": (temporal_block, "launches"),
             "channel_sums": (group_norm, "launches"),
             "group_norm_stream": (streaming_group_norm, "launches"),
-            "spatial_conv": (spatial_conv, "launches")}
+            "spatial_conv": (spatial_conv, "launches"),
+            "temporal_attention": (temporal_attention, "launches"),
+            "add_with_stats": (add_stats, "launches"),
+            "ln_qkv_attention": (ln_qkv_attention, "launches")}
 
 
 def reset_counts() -> None:
@@ -537,12 +750,64 @@ def require_launched(path: str, counts: dict, names) -> None:
 def require_not_launched(path: str, counts: dict, names) -> None:
     ran = {n: counts[n] for n in names if counts[n] != 0}
     if ran:
-        raise AssertionError(f"{path}: kernels of the opt-in configuration launched: {ran}")
+        raise AssertionError(f"{path}: kernels of another path launched: {ran}")
 
 
 FORWARD_KERNELS = ("flash_attention", "ln_geglu_ff", "tap_conv", "proj_residual_stats",
                    "temporal_block")
 OPT_IN_KERNELS = ("channel_sums", "group_norm_stream", "spatial_conv")
+PACKED_KERNELS = ("temporal_attention",)
+# The three functions no model path reaches: their own entry points. Row 16
+# (the all-heads flash attention) is kernel 1 through ``flash_attention``, so
+# its count is kernel 1's: on the entry points' path, that of its own call.
+ENTRY_KERNELS = ("flash_attention_packed", "add_with_stats", "ln_qkv_attention")
+ROW_COUNTER = {"flash_attention_packed": "flash_attention"}
+
+
+def require_only(path: str, counts: dict, names) -> None:
+    """The kernels ``names`` launched on ``path``, and no other."""
+    require_launched(path, counts, names)
+    require_not_launched(path, counts, [n for n in counts if n not in names])
+
+
+def run_entry_points(seed: int = 0) -> dict:
+    """The path of the three functions that no model path reaches: each
+    entry point called once at a full-width site of the UNet it was built
+    for (the first spatial self-attention level, the 320-wide resnet ->
+    temporal-conv seam), its output checked for shape and finite values;
+    returns each kernel's launch count during the calls. ``flash_attention``
+    counts kernel 1 under both functions that run it; row 16's count is the
+    kernel-1 launches of its own call, read right after it."""
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+    from animate_anything_tpu_torch.ops.add_stats import add_with_stats
+    from animate_anything_tpu_torch.ops.ln_qkv_attention import ln_qkv_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, s, c, h = 2 * (FRAMES + 1), 4096, 320, 5
+    x, r = (torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q, k, v = (torch.randn(n, s, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lns = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    lnb = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    ws = [_lecun(gen, c, 64 * h, fan_in=c) for _ in range(3)]
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        outs = {"flash_attention_packed": fa.flash_attention(q, k, v)}
+        row16 = fa.launches
+        outs["add_with_stats"] = add_with_stats(x, r, impl="pallas")[0]
+        outs["ln_qkv_attention"] = ln_qkv_attention(x, lns, lnb, *ws, heads=h, head_dim=64,
+                                                    impl="pallas")
+        torch.cuda.synchronize()
+    launches = read_counts()
+    launches["flash_attention_packed"] = row16
+    for name, out in outs.items():
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"entry point {name}: non-finite output")
+    log(f"entry points (n={n} s={s} c={c} heads={h}): launches {launches}")
+    require_only("entry points", launches, ENTRY_KERNELS + ("flash_attention",))
+    return launches
 
 
 def time_temporal_paths(seed: int = 0) -> None:
@@ -620,10 +885,13 @@ def _small_unet(seed: int, **cfg_kw):
     return ref.eval(), gen
 
 
-def check_small_unet(seed: int = 0) -> float:
+def check_small_unet(seed: int = 0, attn_impl: str = "pallas") -> float:
+    """Under ``"pallas"`` every kernel of the forward must launch; under
+    ``"packed"`` kernel 9 (at the sites whose b·s·h reaches 512) and no
+    other."""
     from animate_anything_tpu_torch.core.dtypes import cast_module_
 
-    ref, gen = _small_unet(seed)
+    ref, gen = _small_unet(seed, attn_impl=attn_impl)
     cfg = ref.config
     b, f, hw = 2, 3, 16
     sample = torch.randn(b, f, hw, hw, 4, generator=gen)
@@ -638,11 +906,15 @@ def check_small_unet(seed: int = 0) -> float:
         got = gpu(sample.cuda(), 500, ctx.cuda(), cond.cuda(), mask.cuda(),
                   motion.cuda()).float().cpu()
     launches = read_counts()
-    require_launched("small UNet forward", launches, FORWARD_KERNELS)
+    path = f"small UNet forward (attn_impl={attn_impl!r})"
+    if attn_impl == "pallas":
+        require_launched(path, launches, FORWARD_KERNELS)
+    else:
+        require_only(path, launches, PACKED_KERNELS)
     if not torch.isfinite(got).all():
         raise AssertionError("small UNet: non-finite output on the card")
     rel = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
-    log(f"small UNet forward, card (kernels, bf16) vs CPU (plain, fp32): relative RMS {rel:.4g}"
+    log(f"{path}, card (kernels, bf16) vs CPU (plain, fp32): relative RMS {rel:.4g}"
         f" (limit {SMALL_REL_RMS}); launches {launches}")
     if rel > SMALL_REL_RMS:
         raise AssertionError(f"small UNet disagrees with its CPU reference: {rel:.4g}")
@@ -700,8 +972,8 @@ def check_small_unet_grads(seed: int = 1) -> float:
     loss_gpu.backward()
     torch.cuda.synchronize()
     launches = read_counts()
-    require_launched("small UNet training step", launches,
-                     [n for n in launches if n not in OPT_IN_KERNELS])
+    require_only("small UNet training step", launches,
+                 FORWARD_KERNELS + ("flash_attention_bwd",))
 
     params = dict(gpu.named_parameters())
     got = {n: (torch.zeros(g.shape) if params[n].grad is None else params[n].grad.float().cpu())
@@ -810,8 +1082,7 @@ def run_requests(pipe) -> dict:
     launches = read_counts()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"kernel launches during the requests: {launches}")
-    require_launched("requests", launches, FORWARD_KERNELS)
-    require_not_launched("requests", launches, OPT_IN_KERNELS)
+    require_only("requests", launches, FORWARD_KERNELS)
     return launches
 
 
@@ -846,7 +1117,7 @@ def run_opt_in_request(pipe) -> dict:
         f"range [{float(video.min()):.3f}, {float(video.max()):.3f}]")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  kernel launches during the opt-in request: {launches}")
-    require_launched("opt-in request", launches, FORWARD_KERNELS + OPT_IN_KERNELS)
+    require_only("opt-in request", launches, FORWARD_KERNELS + OPT_IN_KERNELS)
 
     with torch.no_grad():
         default = decode_video(pipe.vae, latents).float()
@@ -863,6 +1134,71 @@ def run_opt_in_request(pipe) -> dict:
         raise AssertionError(f"opt-in VAE decode disagrees with the default one: {rel:.4g}")
     return launches
 
+
+def run_packed_request(pipe) -> dict:
+    """The first default request (same image, mask, strength, prompt and
+    generator seed) with the UNet under ``attn_impl="packed"`` (the same
+    weights, shared); return each kernel's launch count during it. The
+    pipeline keeps the packed UNet."""
+    req = make_requests()[0]
+    pipe.unet = pipe.unet.with_attn_impl("packed")
+    log(f"packed request: animate_image({RES}x{RES}, {FRAMES} frames, {STEPS} DPM-Solver++ "
+        f"steps, CFG {GUIDANCE}) with UNet3DConfig(attn_impl='packed')")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    video, latents = pipe.animate_image(
+        num_frames=FRAMES, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=gen, **req)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    if tuple(video.shape) != (1, FRAMES, RES, RES, 3):
+        raise AssertionError(f"packed request: video shape {tuple(video.shape)}")
+    if not torch.isfinite(video).all() or not torch.isfinite(latents).all():
+        raise AssertionError("packed request: non-finite output")
+    log(f"  packed request: {dt:.3f} s  video {tuple(video.shape)} {video.dtype} "
+        f"range [{float(video.min()):.3f}, {float(video.max()):.3f}]")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  kernel launches during the packed request: {launches}")
+    require_only("packed request", launches, PACKED_KERNELS)
+    want = PACKED_PER_FORWARD * STEPS
+    if launches["temporal_attention"] != want:
+        raise AssertionError(f"packed request: kernel 9 launched "
+                             f"{launches['temporal_attention']} times, not {want}")
+    compare_packed_xla(pipe.unet)
+    return launches
+
+
+def compare_packed_xla(packed_unet, seed: int = 3) -> float:
+    """One full-width CFG forward (2 x 16 frames, 64x64 latents) of the same
+    weights under "packed" and under "xla": they differ only in the
+    frame-attention core. The "xla" forward launches no kernel."""
+    xla_unet = packed_unet.with_attn_impl("xla")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, FRAMES, 64, 64, 4, generator=gen, device="cuda")
+    cond = torch.randn(2, 1, 64, 64, 4, generator=gen, device="cuda")
+    mask = (torch.rand(2, 1, 64, 64, 1, generator=gen, device="cuda") > 0.5).float()
+    emb = torch.randn(2, 77, 1024, generator=gen, device="cuda")
+    motion = torch.tensor([5.0, 5.0], device="cuda")
+    with torch.no_grad():
+        packed = packed_unet(x, 500, emb, cond, mask, motion).float()
+        torch.cuda.synchronize()
+        reset_counts()
+        xla = xla_unet(x, 500, emb, cond, mask, motion).float()
+        torch.cuda.synchronize()
+    launches = read_counts()
+    require_not_launched("xla forward", launches, list(launches))
+    if not torch.isfinite(packed).all() or not torch.isfinite(xla).all():
+        raise AssertionError("packed vs xla forward: non-finite output")
+    rel = float((packed - xla).square().mean().sqrt() / xla.square().mean().sqrt())
+    log(f"  one CFG forward, attn_impl='packed' vs 'xla' (same weights and inputs): relative "
+        f"RMS {rel:.4g} (limit {PACKED_VS_XLA_REL_RMS}), max |diff| {_err(packed, xla):.4g}")
+    if rel > PACKED_VS_XLA_REL_RMS:
+        raise AssertionError(f"packed forward disagrees with the xla forward: {rel:.4g}")
+    return rel
 
 def make_train_batch(seed: int = 0) -> dict:
     """One 512x512 / 16-frame clip (a random image drifting 4 px a frame),
@@ -927,8 +1263,7 @@ def run_train_steps() -> dict:
     log(f"  kernel launches during the {TRAIN_STEPS} timed steps: {launches}")
     if changed == 0:
         raise AssertionError("training: no parameter changed")
-    require_launched("training", launches, [n for n in launches if n not in OPT_IN_KERNELS])
-    require_not_launched("training", launches, OPT_IN_KERNELS)
+    require_only("training", launches, FORWARD_KERNELS + ("flash_attention_bwd",))
     return launches
 
 
@@ -951,25 +1286,30 @@ def main() -> int:
 
     log("kernel checks (kernel vs plain version, bf16 inputs):")
     rows = check_kernels()
+    entry = run_entry_points()
     log("temporal transformers, fused vs composite path (bf16, b=2, f=17):")
     time_temporal_paths()
     check_small_unet()
+    check_small_unet(attn_impl="packed")
     check_small_unet_grads()
 
     pipe = build_pipeline()
     requests = run_requests(pipe)
     opt_in = run_opt_in_request(pipe)
+    packed = run_packed_request(pipe)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train_steps()
-    own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS}}
+    own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS},
+                **{n: packed for n in PACKED_KERNELS}, **{n: entry for n in ENTRY_KERNELS}}
     for row in rows:
         name = row["name"]
+        counter = ROW_COUNTER.get(name, name)
         row["launches"] = own_path.get(name, requests)[name]
-        row["launches_requests"] = requests[name]
-        row["launches_opt_in"] = opt_in[name]
-        row["launches_train"] = train[name]
+        for label, counts in (("requests", requests), ("opt_in", opt_in), ("packed", packed),
+                              ("entry_points", entry), ("train", train)):
+            row[f"launches_{label}"] = counts.get(name, counts[counter])
 
     print(json.dumps({"kernels": rows}))
     print(ident)

@@ -27,20 +27,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import test_torch_port_helpers as helpers
-from test_torch_port_helpers import jax_params, load_into, n, t
+from test_torch_port_helpers import jax_params, load_into, n, port_state_dict, t
 
 ATOL = 5e-5
-
-
-def _sd(params, prefix: str = ""):
-    from animate_anything_tpu_torch.utils.convert import unet3d_state_dict
-
-    tree = params["params"]
-    if not prefix:
-        return unet3d_state_dict(tree)
-    sd = unet3d_state_dict({prefix: tree})
-    head = prefix.replace("_", ".") + "."
-    return {k[len(head):]: v for k, v in sd.items()}
 
 
 def _cotangents(out, rng):
@@ -67,7 +56,7 @@ def _check(jax_fn, params, inputs, port_module, port_call, prefix="", seed=0):
     cot = _cotangents(want_out, np.random.default_rng(seed + 100))
     want_gp, *want_gin = vjp(jax.tree_util.tree_map(jnp.asarray, cot))
 
-    port = load_into(port_module, _sd(params, prefix))
+    port = load_into(port_module, port_state_dict(params, prefix))
     tin = jax.tree_util.tree_map(lambda a: t(a).requires_grad_(True), inputs)
     got_out = port_call(port, *tin)
     flat_got, flat_want = jax.tree_util.tree_leaves(got_out), jax.tree_util.tree_leaves(want_out)
@@ -79,7 +68,7 @@ def _check(jax_fn, params, inputs, port_module, port_call, prefix="", seed=0):
     for i, (g, w) in enumerate(zip(jax.tree_util.tree_leaves(tin),
                                    jax.tree_util.tree_leaves(want_gin))):
         np.testing.assert_allclose(n(g.grad), n(w), atol=ATOL, err_msg=f"input {i}")
-    want_p = _sd(want_gp, prefix)
+    want_p = port_state_dict(want_gp, prefix)
     named = dict(port.named_parameters())
     assert set(want_p) == set(named)
     for name, w in want_p.items():

@@ -61,6 +61,19 @@ def load_into(module: torch.nn.Module, state: dict) -> torch.nn.Module:
     return module.eval()
 
 
+def port_state_dict(params, prefix: str = ""):
+    """JAX subtree → port state dict; ``prefix`` wraps the tree under a parent
+    name (the temporal-conv renames key on ``temp_convs``) and is stripped."""
+    from animate_anything_tpu_torch.utils.convert import unet3d_state_dict
+
+    tree = params["params"]
+    if not prefix:
+        return unet3d_state_dict(tree)
+    sd = unet3d_state_dict({prefix: tree})
+    head = prefix.replace("_", ".") + "."
+    return {k[len(head):]: v for k, v in sd.items()}
+
+
 @contextlib.contextmanager
 def composite_temporal():
     """Both sides on the composite temporal path: JAX's gate ``fused_ok`` and

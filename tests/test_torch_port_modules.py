@@ -17,7 +17,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import test_torch_port_helpers as helpers
-from test_torch_port_helpers import jax_params, load_into, n, t
+from test_torch_port_helpers import jax_params, load_into, n, port_state_dict, t
 
 ATOL = 5e-5
 
@@ -26,19 +26,6 @@ ATOL = 5e-5
 def composite_temporal():
     with helpers.composite_temporal():
         yield
-
-
-def _sd(params, prefix: str = ""):
-    """JAX subtree → port state dict; ``prefix`` wraps the tree under a parent
-    name (the temporal-conv renames key on ``temp_convs``) and is stripped."""
-    from animate_anything_tpu_torch.utils.convert import unet3d_state_dict
-
-    tree = params["params"]
-    if not prefix:
-        return unet3d_state_dict(tree)
-    sd = unet3d_state_dict({prefix: tree})
-    head = prefix.replace("_", ".") + "."
-    return {k[len(head):]: v for k, v in sd.items()}
 
 
 def test_resnet_block_matches_jax():
@@ -50,7 +37,7 @@ def test_resnet_block_matches_jax():
     temb = r.standard_normal((4, 64)).astype(np.float32)
     jm = JaxResnet(64, groups=8)
     p = jax_params(jm, x, temb)
-    port = load_into(ResnetBlock2D(32, 64, 64, groups=8), _sd(p))
+    port = load_into(ResnetBlock2D(32, 64, 64, groups=8), port_state_dict(p))
     with torch.no_grad():
         got = port(t(x), t(temb))
     np.testing.assert_allclose(n(got), n(jm.apply(p, x, temb)), atol=ATOL)
@@ -65,7 +52,7 @@ def test_temporal_conv_layer_matches_jax():
     x = r.standard_normal((2 * f, 4, 4, 64)).astype(np.float32)
     jm = JaxTConv(64, impl="pallas")
     p = jax_params(jm, x, f)       # conv4 drawn non-zero, so the last stage counts
-    port = load_into(TemporalConvLayer(64), _sd(p, "temp_convs_0"))
+    port = load_into(TemporalConvLayer(64), port_state_dict(p, "temp_convs_0"))
     with torch.no_grad():
         got, sums = port(t(x), f)
     np.testing.assert_allclose(n(got), n(jm.apply(p, x, f)), atol=ATOL)
@@ -86,7 +73,7 @@ def test_spatial_transformer_matches_jax():
     jm = JaxST(heads, d, 32, attn_impl="pallas")
     with pltpu.force_tpu_interpret_mode():
         want, want_sums = jm.apply(p, x, ctx, None, None, True)
-    port = load_into(SpatialTransformer(c, heads, d, 32), _sd(p))
+    port = load_into(SpatialTransformer(c, heads, d, 32), port_state_dict(p))
     with torch.no_grad():
         got, sums = port(t(x), t(ctx))
     np.testing.assert_allclose(n(got), n(want), atol=ATOL)
@@ -104,7 +91,7 @@ def test_temporal_transformer_matches_jax(composite_temporal, heads, c):
     x = r.standard_normal((2 * f, 4, 4, c)).astype(np.float32)
     p = jax_params(JaxTT(heads, d, attn_impl="xla"), x, f)
     want, want_sums = JaxTT(heads, d, attn_impl="pallas").apply(p, x, f, None, None, True)
-    port = load_into(TemporalTransformer(c, heads, d), _sd(p))
+    port = load_into(TemporalTransformer(c, heads, d), port_state_dict(p))
     with torch.no_grad():
         got, sums = port(t(x), f)
     np.testing.assert_allclose(n(got), n(want), atol=ATOL)
