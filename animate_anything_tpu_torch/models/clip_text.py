@@ -5,7 +5,8 @@ A causal transformer over BPE token ids with a final LayerNorm; its
 config is the SD 2.x / ModelScope text tower (hidden 1024, 23 layers, 16
 heads, exact-erf GELU). LayerNorms run in fp32 and store in the layer's
 compute dtype, as the flax modules with ``dtype=float32`` norms do; the
-causal self-attention is plain (``ops/attention.py``, JAX's ``impl="xla"``).
+causal self-attention takes JAX's ``impl="xla"`` (``ops/attention.xla_attention``:
+SDPA on the card, the plain version on the CPU).
 
 Parameter names follow the HF ``CLIPTextModel`` key layout
 (``text_model.encoder.layers.0.self_attn.q_proj.weight``), so a JAX param
@@ -63,7 +64,7 @@ class CLIPAttention(nn.Module):
         b, s, hid = x.shape
         shape = (b, s, self.heads, hid // self.heads)
         q, k, v = (p(x).reshape(shape) for p in (self.q_proj, self.k_proj, self.v_proj))
-        return self.out_proj(attention(q, k, v, is_causal=True).reshape(b, s, hid))
+        return self.out_proj(attention(q, k, v, impl="xla", is_causal=True).reshape(b, s, hid))
 
 
 class CLIPMLP(nn.Module):

@@ -1,6 +1,7 @@
 """SD VAE (AutoencoderKL), pixel ↔ latent 8× codec — the port of
 ``animate_anything_tpu/models/vae.py``. Plain torch by default, as in the
-JAX package (its mid-block attention goes to XLA). Under
+JAX package (its mid-block attention takes JAX's ``impl="xla"``:
+``ops/attention.xla_attention``, SDPA on the card). Under
 ``set_default_norm_impl("pallas")`` every GroupNorm here (widths 128, 256
 and 512) runs kernel 7 (``ops/streaming_group_norm.py``), as JAX's runs its
 streaming Pallas kernel.
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from animate_anything_tpu_torch.models.layers import Conv1x1, Conv2d, FusedGroupNorm, Linear
-from animate_anything_tpu_torch.ops.flash_attention import attention_reference
+from animate_anything_tpu_torch.ops.attention import attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,7 @@ class VAEAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
         h = self.group_norm(x).reshape(b, hh * ww, 1, c)
-        out = attention_reference(self.to_q(h), self.to_k(h), self.to_v(h))
+        out = attention(self.to_q(h), self.to_k(h), self.to_v(h), impl="xla")
         return x + self.to_out[0](out.reshape(b, hh * ww, c)).reshape(b, hh, ww, c)
 
 

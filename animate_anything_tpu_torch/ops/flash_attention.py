@@ -8,16 +8,19 @@ the backward replaces ``::_flash_backward_lanes`` and ``::_flash_backward``
 ``animate_anything_tpu/ops/attic/packed_flash.py::_flash_forward_packed``,
 the same function on the same layout (it takes ``exp`` of the scores where
 kernel 1 takes ``exp2`` of the scores × log2 e, in fp32 both), whose custom
-VJP differentiates plain attention as this backward does. The CUDA kernels take d in {32, 64, 128}
-and read q/k/v (and o, dO) straight from the ``(b, s, h·d)`` projection
-outputs, one head per block column, by stride. What bounds them on the H100
-and how their design answers that is in the sources' header notes.
+VJP differentiates plain attention as this backward does. The forward
+kernel (TMA and wgmma) takes every d % 16 == 0 from 16 to 256
+(``HEAD_DIMS``), the backward d in {32, 64, 128} (``BWD_HEAD_DIMS``); both
+read q/k/v (and o, dO) straight from the ``(b, s, h·d)`` projection outputs,
+one head per block column, by stride. What bounds them on the H100 and how
+their design answers that is in the sources' header notes.
 
 ``flash_attention`` is the wrapper: ``FlashAttention`` (an autograd
 Function) runs the plain PyTorch versions for CPU tensors and the kernels
 for CUDA tensors (or raises). When autograd needs it, the forward kernel
 also stores each row's log-sum-exp for the backward. The dispatch between
-this kernel and plain attention lives in ``ops/attention.py``.
+this kernel and plain attention lives in ``ops/attention.py``; ``kernel_ok``
+says which head sizes it may send here.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from torch.autograd.function import once_differentiable
 
 from animate_anything_tpu_torch.ops import cuda_lib
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = tuple(range(16, 257, 16))   # the forward kernel's
+BWD_HEAD_DIMS = (32, 64, 128)            # the backward kernels'
 LOG2E = 1.4426950408889634
 
 launches = 0      # forward kernel launches
@@ -69,11 +73,21 @@ def flash_attention_backward_reference(q, k, v, o, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v):
+def kernel_ok(q_shape, k_shape, needs_grad: bool = False) -> bool:
+    """Whether the kernels take attention of q (B, Sq, H, D) over k (B, Sk, H,
+    D): the forward's head sizes, and the backward's too when a gradient is
+    needed. (TMA's rule that a row of h·d bf16 values be a multiple of 16
+    bytes holds for every d % 16 == 0.)"""
+    d = q_shape[-1]
+    return (d == k_shape[-1] and d in HEAD_DIMS
+            and (not needs_grad or d in BWD_HEAD_DIMS))
+
+
+def _check(q, k, v, head_dims=HEAD_DIMS):
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"flash_attention: head dim {d} not in {head_dims}")
     cuda_lib.check_cuda("flash_attention q", q, torch.bfloat16, (b, sq, h, d))
     cuda_lib.check_cuda("flash_attention k", k, torch.bfloat16, (b, sk, h, d))
     cuda_lib.check_cuda("flash_attention v", v, torch.bfloat16, (b, sk, h, d))
@@ -106,7 +120,7 @@ def flash_attention_backward(q, k, v, o, do, lse=None):
     (``lse`` from ``flash_forward_with_lse`` is required there)."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do)
-    b, sq, sk, h, d = _check(q, k, v)
+    b, sq, sk, h, d = _check(q, k, v, BWD_HEAD_DIMS)
     if lse is None:
         raise ValueError("flash_attention_backward: the kernels need the forward's lse")
     cuda_lib.check_cuda("flash_attention o", o, torch.bfloat16, (b, sq, h, d))
@@ -132,7 +146,11 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = attention_reference(q, k, v), None
         else:
-            o, lse = flash_forward_with_lse(q, k, v, with_lse=any(ctx.needs_input_grad))
+            with_lse = any(ctx.needs_input_grad)
+            if with_lse and q.shape[-1] not in BWD_HEAD_DIMS:
+                raise ValueError(f"flash_attention: no backward kernel for head dim "
+                                 f"{q.shape[-1]} (takes {BWD_HEAD_DIMS})")
+            o, lse = flash_forward_with_lse(q, k, v, with_lse=with_lse)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 

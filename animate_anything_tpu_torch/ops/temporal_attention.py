@@ -10,7 +10,9 @@ the second product, output in q's dtype.
 ``temporal_attention(..., impl)`` keeps JAX's gate: only ``impl="packed"``
 with 2 ≤ f ≤ 128, d % 8 == 0 and at least 512 locations·heads reaches the
 kernel, and only on the device the kernel was written for (the TPU there, a
-CUDA tensor here). Every other case runs the einsum form
+CUDA tensor here). One clause is the port's own: d ≤ 128, the kernel's
+largest head; above it JAX runs its packed kernel and the port the einsum
+form, the same function. Every other case runs the einsum form
 ``temporal_attention_reference``, which is also the kernel's plain version
 and, through ``ops/autograd.Recompute``, its backward, as JAX's custom VJP
 takes the vjp of ``_einsum_reference``.
@@ -43,9 +45,9 @@ def temporal_attention_reference(q, k, v) -> torch.Tensor:
 
 def packed_ok(shape, impl: str, on_cuda: bool) -> bool:
     """JAX's gate (``temporal_attention`` :160-170), with "the tensor is on
-    CUDA" for its platform check."""
+    CUDA" for its platform check, and d ≤ ``MAX_HEAD_DIM``."""
     b, f, s, h, d = shape
-    return (impl == "packed" and 2 <= f <= MAX_FRAMES and d % 8 == 0
+    return (impl == "packed" and 2 <= f <= MAX_FRAMES and d % 8 == 0 and d <= MAX_HEAD_DIM
             and b * s * h >= MIN_LOCS and on_cuda)
 
 

@@ -9,9 +9,11 @@
    shapes (bf16 inputs; the plain version computes in fp32 on the same
    inputs) and times both with CUDA events, beside the card's bound for the
    same work and, where one PyTorch call computes the same function, that
-   call's time (never used by the port); the flash-attention forward and
-   backward at one ragged d = 128 case too, and the backward at the three
-   training shapes; the channel sums, the streaming GroupNorm (+SiLU) and the
+   call's time (never used by the port); the flash-attention forward at
+   every head size it takes (ragged sq != sk; achieved TFLOP/s beside
+   SDPA's) and the backward at one ragged d = 128 case too, and the backward
+   at the three training shapes; the gates that send the head sizes the
+   kernels do not take to SDPA or the einsum form; the channel sums, the streaming GroupNorm (+SiLU) and the
    fused GroupNorm-affine + SiLU -> 3x3 conv at the opt-in configuration's
    shapes; times one temporal transformer per width on its fused path
    (kernel 5 + kernel 2) against the composite path;
@@ -23,7 +25,9 @@
    encoder in bf16 from a seeded generator and answers two 512x512 /
    16-frame image-to-video requests, each an image and a prompt string
    (hash tokenizer), through ``LatentToVideoPipeline.animate_image`` (CFG 9,
-   DPM-Solver++); none of kernels 6-11 may run there;
+   DPM-Solver++); none of kernels 6-11 may run there; then one more
+   16-frame VAE decode alone for its peak memory, and the SDPA backends of
+   the VAE's and the CLIP text encoder's attention;
 6. answers one more such request in the JAX package's opt-in GroupNorm and
    resnet-conv configuration (``ops/spatial_conv.opt_in_config``: the
    streaming GroupNorm, the channel-sums statistics and ``AA_SPATIAL_CONV=1``),
@@ -254,28 +258,75 @@ def _sdpa(q, k, v):
                                           v.transpose(1, 2))
 
 
+# Kernel 1 at every head size it takes besides the UNet's 64, each ragged:
+# sq and sk not multiples of the 128-row query tile or the key tile, sq ≠ sk.
+FLASH_HEAD_DIMS = (16, 32, 48, 80, 96, 112, 128, 144, 160, 176, 192, 208, 224, 240, 256)
+
+
 def check_flash(gen) -> dict:
-    """The forward at the UNet's three d = 64 sites (``_flash_forward_lanes``)
-    and at the ragged d = 128 case of the backward check
-    (``_flash_forward``'s other head sizes)."""
+    """The forward at the UNet's three d = 64 sites (``_flash_forward_lanes``),
+    at the ragged d = 128 case of the backward check and at every other head
+    size the kernel takes (``_flash_forward``'s head sizes), each beside its
+    achieved TFLOP/s."""
     from animate_anything_tpu_torch.ops import flash_attention as fa
 
     tally = Tally("flash_attention", "animate_anything_tpu_torch/csrc/flash_attention.cu",
                   "animate_anything_tpu/ops/flash_attention.py:233")
-    for b, s, h, d in [(2 * (FRAMES + 1), s, h, 64) for s, h in FLASH_SITES] + [(2, 1000, 3, 128)]:
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
+    cases = ([(2 * (FRAMES + 1), s, s, h, 64) for s, h in FLASH_SITES] + [(2, 1000, 1000, 3, 128)]
+             + [(2, 300 + 7 * d, 200 + 5 * d, 3, d) for d in FLASH_HEAD_DIMS])
+    for b, sq, sk, h, d in cases:
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, sk, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
         sl = slice(0, 2)  # plain fp32 scores for all 34 x h heads would not fit
+        tag = f"flash_attention b={b} sq={sq} sk={sk} h={h} d={d}"
         got = fa.flash_attention(q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous())
         want = fa.attention_reference(q[sl], k[sl], v[sl])
-        _assert_close(f"flash s={s}", got, want, Y_ATOL, Y_RTOL)
+        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        _assert_attention(tag, got, want)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
         plain = cuda_ms(lambda: [fa.attention_reference(q[i:i + 2], k[i:i + 2], v[i:i + 2])
                                  for i in range(0, b, 2)], warmup=1, iters=2)
         library = cuda_ms(lambda: _sdpa(q, k, v))
-        tally.add(f"flash_attention b={b} s={s} h={h} d={d}", _err(got, want), ms, plain,
-                  4 * b * h * s * s * d, 4 * b * s * h * d * 2, library)
+        flop = 4 * b * h * sq * sk * d
+        tally.add(tag, _err(got, want), ms, plain, flop, 2 * b * (sq + sk) * h * d * 2, library)
+        log(f"    {flop / ms / 1e9:.1f} TFLOP/s (SDPA {flop / library / 1e9:.1f})")
     return tally.row
+
+
+def check_attention_gates(gen) -> None:
+    """Head sizes the kernels do not take run without raising through their
+    gates: ``attention(impl="pallas")`` sends d % 16 == 8 and d > 256 to SDPA
+    (no kernel-1 launch) and takes kernel 1 at d = 96; ``temporal_attention``
+    under ``"packed"`` keeps the einsum form above d = 128 (no kernel-9
+    launch). Each output against its plain version."""
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+    from animate_anything_tpu_torch.ops import temporal_attention as ta
+    from animate_anything_tpu_torch.ops.attention import attention
+
+    for d, kernel in ((40, False), (320, False), (96, True)):
+        q, k, v = (torch.randn(2, 300, 2, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        before = fa.launches
+        with torch.no_grad():
+            got = attention(q, k, v, impl="pallas")
+        ran = fa.launches - before
+        want = fa.attention_reference(q, k, v)
+        _assert_close(f"attention d={d}", got, want, Y_ATOL, Y_RTOL)
+        if ran != int(kernel):
+            raise AssertionError(f"attention d={d}: kernel 1 launched {ran} times")
+        log(f"  attention(impl='pallas') d={d}: {'kernel 1' if kernel else 'SDPA'}, "
+            f"max|err| {_err(got, want):.3g}")
+    q, k, v = (torch.randn(1, 17, 64, 8, 160, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    before = ta.launches
+    with torch.no_grad():
+        got = ta.temporal_attention(q, k, v, impl="packed")
+    if ta.launches != before:
+        raise AssertionError("temporal_attention d=160: kernel 9 launched")
+    _assert_close("temporal_attention d=160", got, ta.temporal_attention_reference(q, k, v),
+                  Y_ATOL, Y_RTOL)
+    log("  temporal_attention(impl='packed') d=160: einsum form, no kernel 9")
 
 
 def _sdpa_backward(q, k, v, do):
@@ -1083,7 +1134,32 @@ def run_requests(pipe) -> dict:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"kernel launches during the requests: {launches}")
     require_only("requests", launches, FORWARD_KERNELS)
+    decode_peak(pipe, latents)
     return launches
+
+
+def decode_peak(pipe, latents) -> None:
+    """The request's last phase alone: the peak device memory of one 16-frame
+    VAE decode of its latents, with the pipeline's weights resident as
+    during the request, and the SDPA backend that takes its mid-block
+    attention and the CLIP text encoder's (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    from animate_anything_tpu_torch.models.vae import decode_video
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        decode_video(pipe.vae, latents)
+    torch.cuda.synchronize()
+    log(f"  the 16-frame VAE decode alone: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    names = {int(v): k for k, v in SDPBackend.__members__.items()}
+    for what, shape, causal in (("VAE mid-block, one 512-wide head", (FRAMES, 1, 4096, 512), False),
+                                ("CLIP text, 16 heads x 64, causal", (2, 16, 77, 64), True)):
+        x = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+        choice = names.get(int(torch._fused_sdp_choice(x, x, x, is_causal=causal)), "?")
+        log(f"  SDPA backend for the {what} {shape}: {choice}")
 
 
 def run_opt_in_request(pipe) -> dict:
@@ -1286,6 +1362,7 @@ def main() -> int:
 
     log("kernel checks (kernel vs plain version, bf16 inputs):")
     rows = check_kernels()
+    check_attention_gates(torch.Generator(device="cuda").manual_seed(5))
     entry = run_entry_points()
     log("temporal transformers, fused vs composite path (bf16, b=2, f=17):")
     time_temporal_paths()

@@ -5,6 +5,7 @@ version for a non-CPU tensor and always hand their outputs to autograd, and
 its initialisers draw what the flax ones draw."""
 
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -151,6 +152,19 @@ def test_kernel_sources_cover_every_entry_point():
     for name in cuda_lib._SIGNATURES:
         assert f"AAT_EXPORT int {name}(" in text
     assert cuda_lib.library_path().parent == REPO / "build" / "torch_kernels"
+
+
+def test_flash_head_dims_match_the_kernel_instantiations():
+    """The Python gate admits exactly the head sizes the C entry point
+    instantiates, and the Hopper header is part of the build's hash."""
+    from animate_anything_tpu_torch.ops import cuda_lib
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+
+    text = (cuda_lib.CSRC / "flash_attention.cu").read_text()
+    cases = tuple(int(d) for d in re.findall(r"AAT_FLASH_CASE\((\d+)\)", text))
+    assert cases == fa.HEAD_DIMS == tuple(range(16, 257, 16))
+    assert set(fa.BWD_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+    assert '#include "hopper.cuh"' in text and cuda_lib.CSRC / "hopper.cuh" in cuda_lib.sources()
 
 
 @pytest.mark.parametrize("source,replaces", [

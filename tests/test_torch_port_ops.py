@@ -9,6 +9,9 @@ magnitude ~1, fp32 accumulation-order noise; sums rtol 2e-5 / atol 1e-3
 (sums over up to a few hundred rows of magnitude-1 values).
 """
 
+import types
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +72,100 @@ def test_attention_dispatch_matches_jax(sq, sk):
     with pltpu.force_tpu_interpret_mode():
         want = jax_flash(q, kv, kv)
     np.testing.assert_allclose(n(attention(t(q), t(kv), t(kv))), n(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_plain_matches_jax_folded_kernel_new_head_dims(d):
+    """Head sizes the kernel took on since its wgmma redesign, ragged against
+    its 128-row query and 64-key tiles, against ``_flash_forward``."""
+    from animate_anything_tpu.ops.flash_attention import _flash_forward, _xla_reference
+    from animate_anything_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+
+    assert d in HEAD_DIMS
+    r = _rng(d)
+    q = r.standard_normal((2, 140, 2, d)).astype(np.float32)
+    k = r.standard_normal((2, 200, 2, d)).astype(np.float32)
+    v = r.standard_normal((2, 200, 2, d)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want_kernel = _flash_forward(q, k, v)
+    got = flash_attention(t(q), t(k), t(v))
+    np.testing.assert_allclose(n(got), n(want_kernel), atol=2e-5)
+    np.testing.assert_allclose(n(got), n(_xla_reference(q, k, v)), atol=2e-5)
+
+
+# (head dim, a gradient is needed, kernel 1 takes it)
+KERNEL_GATE_CASES = [
+    (64, False, True), (64, True, True), (16, False, True), (16, True, False),
+    (96, False, True), (96, True, False),     # no backward kernel at 96
+    (128, True, True), (256, False, True), (240, False, True),
+    (40, False, False), (8, False, False),    # d % 16 == 8: JAX's kernel takes them
+    (272, False, False), (512, False, False),  # past 256: the VAE's single head
+]
+
+
+@pytest.mark.parametrize("d,needs_grad,want", KERNEL_GATE_CASES)
+def test_flash_kernel_gate(d, needs_grad, want):
+    from animate_anything_tpu_torch.ops.flash_attention import kernel_ok
+
+    assert kernel_ok((2, 256, 3, d), (2, 300, 3, d), needs_grad) == want
+
+
+def _fake(d, device, requires_grad=False):
+    """What ``attention`` reads of a (2, 256, 3, d) tensor on ``device``."""
+    return types.SimpleNamespace(shape=(2, 256, 3, d), device=torch.device(device),
+                                 requires_grad=requires_grad)
+
+
+@pytest.mark.parametrize("d,requires_grad,device,route", [
+    (64, False, "cuda", "kernel"), (64, True, "cuda", "kernel"), (96, False, "cuda", "kernel"),
+    (96, True, "cuda", "sdpa"), (40, False, "cuda", "sdpa"), (320, False, "cuda", "sdpa"),
+    (40, False, "cpu", "kernel"), (320, True, "cpu", "kernel"),   # CPU: the wrapper's plain version
+])
+def test_attention_routes_head_sizes_by_the_kernel_gate(d, requires_grad, device, route,
+                                                         monkeypatch):
+    from animate_anything_tpu_torch.ops import attention as attn
+
+    monkeypatch.setattr(attn, "flash_attention", lambda q, k, v: "kernel")
+    monkeypatch.setattr(attn, "xla_attention", lambda q, k, v, is_causal=False: "sdpa")
+    x = _fake(d, device, requires_grad)
+    with torch.enable_grad():
+        assert attn.attention(x, x, x, impl="pallas") == route
+
+
+# Kernel 9's gate: JAX's packed kernel takes every d % 8 == 0; the port's
+# kernel stops at MAX_HEAD_DIM, and its gate keeps the einsum form above it.
+@pytest.mark.parametrize("d,want", [(64, True), (128, True), (40, True), (136, False),
+                                    (256, False), (36, False)])
+def test_packed_gate_refuses_head_dims_past_the_kernel(d, want):
+    from animate_anything_tpu_torch.ops.temporal_attention import MAX_HEAD_DIM, packed_ok
+
+    assert MAX_HEAD_DIM == 128
+    assert packed_ok((2, 17, 256, 1, d), "packed", on_cuda=True) == want
+    assert not packed_ok((2, 17, 256, 1, d), "packed", on_cuda=False)
+
+
+def test_vae_and_clip_attention_take_xla_attention():
+    """JAX's VAE mid-block and CLIP text encoder call ``attention(...,
+    impl="xla")``; so do the port's, counted through ``xla_attention``."""
+    from animate_anything_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig, decode_video
+    from animate_anything_tpu_torch.ops import attention as attn
+
+    torch.manual_seed(0)
+    vae = AutoencoderKL(VAEConfig.tiny()).eval()
+    cfg = CLIPTextConfig.tiny()
+    text = CLIPTextModel(cfg).eval()
+    with mock.patch.object(attn, "xla_attention", wraps=attn.xla_attention) as xla, \
+            mock.patch.object(attn, "flash_attention", wraps=attn.flash_attention) as kernel, \
+            torch.no_grad():
+        video = decode_video(vae, torch.randn(1, 2, 4, 4, 4))
+        calls_vae = xla.call_count
+        hidden = text(torch.randint(0, cfg.vocab_size, (2, 16)))
+    assert calls_vae == 1                             # the decoder's mid-block
+    assert xla.call_count == 1 + cfg.num_layers       # one causal attention a layer
+    assert all(c.kwargs.get("is_causal") for c in xla.call_args_list[1:])
+    assert kernel.call_count == 0
+    assert video.shape == (1, 2, 32, 32, 3) and hidden.shape == (2, 16, cfg.hidden_size)
 
 
 # ---- kernel 2: LN + GEGLU -----------------------------------------------------
