@@ -90,28 +90,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage rows [row0, row0 + ROWS) of one head's D columns (row stride C
-// elements) into a row-major shared tile; rows at or past n are zero-filled.
-// SCALE: each value is multiplied by `scale` and rounded back to bf16.
-template <int D, int ROWS, int LD, int THREADS, bool SCALE>
-__device__ __forceinline__ void stage_rows(bf16 (*dst)[LD], const bf16* __restrict__ src,
-                                           int row0, int n, int C, float scale) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per head row
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, cc = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * C + cc * 8);
-      if constexpr (SCALE) {
-        bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) e[i] = f2bf(bf2f(e[i]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(&dst[r][cc * 8]) = val;
-  }
-}
-
 // Epilogue shared by the tap-conv and proj-residual kernels.  The block's
 // GEMM tile sits in shared memory as Cs (TM x CLD fp32) and covers rows
 // [m0, min(m0 + TM, M)) of the flattened (M, N) output: y = C + bias

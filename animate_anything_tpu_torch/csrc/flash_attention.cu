@@ -74,15 +74,10 @@ constexpr int CONSUMERS = 256;  // two warpgroups of 64 rows (and a producer war
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int SMEM_LIMIT = 232448;
 
-// The head's columns as swizzle chunks: d / 64 chunks of 64 columns, then
-// one of 32 where d % 64 ≥ 32, then one of 16 where d % 32 == 16.  A tile
-// of R rows stores chunk after chunk, each R rows x (width · 2) bytes.
+// The head's columns as swizzle chunks (hopper.cuh's HeadChunks), and the
+// block's tiles.
 template <int D>
-struct Layout {
-  static constexpr int N64 = D / 64;
-  static constexpr bool H32 = D % 64 >= 32;
-  static constexpr bool H16 = D % 32 == 16;
-  static constexpr int CHUNKS = N64 + H32 + H16;
+struct Layout : HeadChunks<D> {
   static constexpr int BKV = D <= 64 ? 128 : 64;
   // A producer warpgroup where the consumers' accumulators fit the 168
   // registers a thread that ptxas allots in a 384-thread block; above, the
@@ -90,18 +85,6 @@ struct Layout {
   // thread issuing the loads between its tiles.
   static constexpr bool PRODUCER_WG = D <= 160;
   static constexpr int THREADS = CONSUMERS + (PRODUCER_WG ? 128 : 0);
-  __host__ __device__ static constexpr int width(int i) {
-    return i < N64 ? 64 : (i == N64 && H32) ? 32 : 16;
-  }
-  __host__ __device__ static constexpr int col(int i) {
-    return i <= N64 ? 64 * i : 64 * N64 + 32;
-  }
-  __host__ __device__ static constexpr int kind(int i) {  // map index: 64, 32, 16 columns
-    return width(i) == 64 ? 0 : width(i) == 32 ? 1 : 2;
-  }
-  __host__ __device__ static constexpr int offset(int i, int rows) {
-    return rows * col(i) * 2;
-  }
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;  // one of K, V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -127,7 +110,7 @@ template <int D>
 __device__ __forceinline__ void issue_qk(float* sc, uint32_t qt, int wg, uint32_t kt) {
   using L = Layout<D>;
 #pragma unroll
-  for (int i = 0; i < L::CHUNKS; ++i) {
+  for (int i = 0; i < L::COUNT; ++i) {
     const int rb = 2 * L::width(i);
     const uint32_t qa = qt + L::offset(i, BQ) + wg * 64 * rb, ka = kt + L::offset(i, L::BKV);
 #pragma unroll
@@ -145,7 +128,7 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4], uint
 #pragma unroll
   for (int kk = 0; kk < L::BKV / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < L::CHUNKS; ++i) {
+    for (int i = 0; i < L::COUNT; ++i) {
       const int rb = 2 * L::width(i);
       const uint64_t dv = desc_mn_major(vt + L::offset(i, L::BKV) + 16 * kk * rb, rb);
       float* acc = o + L::col(i) / 2;
@@ -156,14 +139,6 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4], uint
       else
         wgmma_rs_tb<16>(acc, pa[kk], dv);
     }
-}
-
-// 2^x on the special-function unit alone (ex2.approx.ftz: a result below
-// 2^-126 flushes to zero, where exp2f would return a subnormal).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Online softmax of one S tile in the exp2 domain (scores × exp2_scale),
@@ -222,12 +197,6 @@ __device__ __forceinline__ void pack_and_rescale(uint32_t (*pa)[4], const float*
   for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
 }
 
-template <int N>
-__device__ __forceinline__ void fence_all(float* r) {
-#pragma unroll
-  for (int x = 0; x < N; ++x) fence_operand(r[x]);
-}
-
 // Shared-memory map of one block: the Q tile, the K/V ring, the barriers
 // (Q full; per stage K full, V full, empty).
 template <int D>
@@ -249,7 +218,7 @@ __device__ __forceinline__ void load_q(const FwdParams& p, const Smem<D>& sm, in
   using L = Layout<D>;
   mbar_expect_tx(sm.q_full, L::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < L::CHUNKS; ++i)
+  for (int i = 0; i < L::COUNT; ++i)
     tma_load_3d(sm.q + L::offset(i, BQ), &p.q[L::kind(i)], sm.q_full, c0 + L::col(i), q0, bi);
 }
 
@@ -264,12 +233,12 @@ __device__ __forceinline__ void load_kv(const FwdParams& p, const Smem<D>& sm, i
   mbar_wait(sm.empty + 8 * s, ((j / L::STAGES) & 1) ^ 1);
   mbar_expect_tx(kf, L::KV_BYTES);
 #pragma unroll
-  for (int i = 0; i < L::CHUNKS; ++i)
+  for (int i = 0; i < L::COUNT; ++i)
     tma_load_3d(sm.k_tile(s) + L::offset(i, L::BKV), &p.k[L::kind(i)], kf, c0 + L::col(i),
                 j * L::BKV, bi);
   mbar_expect_tx(vf, L::KV_BYTES);
 #pragma unroll
-  for (int i = 0; i < L::CHUNKS; ++i)
+  for (int i = 0; i < L::COUNT; ++i)
     tma_load_3d(sm.v_tile(s) + L::offset(i, L::BKV), &p.v[L::kind(i)], vf, c0 + L::col(i),
                 j * L::BKV, bi);
 }
@@ -278,7 +247,7 @@ template <int D>
 __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ FwdParams p) {
   using L = Layout<D>;
-  constexpr int BKV = L::BKV, STAGES = L::STAGES, NC = L::CHUNKS;
+  constexpr int BKV = L::BKV, STAGES = L::STAGES, NC = L::COUNT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms need 1024-byte bases

@@ -9,9 +9,9 @@ by name, as in JAX:
   attention, as the JAX package leaves it to XLA; everything else runs
   kernel 1. Causal attention always runs plain (the CLIP text encoder asks
   for ``"xla"``, as JAX's does). On the card, head sizes kernel 1 does not
-  take (``flash_attention.kernel_ok``: d % 16 == 8 such as 40, d > 256, or
-  a d with no backward kernel when a gradient is needed) run
-  ``xla_attention`` instead. That diverges from JAX, whose Pallas kernel
+  take (``flash_attention.kernel_ok``: d % 16 == 8 such as 40, or d > 256;
+  forward and backward take the same head sizes) run ``xla_attention``
+  instead. That diverges from JAX, whose Pallas kernel
   ``_flash_forward`` takes any d: the numbers are the same softmax, the
   kernel is not.
 - ``"xla"`` and ``"packed"`` (any name but ``"pallas"``): JAX's
@@ -57,7 +57,6 @@ def attention(q, k, v, impl: str = "pallas", is_causal: bool = False) -> torch.T
         return xla_attention(q, k, v, is_causal=is_causal)
     if is_causal or q.shape[1] < MIN_KERNEL_SEQ or k.shape[1] < MIN_KERNEL_SEQ:
         return attention_reference(q, k, v, is_causal=is_causal)
-    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-    if q.device.type == "cuda" and not kernel_ok(q.shape, k.shape, needs_grad):
+    if q.device.type == "cuda" and not kernel_ok(q.shape, k.shape):
         return xla_attention(q, k, v)
     return flash_attention(q, k, v)

@@ -28,11 +28,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, b, sq, sk, heads, d, scale, exp2_scale, stream
     "aat_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, heads, d, scale, stream
-    "aat_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _P],
-    # x, ln_s, ln_b, w1, b1, w2, b2, y, n, c, eps, stream
-    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # q, k, v, o, dout, lse, rows, qhat, dq, dk, dv, b, sq, sk, heads, d, scale, stream
+    "aat_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _P],
+    # x, ln_s, ln_b, w1, b1, w2, b2, y, ln, act, n, c, eps, bn1, stages1, grid1, smem1,
+    # bn2, stages2, grid2, smem2, gate_row0, stream
+    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P],
     # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, stream
     "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # h, w, bias, res, y, s1, s2, n, s, k, c, stream

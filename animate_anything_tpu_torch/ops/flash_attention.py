@@ -9,10 +9,10 @@ the backward replaces ``::_flash_backward_lanes`` and ``::_flash_backward``
 the same function on the same layout (it takes ``exp`` of the scores where
 kernel 1 takes ``exp2`` of the scores × log2 e, in fp32 both), whose custom
 VJP differentiates plain attention as this backward does. The forward
-kernel (TMA and wgmma) takes every d % 16 == 0 from 16 to 256
-(``HEAD_DIMS``), the backward d in {32, 64, 128} (``BWD_HEAD_DIMS``); both
-read q/k/v (and o, dO) straight from the ``(b, s, h·d)`` projection outputs,
-one head per block column, by stride. What bounds them on the H100 and how
+and backward kernels (TMA and wgmma) take every d % 16 == 0 from 16 to 256
+(``HEAD_DIMS``, ``BWD_HEAD_DIMS``); both read q/k/v (and o, dO) straight
+from the ``(b, s, h·d)`` projection outputs, one head per block column, by
+stride. What bounds them on the H100 and how
 their design answers that is in the sources' header notes.
 
 ``flash_attention`` is the wrapper: ``FlashAttention`` (an autograd
@@ -33,7 +33,7 @@ from torch.autograd.function import once_differentiable
 from animate_anything_tpu_torch.ops import cuda_lib
 
 HEAD_DIMS = tuple(range(16, 257, 16))   # the forward kernel's
-BWD_HEAD_DIMS = (32, 64, 128)            # the backward kernels'
+BWD_HEAD_DIMS = HEAD_DIMS                # the backward kernels'
 LOG2E = 1.4426950408889634
 
 launches = 0      # forward kernel launches
@@ -73,14 +73,13 @@ def flash_attention_backward_reference(q, k, v, o, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def kernel_ok(q_shape, k_shape, needs_grad: bool = False) -> bool:
+def kernel_ok(q_shape, k_shape) -> bool:
     """Whether the kernels take attention of q (B, Sq, H, D) over k (B, Sk, H,
-    D): the forward's head sizes, and the backward's too when a gradient is
-    needed. (TMA's rule that a row of h·d bf16 values be a multiple of 16
-    bytes holds for every d % 16 == 0.)"""
+    D), with or without a gradient: the backward takes every head size the
+    forward does. (TMA's rule that a row of h·d bf16 values be a multiple of
+    16 bytes holds for every d % 16 == 0.)"""
     d = q_shape[-1]
-    return (d == k_shape[-1] and d in HEAD_DIMS
-            and (not needs_grad or d in BWD_HEAD_DIMS))
+    return d == k_shape[-1] and d in HEAD_DIMS
 
 
 def _check(q, k, v, head_dims=HEAD_DIMS):
@@ -127,10 +126,14 @@ def flash_attention_backward(q, k, v, o, do, lse=None):
     cuda_lib.check_cuda("flash_attention dO", do, torch.bfloat16, (b, sq, h, d))
     cuda_lib.check_cuda("flash_attention lse", lse, torch.float32, (b, h, sq))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    # lse2 and Δ = rowsum(dO ⊙ O) of each row, padded to 64 rows, and q/√d
+    # rounded to bf16: from the dq kernel to the dk/dv kernel
+    rows = torch.empty((b, h, 2, -(-sq // 64) * 64), device=q.device, dtype=torch.float32)
+    qhat = torch.empty_like(q)
     cuda_lib.call("aat_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d, 1.0 / math.sqrt(d))
+                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), rows.data_ptr(), qhat.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
+                  1.0 / math.sqrt(d))
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv
@@ -146,11 +149,7 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = attention_reference(q, k, v), None
         else:
-            with_lse = any(ctx.needs_input_grad)
-            if with_lse and q.shape[-1] not in BWD_HEAD_DIMS:
-                raise ValueError(f"flash_attention: no backward kernel for head dim "
-                                 f"{q.shape[-1]} (takes {BWD_HEAD_DIMS})")
-            o, lse = flash_forward_with_lse(q, k, v, with_lse=with_lse)
+            o, lse = flash_forward_with_lse(q, k, v, with_lse=any(ctx.needs_input_grad))
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 

@@ -9,11 +9,14 @@
    shapes (bf16 inputs; the plain version computes in fp32 on the same
    inputs) and times both with CUDA events, beside the card's bound for the
    same work and, where one PyTorch call computes the same function, that
-   call's time (never used by the port); the flash-attention forward at
-   every head size it takes (ragged sq != sk; achieved TFLOP/s beside
-   SDPA's) and the backward at one ragged d = 128 case too, and the backward
-   at the three training shapes; the gates that send the head sizes the
-   kernels do not take to SDPA or the einsum form; the channel sums, the streaming GroupNorm (+SiLU) and the
+   call's time (never used by the port); the flash-attention forward and
+   backward at every head size they take (ragged sq != sk; the forward's
+   achieved TFLOP/s beside SDPA's; the backward called twice and held bit
+   for bit) and the backward at the three training shapes; kernel 2 at its
+   five shapes beside the bf16 composite's time (LayerNorm, Linear, GELU·val,
+   Linear + x) and at JAX's test shapes; the gates that send the head sizes
+   the forward does not take to SDPA or the einsum form; the channel sums,
+   the streaming GroupNorm (+SiLU) and the
    fused GroupNorm-affine + SiLU -> 3x3 conv at the opt-in configuration's
    shapes; times one temporal transformer per width on its fused path
    (kernel 5 + kernel 2) against the composite path;
@@ -258,8 +261,8 @@ def _sdpa(q, k, v):
                                           v.transpose(1, 2))
 
 
-# Kernel 1 at every head size it takes besides the UNet's 64, each ragged:
-# sq and sk not multiples of the 128-row query tile or the key tile, sq ≠ sk.
+# Kernel 1 and its backward at every head size they take besides the UNet's
+# 64, each ragged: sq and sk not multiples of any tile, sq ≠ sk.
 FLASH_HEAD_DIMS = (16, 32, 48, 80, 96, 112, 128, 144, 160, 176, 192, 208, 224, 240, 256)
 
 
@@ -341,66 +344,117 @@ def _sdpa_backward(q, k, v, do):
         dos, qs, ks, vs, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset)
 
 
-def _flash_bwd_case(gen, b, s, h, d, tally) -> None:
+def _flash_bwd_case(gen, b, sq, sk, h, d, tally) -> None:
     from animate_anything_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(4))
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
     o, lse = fa.flash_forward_with_lse(q, k, v)
     got = fa.flash_attention_backward(q, k, v, o, do, lse)
+    # No atomics: a second call gives the same bits.
+    again = fa.flash_attention_backward(q, k, v, o, do, lse)
+    tag = f"b={b} sq={sq} sk={sk} h={h} d={d}"
+    for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(g, g2):
+            raise AssertionError(f"flash backward {name} {tag}: two calls differ")
     sl = slice(0, 2)
     want = fa.flash_attention_backward_reference(q[sl], k[sl], v[sl], o[sl], do[sl])
     err = 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        tag = f"flash backward {name} b={b} s={s} h={h} d={d}"
-        _assert_close(tag, g[sl], w, GRAD_ATOL_FRAC * float(w.float().abs().max()), GRAD_RTOL)
+        _assert_close(f"flash backward {name} {tag}", g[sl], w,
+                      GRAD_ATOL_FRAC * float(w.float().abs().max()), GRAD_RTOL)
         err = max(err, _err(g[sl], w))
     ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, lse))
     plain = cuda_ms(lambda: [fa.flash_attention_backward_reference(
         q[i:i + 2], k[i:i + 2], v[i:i + 2], o[i:i + 2], do[i:i + 2]) for i in range(0, b, 2)],
         warmup=1, iters=2)
     library = cuda_ms(_sdpa_backward(q, k, v, do), warmup=5, iters=20)
-    nbytes = 8 * b * s * h * d * 2 + b * h * s * 4   # q k v o dO in, dq dk dv out; lse
-    tally.add(f"flash backward b={b} s={s} h={h} d={d}", err, ms, plain,
-              10 * b * h * s * s * d, nbytes, library)
+    # q k v o dO in, dq dk dv out; lse
+    nbytes = (4 * sq + 4 * sk) * b * h * d * 2 + b * h * sq * 4
+    tally.add(f"flash backward {tag}", err, ms, plain, 10 * b * h * sq * sk * d, nbytes, library)
 
 
 def check_flash_backward(gen) -> dict:
     """The dq and dk/dv kernels at the three training sites (one sample: 16
-    frames + the condition frame) and one ragged case with odd heads at
-    d = 128; SDPA's backward as the library time."""
+    frames + the condition frame), one ragged case with odd heads at
+    d = 128 and every head size they take besides 64, ragged with sq != sk
+    (``_flash_backward``'s head sizes), each called twice and held bit for
+    bit; SDPA's backward as the library time."""
     tally = Tally("flash_attention_bwd", "animate_anything_tpu_torch/csrc/flash_attention_bwd.cu",
                   "animate_anything_tpu/ops/flash_attention.py:618")
     for s, h in FLASH_SITES:
-        _flash_bwd_case(gen, FRAMES + 1, s, h, 64, tally)
+        _flash_bwd_case(gen, FRAMES + 1, s, s, h, 64, tally)
         torch.cuda.empty_cache()
-    _flash_bwd_case(gen, 2, 1000, 3, 128, tally)
+    _flash_bwd_case(gen, 2, 1000, 1000, 3, 128, tally)
+    for d in FLASH_HEAD_DIMS:
+        _flash_bwd_case(gen, 2, 300 + 7 * d, 200 + 5 * d, 3, d, tally)
     return tally.row
 
 
+# Kernel 2 at the UNet's five temporal-transformer shapes (34 frames x
+# locations, c), then at the JAX package's test shapes (ragged n, small c).
+GEGLU_SHAPES = ((34 * 4096, 320), (34 * 4096, 512), (34 * 1024, 640), (34 * 256, 1280),
+                (34 * 64, 1280))
+GEGLU_TEST_SHAPES = ((40, 128), (24, 64), (272, 256), (300, 48))
+
+
+def _geglu_args(gen, n, c):
+    x = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
+    s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    w1 = _lecun(gen, 8 * c, c, fan_in=c)
+    b1 = 0.1 * torch.randn(8 * c, generator=gen, device="cuda")
+    w2 = _lecun(gen, c, 4 * c, fan_in=4 * c)
+    b2 = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x, s, b, w1, b1, w2, b2
+
+
+def _geglu_composite(x, s, b, w1, b1, w2, b2):
+    """The same function as PyTorch calls in bf16 (``F.layer_norm``, two
+    ``F.linear``, tanh GELU): the yardstick a redesign of kernel 2 has to
+    beat, timed only and never called by the port."""
+    c = x.shape[-1]
+    bf = torch.bfloat16
+    h = F.linear(F.layer_norm(x, (c,), s.to(bf), b.to(bf)), w1, b1.to(bf))
+    val, gate = h.chunk(2, dim=-1)
+    return x + F.linear(val * F.gelu(gate, approximate="tanh"), w2, b2.to(bf))
+
+
 def check_geglu(gen) -> dict:
+    """Kernel 2 (LN pass, GEGLU GEMM, residual GEMM) against its plain
+    version at the main path's five shapes, each beside the bf16 composite's
+    time (a reference line, ``composite_ms``), then at JAX's test shapes."""
     from animate_anything_tpu_torch.ops import geglu
 
     tally = Tally("ln_geglu_ff", "animate_anything_tpu_torch/csrc/geglu.cu",
                   "animate_anything_tpu/ops/geglu.py:116")
-    for n, c in ((34 * 4096, 320), (34 * 4096, 512), (34 * 1024, 640), (34 * 256, 1280),
-                 (34 * 64, 1280)):
-        x = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
-        s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        w1 = _lecun(gen, 8 * c, c, fan_in=c)
-        b1 = 0.1 * torch.randn(8 * c, generator=gen, device="cuda")
-        w2 = _lecun(gen, c, 4 * c, fan_in=4 * c)
-        b2 = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        got = geglu.ln_geglu_ff(x, s, b, w1, b1, w2, b2)
-        want = geglu.ln_geglu_reference(x, s, b, w1, b1, w2, b2, 1e-5)
+    composite_ms = 0.0
+    for n, c in GEGLU_SHAPES:
+        args = _geglu_args(gen, n, c)
+        got = geglu.ln_geglu_ff(*args)
+        want = geglu.ln_geglu_reference(*args, 1e-5)
         _assert_close(f"ln_geglu n={n} c={c}", got, want, Y_ATOL, Y_RTOL)
-        ms = cuda_ms(lambda: geglu.ln_geglu_ff(x, s, b, w1, b1, w2, b2))
-        plain = cuda_ms(lambda: geglu.ln_geglu_reference(x, s, b, w1, b1, w2, b2, 1e-5),
-                        warmup=1, iters=3)
+        ms = cuda_ms(lambda: geglu.ln_geglu_ff(*args))
+        plain = cuda_ms(lambda: geglu.ln_geglu_reference(*args, 1e-5), warmup=1, iters=3)
+        with torch.no_grad():
+            comp = cuda_ms(lambda: _geglu_composite(*args))
+        composite_ms += comp
+        log(f"    bf16 composite (LN, Linear, GELU·val, Linear + x; a reference line) "
+            f"{comp:.3f} ms")
         nbytes = 2 * n * c * 2 + 12 * c * c * 2 + (8 * c + 3 * c) * 4
         tally.add(f"ln_geglu_ff n={n} c={c}", _err(got, want), ms, plain,
                   24 * n * c * c, nbytes)
+        del args, got, want
+        torch.cuda.empty_cache()
+    for n, c in GEGLU_TEST_SHAPES:
+        args = _geglu_args(gen, n, c)
+        got = geglu.ln_geglu_ff(*args)
+        want = geglu.ln_geglu_reference(*args, 1e-5)
+        _assert_close(f"ln_geglu n={n} c={c}", got, want, Y_ATOL, Y_RTOL)
+        log(f"  ln_geglu_ff n={n} c={c}: max|err| {_err(got, want):.3g}")
+    tally.row["composite_ms"] = composite_ms
     return tally.row
 
 

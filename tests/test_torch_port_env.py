@@ -167,6 +167,18 @@ def test_flash_head_dims_match_the_kernel_instantiations():
     assert '#include "hopper.cuh"' in text and cuda_lib.CSRC / "hopper.cuh" in cuda_lib.sources()
 
 
+def test_flash_backward_head_dims_match_the_kernel_instantiations():
+    """The backward's gate admits exactly the head sizes its C entry point
+    instantiates: the forward's, every d % 16 == 0 from 16 to 256."""
+    from animate_anything_tpu_torch.ops import cuda_lib
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+
+    text = (cuda_lib.CSRC / "flash_attention_bwd.cu").read_text()
+    cases = tuple(int(d) for d in re.findall(r"AAT_FLASH_BWD_CASE\((\d+)\)", text))
+    assert cases == fa.BWD_HEAD_DIMS == fa.HEAD_DIMS
+    assert '#include "hopper.cuh"' in text and "mma.sync" not in text
+
+
 @pytest.mark.parametrize("source,replaces", [
     ("flash_attention.cu", "ops/flash_attention.py::_flash_forward"),
     ("geglu.cu", "ops/geglu.py::_pallas_ln_geglu"),

@@ -4,7 +4,7 @@ JAX side: ``jax.vjp`` through ``animate_anything_tpu.ops.flash_attention.
 flash_attention`` under ``pltpu.force_tpu_interpret_mode()``, so its custom
 VJP runs the Pallas dq and dk/dv kernels in interpret mode: the lanes
 kernels at d = 64 (``_flash_backward_lanes``), the folded-heads kernels at
-d = 32 and 128 (``_flash_backward``). Port side: the plain backward
+d = 16, 32, 96, 128 and 256 (``_flash_backward``). Port side: the plain backward
 ``flash_attention_backward_reference`` and the autograd Function
 ``FlashAttention`` (whose CPU backward is that plain version), on the same
 numpy inputs, in fp32.
@@ -31,6 +31,10 @@ CASES = {
     "folded-d32": (2, 128, 128, 2, 32),
     "folded-d128": (1, 256, 256, 2, 128),
     "sq-ne-sk": (1, 128, 320, 2, 64),
+    # head sizes the backward kernel took on beside 32/64/128
+    "folded-d16": (1, 128, 128, 2, 16),
+    "folded-d96-sq-ne-sk": (1, 200, 136, 1, 96),
+    "folded-d256": (1, 128, 128, 1, 256),
 }
 
 
