@@ -44,27 +44,46 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map over (cols, rows, batch) with row stride `cols`
-// elements: boxes of box_cols x box_rows x 1, swizzled by box_cols (64, 32 or
-// 16 columns, see above).  Rows past `rows` or columns past `cols` of a box
-// read as zeros, never the next batch's rows.  The base must be 16-byte
-// aligned and cols a multiple of 8 (TMA's stride rule).  Returns 0 on
-// success, else a CUresult.
-inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                       uint64_t batch, uint32_t box_cols, uint32_t box_rows) {
+// A bf16 tensor map of `rank` (2..5) dims over a contiguous tensor, dims[0]
+// the contiguous one, boxes of box[0..rank), swizzled by box[0] (64, 32 or
+// 16 columns, see above; any other width unswizzled).  Elements of a box
+// past a dim read as zeros on a load and are not written by a store.  The
+// base must be 16-byte aligned and dims[0] a multiple of 8 (TMA's stride
+// rule).  Returns 0 on success, else a CUresult.
+inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                    const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  const cuuint64_t dims[3] = {cols, rows, batch};
-  const cuuint64_t strides[2] = {cols * 2, cols * rows * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {box_cols, box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  if (rank < 2 || rank > 5) return CUDA_ERROR_INVALID_VALUE;
+  const CUtensorMapSwizzle swizzle = box[0] == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : box[0] == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                    : CU_TENSOR_MAP_SWIZZLE_NONE;
+  cuuint64_t d[5], strides[4];
+  cuuint32_t b[5], unit[5];
+  uint64_t stride = 2;  // bytes
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    unit[i] = 1;
+    if (i > 0) {
+      stride *= dims[i - 1];
+      strides[i - 1] = stride;
+    }
+  }
+  return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                             d, strides, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A 3-D map over (cols, rows, batch): boxes of box_cols x box_rows x 1, so
+// rows past `rows` of a box read as zeros, never the next batch's rows.
+inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                       uint64_t batch, uint32_t box_cols, uint32_t box_rows) {
+  const uint64_t dims[3] = {cols, rows, batch};
+  const uint32_t box[3] = {box_cols, box_rows, 1};
+  return make_map(map, base, 3, dims, box);
 }
 
 // A head's D columns as swizzle chunks: D / 64 chunks of 64 columns, then
@@ -178,6 +197,32 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// The 4-D forms of the two above.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// A box of a 4-D map into L2 only (no shared memory, no barrier), so that
+// later loads of it hit L2; issued by one thread.
+__device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map, int c0, int c1, int c2,
+                                                int c3) {
+  asm volatile("cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -198,6 +243,53 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// A ring of `stages` shared-memory stages of `bytes` each, filled by TMA and
+// drained by the consumer warpgroups, with a full and an empty mbarrier a
+// stage (8 bytes apart).  Step g of a block's stream of K steps lives in
+// stage g % stages; its phase parity is (g / stages) & 1.  `full` counts one
+// arrival (the producer's expect_tx) plus the TMA bytes, `empty` one arrival
+// per consumer thread.
+struct Ring {
+  uint32_t base, full, empty, bytes;
+  int stages;
+  __device__ __forceinline__ uint32_t stage(int g) const { return base + (g % stages) * bytes; }
+  __device__ __forceinline__ uint32_t full_bar(int g) const { return full + 8 * (g % stages); }
+  // Consumer: wait until step g's loads have landed.
+  __device__ __forceinline__ void wait_full(int g) const {
+    mbar_wait(full_bar(g), (g / stages) & 1);
+  }
+  // Producer: wait until the consumers released the stage's previous step,
+  // then arm its full barrier for `tx` bytes.
+  __device__ __forceinline__ uint32_t acquire(int g, uint32_t tx) const {
+    mbar_wait(empty + 8 * (g % stages), ((g / stages) & 1) ^ 1);
+    mbar_expect_tx(full_bar(g), tx);
+    return full_bar(g);
+  }
+  __device__ __forceinline__ void release(int g) const { mbar_arrive(empty + 8 * (g % stages)); }
+  // One thread, before the block's first barrier wait.
+  __device__ __forceinline__ void init(uint32_t consumers) const {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, consumers);
+    }
+  }
+};
+
+// Byte offset of (row, col) in a tile of 64-row column chunks (Chunks, a
+// HeadChunks; a single 64-column chunk may have any number of rows), in
+// TMA's swizzle (16-byte units XORed with the row's position in the
+// swizzle atom).
+template <typename Chunks>
+__device__ __forceinline__ uint32_t out_offset(int row, int col) {
+  const int i = col < 64 * Chunks::N64 ? col / 64 : col < 64 * Chunks::N64 + 32 * Chunks::H32
+                                                        ? Chunks::N64
+                                                        : Chunks::N64 + Chunks::H32;
+  const int rb = 2 * Chunks::width(i);
+  const uint32_t o = row * rb + (col - Chunks::col(i)) * 2;
+  const uint32_t atom_rows = rb == 128 ? 7 : rb == 64 ? 3 : 1;  // 128-, 64- or 32-byte swizzle
+  return Chunks::offset(i, 64) + (o ^ (((o >> 7) & atom_rows) << 4));
 }
 
 // ---- device: wgmma ------------------------------------------------------------
@@ -306,6 +398,16 @@ __device__ __forceinline__ void wgmma_ss<160>(float* d, uint64_t da, uint64_t db
       "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<192>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

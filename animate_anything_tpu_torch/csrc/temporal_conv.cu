@@ -1,6 +1,6 @@
 // Kernel 3: one TemporalConvLayer stage, GroupNorm-apply -> SiLU -> 3-tap
 // frame conv (+ residual), with a per-(batch, frame, channel) Σy / Σy²
-// epilogue of the stored output.
+// epilogue of the stored output, on TMA and wgmma.
 //
 // Replaces animate_anything_tpu/ops/temporal_conv.py::_pallas_stage
 // (_kernel).  Per output row (b, f, s):
@@ -9,127 +9,420 @@
 // folded into the per-(batch, channel) affine (a, b) by group_affine.
 //
 // Bound on the H100: tensor-core math (6·cin·cout flops per row against
-// (cin + cout)·2 bytes).  Design: the three taps are one GEMM with K = 3·cin
-// over the weight repacked as (cout, 3, cin); each 64-row tile stays inside
-// one (batch, frame) slab of s rows, and its A operand is produced on the
-// way into shared memory: the normalise + SiLU is applied to the x rows of
-// frame f + t - 1 (or zeros past the ends), so the activation never exists
-// in device memory.  The TPU kernel accumulated the sums across a sequential
-// grid axis; here tiles finish in no order, so the epilogue adds each tile's
-// column sums into zeroed fp32 buffers with atomics.  The TPU's c <= 640
-// gate was a VMEM limit: this kernel runs at every width on one path.
-//
-// Block: 128 threads, 64 x 64 output tile; grid (ceil(s/64), b·f, ceil(cout/64)).
-#include "common.cuh"
+// (cin + cout)·2 bytes; 0.087 ms at the UNet's large sites).  Design: the
+// three taps are one GEMM with K = 3·cin over the weight packed as (cout,
+// 3·cin), K-major, on the skeleton of kernel 2's persistent TMA + wgmma
+// GEMM (gemm.cuh): a ring of 64-column K stages on full/empty mbarriers
+// (hopper.cuh's Ring), two consumer warpgroups of 64 rows, the persistent
+// tile walk with the column tile fastest:
+// - M is 64-row sub-tiles of one (batch, frame) slab; a 128-row block tile
+//   is two consecutive sub-tiles, one a consumer warpgroup, so s = 64 (the
+//   c = 1280 site) fills whole tiles with two slabs.  Each warpgroup's A
+//   box is raw x of its tap frame, TMA-loaded over a 4-D map (cin, s, f,
+//   b), so rows past s read as zeros and no box reaches another slab;
+// - the affine + SiLU is applied on chip: each consumer warpgroup rewrites
+//   its 64 A rows of the stage in place (fp32 affine, the tanh-identity
+//   SiLU 0.5·z·(1 + tanh(z/2)) of the TPU kernel, bf16), then
+//   fence.proxy.async makes them visible to wgmma; the activation never
+//   exists in device memory.  With tanh(z/2) = 1 − 2/(1 + e^z) it is
+//   z − z/(1 + e^z): one ex2, one reciprocal and one FMA after the affine,
+//   where tanhf took some twenty instructions (the activation, redone for
+//   each column tile, bounded the first version more than the tensor
+//   cores did).  A thread's four 16-byte units of a stage all hold the
+//   same 8 channels (the 128-byte swizzle XORs the unit with the row's low
+//   3 bits, and the thread's rows are 16 apart), so it reads its (a, b)
+//   once a step;
+// - a tap whose frame lies past the ends is JAX's zero frame: its A rows
+//   are written as zeros, and where neither sub-tile of a tile needs the
+//   tap (every tile with s >= 128) its K steps are skipped, no load and no
+//   product;
+// - a tile is BN = NACC x NB output columns: one m64nNBk16 wgmma a k16
+//   step for each of NACC = 2 accumulators, all over the same A rows.
+//   BN = 320 (two accumulators of 160), so each A element is activated
+//   once (c = 320) or twice (c = 640) where 160-column tiles did it twice
+//   and four times, and the L2 bytes a flop drop with it; where 320-column
+//   tiles number fewer than the SMs the plan takes BN = 256 (s = 64, c =
+//   1280: 68 tiles of 320 would leave half the SMs idle).  A narrower cout
+//   runs in the same tiles: TMA zero-fills the weight rows past cout, and
+//   those columns are neither stored nor summed.  B is the packed weight's
+//   BN x 64 box (one TMA box for each accumulator), shared by both
+//   warpgroups;
+// - no producer warp: the accumulators (160 registers at BN = 320) need
+//   the 255 a thread of a 256-thread block has, so the first thread issues
+//   the loads, refilling each stage as it is released (kernel 2's BN = 256
+//   form).  Refilling without waiting for the other warpgroup (issuing a
+//   stage's step only once it was free) was slower: the loads went out
+//   later;
+// - the epilogue, one accumulator at a time: y = acc + bias (+ the
+//   residual, prefetched into L2 by TMA at the tile's start and read from
+//   there) in fp32, rounded to bf16 into the warpgroup's 64 x NB output
+//   tile in TMA's swizzle and stored with one TMA store; then each thread
+//   sums two columns of the stored tile over the slab's rows and adds Σy,
+//   Σy² with one fp32 atomic per column and warpgroup into buffers the
+//   wrapper zeroed (tiles finish in no order; the TPU kernel accumulated
+//   across a sequential grid axis).  Writing y and the sums straight from
+//   registers (16-byte pieces, an atomic per column and warp) took half
+//   the time of a tile's mainloop again.
+// Tiles, ring depth, grid and shared-memory bytes come from the wrapper's
+// launch plan (ops/temporal_conv.py::launch_plan), checked here.  The TPU's
+// c <= 640 gate was a VMEM limit: this kernel runs at every width.
+#include "gemm.cuh"
 
 namespace aat {
 namespace {
 
-constexpr int TM = 64, TN = 64, TK = 32, LD = TK + 8, CLD = TN + 4;
-constexpr int THREADS = 128;
+using namespace hopper;
+using gemm::CONSUMERS;
 
-using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+constexpr int SUB = 64;                // rows of a sub-tile (one warpgroup's)
+constexpr int NACC = 2;                // accumulators a tile, NB columns each
+constexpr int HALF_BYTES = SUB * 128;  // its A rows of a 64-column K step
 
-// C = A·Bᵀ for one 64x64 tile: four warps own 32x32 quadrants (WMMA, bf16 in,
-// fp32 accumulate).  A is produced k-tile by k-tile by the caller's loader
-// into shared memory; B is the (N, K) row-major weight, read as a
-// column-major K x N operand.  K must be a multiple of 8.
-template <typename ALoad>
-__device__ __forceinline__ void gemm(const ALoad& aload, const bf16* __restrict__ w,
-                                     int N, int K, int n0, bf16* As, bf16* Bs,
-                                     Acc (&acc)[2][2]) {
-  using namespace nvcuda;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// A tile of BN = NACC·NB output columns: the ring of 64-column K stages (A:
+// two 64-row sub-tiles, B: BN weight rows), each consumer warpgroup's 64 x
+// NB output tile (one accumulator's columns, as 64- and 32-column chunks in
+// the TMA swizzle), then the full and empty barriers.
+template <int NB>
+struct TapLayout {
+  static constexpr int BN = NB * NACC;
+  using Chunks = HeadChunks<NB>;
+  static constexpr int A_BYTES = 2 * HALF_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * 128;
+  static constexpr int OUT_BYTES = SUB * NB * 2;
+  static constexpr int smem(int stages) {
+    return 1024 + stages * (STAGE_BYTES + 16) + 2 * OUT_BYTES;
+  }
+  static_assert(NB % 32 == 0, "output chunks of 64 and 32 columns");
+};
 
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    aload(As, k0);
-    for (int idx = tid; idx < TN * TK / 8; idx += THREADS) {
-      const int r = idx / (TK / 8), cc = idx % (TK / 8);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < N && k0 + cc * 8 < K)
-        v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + cc * 8);
-      *reinterpret_cast<uint4*>(Bs + r * LD + cc * 8) = v;
+// SiLU in the tanh identity 0.5·z·(1 + tanh(z/2)) with tanh(z/2) = 1 −
+// 2/(1 + e^z), which is z − z/(1 + e^z): e^z and the reciprocal on the
+// special-function unit, then one FMA.  Large z: e^z = +inf, its reciprocal
+// 0, y = z.  Below z = −17, 1 + e^z rounds to 1 and y to 0, where the
+// exact z·e^z is under 1e-6 in magnitude (as 1 + tanh(z/2) loses it in the
+// TPU kernel's form).
+__device__ __forceinline__ float silu_tanh(float z) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + exp2_ftz(z * gemm::kLog2e)));
+  return fmaf(-z, r, z);
+}
+
+struct TapParams {
+  CUtensorMap x;       // 4-D (cin, s, f, bsz) bf16, box 64 x 64 x 1 x 1
+  CUtensorMap w;       // (3·cin cols, cout rows) bf16, box 64 x NB
+  CUtensorMap out[2];  // 4-D (cout, s, f, bsz) bf16, boxes 64 and 32 columns x 64 rows
+  CUtensorMap res;     // the residual, as out[0] (L2 prefetch only)
+  const bf16* r;       // the residual (bsz, f, s, cout) or null
+  const float* a;      // (bsz, cin) fp32
+  const float* sh;     // (bsz, cin) fp32
+  const float* bias;   // (cout,) fp32
+  float* s1;           // (bsz, f, cout) fp32, zeroed
+  float* s2;
+  int f, s, cin, cout;
+  int subs_per_slab, subs;  // 64-row sub-tiles a (batch, frame) slab; in all
+  int col_tiles, tiles, nkc, stages;
+};
+
+// One warpgroup's sub-tile of a block tile.
+struct Half {
+  bool on;  // the sub-tile exists (the last tile of an odd count has one)
+  int slab, bi, fi, s0;
+};
+
+__device__ __forceinline__ Half half_of(const TapParams& p, int tile, int h) {
+  const int sub = 2 * (tile / p.col_tiles) + h;
+  Half r;
+  r.on = sub < p.subs;
+  r.slab = r.on ? sub / p.subs_per_slab : 0;
+  r.bi = r.slab / p.f;
+  r.fi = r.slab % p.f;
+  r.s0 = (sub % p.subs_per_slab) * SUB;
+  return r;
+}
+
+// The sub-tile reads frame fi + tap − 1 for this tap.
+__device__ __forceinline__ bool tap_on(const TapParams& p, const Half& h, int tap) {
+  const int fr = h.fi + tap - 1;
+  return h.on && fr >= 0 && fr < p.f;
+}
+
+// The producer's walk over this block's K steps: tiles blockIdx.x,
+// + gridDim.x, ...; in each the taps either sub-tile needs; in each tap the
+// nkc 64-column steps of cin.  The consumers walk the same steps in loops.
+struct TapCursor {
+  int tile, tap, kb;
+  Half h0, h1;
+
+  __device__ __forceinline__ bool valid(const TapParams& p) const { return tile < p.tiles; }
+  __device__ __forceinline__ bool live(const TapParams& p) const {
+    return tap_on(p, h0, tap) || tap_on(p, h1, tap);
+  }
+  __device__ __forceinline__ void next_tap(const TapParams& p) {
+    if (++tap < 3) return;
+    tap = 0;
+    tile += gridDim.x;
+    if (valid(p)) {
+      h0 = half_of(p, tile, 0);
+      h1 = half_of(p, tile, 1);
     }
-    __syncthreads();
+  }
+  __device__ __forceinline__ void settle(const TapParams& p) {
+    while (valid(p) && !live(p)) next_tap(p);
+  }
+  __device__ __forceinline__ void start(const TapParams& p) {
+    tile = blockIdx.x - gridDim.x;
+    tap = 2;
+    kb = 0;
+    next_tap(p);
+    settle(p);
+  }
+  __device__ __forceinline__ void advance(const TapParams& p) {
+    if (++kb < p.nkc) return;
+    kb = 0;
+    next_tap(p);
+    settle(p);
+  }
+};
+
+// Step g (the cursor's) into its stage: each sub-tile's A box where its
+// tap frame exists, and the B box (one thread).
+template <int NB>
+__device__ __forceinline__ void tap_load_step(const TapParams& p, const Ring& ring,
+                                              const TapCursor& c, int g) {
+  using L = TapLayout<NB>;
+  const bool on0 = tap_on(p, c.h0, c.tap), on1 = tap_on(p, c.h1, c.tap);
+  const uint32_t tx = (on0 + on1) * HALF_BYTES + L::BN * 128;
+  const uint32_t st = ring.stage(g), bar = ring.acquire(g, tx);
+  const int k0 = c.kb * 64;
+  if (on0) tma_load_4d(st, &p.x, bar, k0, c.h0.s0, c.h0.fi + c.tap - 1, c.h0.bi);
+  if (on1) tma_load_4d(st + HALF_BYTES, &p.x, bar, k0, c.h1.s0, c.h1.fi + c.tap - 1, c.h1.bi);
 #pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
+  for (int a = 0; a < NACC; ++a)
+    tma_load_3d(st + L::A_BYTES + a * NB * 128, &p.w, bar, c.tap * p.cin + k0,
+                (c.tile % p.col_tiles) * L::BN + a * NB, 0);
+}
+
+// The warpgroup's 64 A rows of a stage, in place: SiLU(a·x + b) in bf16 for
+// channels < cin of a live tap frame, else zeros.  Thread lt owns the
+// 16-byte units lt, lt + 128, lt + 256, lt + 384 (rows lt/8 + 16i), all of
+// channels ch .. ch + 7.
+__device__ __forceinline__ void activate(uint4* half, const float* __restrict__ ab,
+                                         const float* __restrict__ bb, int ch, bool on, int cin,
+                                         int lt) {
+  if (!on || ch >= cin) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm + i * 16) * LD + kk, LD);
+    for (int i = 0; i < 4; ++i) half[lt + 128 * i] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  float av[8], bv[8];
+  *reinterpret_cast<float4*>(av) = *reinterpret_cast<const float4*>(ab + ch);
+  *reinterpret_cast<float4*>(av + 4) = *reinterpret_cast<const float4*>(ab + ch + 4);
+  *reinterpret_cast<float4*>(bv) = *reinterpret_cast<const float4*>(bb + ch);
+  *reinterpret_cast<float4*>(bv + 4) = *reinterpret_cast<const float4*>(bb + ch + 4);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs + (wn + j * 16) * LD + kk, LD);
+  for (int i = 0; i < 4; ++i) {
+    uint4 raw = half[lt + 128 * i];
+    uint32_t* u = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(u + e));
+      const float z0 = fmaf(xv.x, av[2 * e], bv[2 * e]);
+      const float z1 = fmaf(xv.y, av[2 * e + 1], bv[2 * e + 1]);
+      u[e] = pack_bf16(silu_tanh(z0), silu_tanh(z1));
     }
-    __syncthreads();
+    half[lt + 128 * i] = raw;
   }
 }
 
-// Park the accumulators in a (TM, CLD) fp32 shared tile for the epilogue.
-__device__ __forceinline__ void store(float* Cs, Acc (&acc)[2][2]) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+// One accumulator's NB columns from n0 of the warpgroup's tile: y = acc +
+// bias (+ residual, read from L2) in fp32, rounded to bf16 into the output
+// tile `out` (shared), stored with one TMA store per chunk (rows past s are
+// not written); then Σy, Σy² of the stored values over the sub-tile's
+// `rows` rows, two columns a thread, one fp32 atomic each into the slab's
+// sums.  The caller has made `out` free (the last store has read it).
+template <int NB>
+__device__ __forceinline__ void tap_epilogue(const TapParams& p, const float* acc, uint8_t* out,
+                                             uint32_t out_s, int n0, const Half& me,
+                                             const size_t* row_off, int r0, int lt) {
+  using Chunks = typename TapLayout<NB>::Chunks;
+  const int t = lt & 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int jj = 0; jj < NB / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (n0 + col >= p.cout) continue;
+    const float2 bv = *reinterpret_cast<const float2*>(p.bias + n0 + col);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * CLD + wn + j * 16, acc[i][j], CLD,
-                              wmma::mem_row_major);
-  __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * jj + 2 * h] + bv.x, v1 = acc[4 * jj + 2 * h + 1] + bv.y;
+      if (p.r != nullptr && me.s0 + r0 + 8 * h < p.s) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(p.r + row_off[h] + n0 + col));
+        v0 += x.x;
+        v1 += x.y;
+      }
+      *reinterpret_cast<uint32_t*>(out + out_offset<Chunks>(r0 + 8 * h, col)) =
+          pack_bf16(v0, v1);
+    }
+  }
+  fence_proxy_async();
+  named_bar_sync(1 + (threadIdx.x >= 128), 128);
+  if (lt == 0) {
+#pragma unroll
+    for (int i = 0; i < Chunks::COUNT; ++i)
+      if (n0 + Chunks::col(i) < p.cout)
+        tma_store_4d(&p.out[Chunks::kind(i)], out_s + Chunks::offset(i, SUB),
+                     n0 + Chunks::col(i), me.s0, me.fi, me.bi);
+    bulk_commit();
+  }
+  const int rows = min(SUB, p.s - me.s0), col = 2 * lt;
+  if (col < NB && n0 + col < p.cout) {
+    float a0 = 0.f, a1 = 0.f, q0 = 0.f, q1 = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(out + out_offset<Chunks>(r, col)));
+      a0 += v.x;
+      a1 += v.y;
+      q0 = fmaf(v.x, v.x, q0);
+      q1 = fmaf(v.y, v.y, q1);
+    }
+    const size_t o = (size_t)me.slab * p.cout + n0 + col;
+    atomicAdd(p.s1 + o, a0);
+    atomicAdd(p.s1 + o + 1, a1);
+    atomicAdd(p.s2 + o, q0);
+    atomicAdd(p.s2 + o + 1, q1);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-tap_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                const float* __restrict__ sh, const bf16* __restrict__ w,
-                const float* __restrict__ bias, const bf16* __restrict__ res,
-                bf16* __restrict__ y, float* __restrict__ s1, float* __restrict__ s2, int f,
-                int s, int cin, int cout) {
-  __shared__ __align__(128) bf16 As[TM * LD];
-  __shared__ __align__(128) bf16 Bs[TN * LD];
-  __shared__ __align__(128) float Cs[TM * CLD];
+template <int NB>
+__global__ void __launch_bounds__(CONSUMERS, 1)
+tap_conv_kernel(const __grid_constant__ TapParams p) {
+  using L = TapLayout<NB>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const int stages = p.stages;
+  const uint32_t outs = base + stages * L::STAGE_BYTES;  // two output tiles
+  const uint32_t full = outs + 2 * L::OUT_BYTES, empty = full + 8 * stages;
+  const Ring ring{base, full, empty, static_cast<uint32_t>(L::STAGE_BYTES), stages};
+  const int tid = threadIdx.x;
 
-  const int slab = blockIdx.y, bi = slab / f, fi = slab % f;
-  const int s0 = blockIdx.x * TM, n0 = blockIdx.z * TN;
-  const float* ab = a + (size_t)bi * cin;
-  const float* bb = sh + (size_t)bi * cin;
+  if (tid == 0) {
+    ring.init(CONSUMERS);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  auto aload = [&](bf16* dst, int k0) {
-    const int tap = k0 / cin, i0 = k0 - tap * cin;  // a K tile never straddles taps
-    const int frame = fi + tap - 1;
-    const bool live = frame >= 0 && frame < f;
-    const bf16* src = live ? x + ((size_t)bi * f + frame) * s * cin : x;
-    for (int idx = threadIdx.x; idx < TM * TK / 8; idx += THREADS) {
-      const int r = idx / (TK / 8), cc = idx % (TK / 8);
-      uint4 out = make_uint4(0u, 0u, 0u, 0u);
-      if (live && s0 + r < s) {
-        const int ch = i0 + cc * 8;
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(s0 + r) * cin + ch);
-        const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-        bf16* ov = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float z = bf2f(xv[e]) * ab[ch + e] + bb[ch + e];
-          ov[e] = f2bf(0.5f * z * (1.f + tanhf(0.5f * z)));  // SiLU, tanh identity
-        }
-      }
-      *reinterpret_cast<uint4*>(dst + r * LD + cc * 8) = out;
+  // Thread 0 loads too: the first `stages` steps, then at each release the
+  // step `stages` later into the released stage.
+  TapCursor cur;
+  if (tid == 0) {
+    cur.start(p);
+    for (int g = 0; g < stages && cur.valid(p); ++g, cur.advance(p))
+      tap_load_step<NB>(p, ring, cur, g);
+  }
+  __syncwarp();
+  auto release = [&](int g) {
+    ring.release(g);
+    if (tid == 0 && cur.valid(p)) {
+      tap_load_step<NB>(p, ring, cur, g + stages);
+      cur.advance(p);
     }
+    __syncwarp();  // warp 0 reconverges before the next .aligned wgmma
   };
 
-  Acc acc[2][2];
-  gemm(aload, w, cout, 3 * cin, n0, As, Bs, acc);
-  store(Cs, acc);
-  bias_residual_stats<TM, TN, THREADS, CLD>(Cs, bias, res, y, s1, s2, slab * s + s0,
-                                            (slab + 1) * s, s, n0, cout);
+  // ---- consumers: warpgroup wg owns sub-tile wg of each tile -------------
+  const int wg = tid / 128, lt = tid % 128;
+  const int r0 = (lt / 32) * 16 + (lt & 31) / 4;  // the thread's first row of the 64
+  const int unit = (lt & 7) ^ ((lt >> 3) & 7);    // the 8-channel unit of its A chunks
+  const uint32_t out = outs + wg * L::OUT_BYTES;
+  uint8_t* out_ptr = smem_raw + (out - raw);
+  float acc[NACC][NB / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const Half h0 = half_of(p, tile, 0), h1 = half_of(p, tile, 1);
+    const Half me = wg ? h1 : h0;
+    const int n0 = (tile % p.col_tiles) * L::BN;
+    if (p.r != nullptr && me.on && lt == 0)  // the residual tile into L2 for the epilogue
+      for (int c0 = n0; c0 < n0 + L::BN && c0 < p.cout; c0 += 64)
+        tma_prefetch_4d(&p.res, c0, me.s0, me.fi, me.bi);
+    const float* ab = p.a + (size_t)me.bi * p.cin;
+    const float* bb = p.sh + (size_t)me.bi * p.cin;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int x = 0; x < NB / 2; ++x) acc[a][x] = 0.f;  // the last tile's values are dead
+    bool first = true;
+    for (int tap = 0; tap < 3; ++tap) {
+      if (!tap_on(p, h0, tap) && !tap_on(p, h1, tap)) continue;  // skipped: no load, no product
+      const bool on = tap_on(p, me, tap);
+      for (int kb = 0; kb < p.nkc; ++kb, ++it) {
+        const uint32_t st = ring.stage(it);
+        ring.wait_full(it);
+        activate(reinterpret_cast<uint4*>(smem_raw + (st - raw) + wg * HALF_BYTES), ab, bb,
+                 kb * 64 + 8 * unit, on, p.cin, lt);
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);  // the warpgroup's 64 rows are written
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) fence_all<NB / 2>(acc[a]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int a = 0; a < NACC; ++a)
+            wgmma_ss<NB>(acc[a], desc_k_major(st + wg * HALF_BYTES + 32 * kk, 128),
+                         desc_k_major(st + L::A_BYTES + a * NB * 128 + 32 * kk, 128),
+                         !first || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step is done: release its stage
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) fence_all<NB / 2>(acc[a]);
+        if (!first) release(it - 1);
+        first = false;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) fence_all<NB / 2>(acc[a]);
+    release(it - 1);
+
+    if (me.on) {
+      size_t row_off[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        row_off[h] = ((size_t)me.slab * p.s + me.s0 + r0 + 8 * h) * p.cout;
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) {
+        if (lt == 0) bulk_wait_read();  // the last store has read the output tile
+        named_bar_sync(1 + wg, 128);    // ... and the last sums too
+        tap_epilogue<NB>(p, acc[a], out_ptr, out, n0 + a * NB, me, row_off, r0, lt);
+      }
+    }
+  }
+  if (lt == 0) bulk_wait();
+}
+
+template <int NB>
+int launch(TapParams& p, const void* x, const void* w, const void* y, const void* res, int bsz,
+           int grid, int smem, cudaStream_t stream) {
+  using L = TapLayout<NB>;
+  if (p.stages < 2 || smem < L::smem(p.stages) || smem > gemm::SMEM_LIMIT || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t xdims[4] = {(uint64_t)p.cin, (uint64_t)p.s, (uint64_t)p.f, (uint64_t)bsz};
+  const uint64_t ydims[4] = {(uint64_t)p.cout, (uint64_t)p.s, (uint64_t)p.f, (uint64_t)bsz};
+  const uint32_t box[4] = {64, SUB, 1, 1};
+  int err = make_map(&p.x, x, 4, xdims, box);
+  if (!err) err = make_map_3d(&p.w, w, 3 * p.cin, p.cout, 1, 64, NB);
+  for (int kind = 0; kind < 2 && !err; ++kind) {
+    const uint32_t obox[4] = {64u >> kind, SUB, 1, 1};
+    err = make_map(&p.out[kind], y, 4, ydims, obox);
+  }
+  if (!err && res != nullptr) err = make_map(&p.res, res, 4, ydims, box);
+  if (err) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(tap_conv_kernel<NB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tap_conv_kernel<NB><<<grid, CONSUMERS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -137,16 +430,39 @@ tap_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
 
 // x: (bsz, f, s, cin) bf16; a, sh: (bsz, cin) fp32; w: (cout, 3, cin) bf16;
 // bias: (cout,) fp32; res: (bsz, f, s, cout) bf16 or null; y: (bsz, f, s, cout)
-// bf16; s1, s2: (bsz, f, cout) fp32, zeroed by the caller.  cin % 32 == 0.
+// bf16; s1, s2: (bsz, f, cout) fp32, zeroed by the caller.  cin % 32 == 0,
+// cout % 8 == 0, all 16-byte aligned.  The launch plan
+// (ops/temporal_conv.py::launch_plan): tile width bn (320 = 2 x 160 or 256 =
+// 2 x 128 output columns), ring stages, persistent grid and dynamic shared
+// bytes.
 AAT_EXPORT int aat_tap_conv(const void* x, const void* a, const void* sh, const void* w,
                             const void* bias, const void* res, void* y, void* s1, void* s2,
-                            int bsz, int f, int s, int cin, int cout, void* stream) {
+                            int bsz, int f, int s, int cin, int cout, int bn, int stages, int grid,
+                            int smem, void* stream) {
   using namespace aat;
-  if (cin % TK != 0 || cout % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((s + TM - 1) / TM, bsz * f, (cout + TN - 1) / TN);
-  tap_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(sh),
-      static_cast<const bf16*>(w), static_cast<const float*>(bias), static_cast<const bf16*>(res),
-      static_cast<bf16*>(y), static_cast<float*>(s1), static_cast<float*>(s2), f, s, cin, cout);
-  return static_cast<int>(cudaGetLastError());
+  if (bsz < 1 || f < 1 || s < 1 || cin % 32 != 0 || cin < 32 || cout % 8 != 0 || cout < 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TapParams p = {};
+  p.r = static_cast<const bf16*>(res);
+  p.a = static_cast<const float*>(a);
+  p.sh = static_cast<const float*>(sh);
+  p.bias = static_cast<const float*>(bias);
+  p.s1 = static_cast<float*>(s1);
+  p.s2 = static_cast<float*>(s2);
+  p.f = f;
+  p.s = s;
+  p.cin = cin;
+  p.cout = cout;
+  p.subs_per_slab = (s + SUB - 1) / SUB;
+  p.subs = bsz * f * p.subs_per_slab;
+  p.col_tiles = (cout + bn - 1) / bn;
+  p.tiles = (p.subs + 1) / 2 * p.col_tiles;
+  p.nkc = (cin + 63) / 64;
+  p.stages = stages;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 320: return launch<160>(p, x, w, y, res, bsz, grid, smem, st);
+    case 256: return launch<128>(p, x, w, y, res, bsz, grid, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -35,13 +35,14 @@ _SIGNATURES = {
     # bn2, stages2, grid2, smem2, gate_row0, stream
     "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
-    # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, stream
-    "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, bn, stages, grid, smem, stream
+    "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # h, w, bias, res, y, s1, s2, n, s, k, c, stream
     "aat_proj_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, ln_s, ln_b, wq, wk, wv, wo, bo, o, y, b, f, s, c, heads, eps, scale, stream
-    "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                           _P],
+    # x, ln_s, ln_b, wq, wk, wv, wo, bo, ln, o, y, b, f, s, c, heads, eps, L, stages, grid,
+    # smem, bn_out, stages_out, grid_out, smem_out, stream
+    "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, work, s1, s2, n, s, c, chunks, stream
     "aat_channel_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, r, y, work, s1, s2, n, s, c, chunks, stream

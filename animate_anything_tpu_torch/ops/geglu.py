@@ -50,6 +50,26 @@ def _stages(bn: int, out: int) -> int:
     return min(MAX_STAGES, fit)
 
 
+def _out_bn(n_out: int) -> int:
+    """The residual GEMM's tile width: the widest that wastes the fewest
+    output columns."""
+    return min(OUT_BN, key=lambda bn: (-(-n_out // bn) * bn, -bn))
+
+
+def gemm_plan(m: int, n_out: int, k: int, sms: int = 132) -> dict:
+    """The residual GEMM ``y (m, n_out) = a (m, k)·wᵀ + bias + res``
+    (``gemm.cuh::gemm_bias_residual``, kernel 2's GEMM 2, which kernel 5's
+    out-projection shares): tile width, ring depth, persistent grid and
+    shared-memory bytes on a card of ``sms`` SMs."""
+    if m < 1 or n_out < 8 or n_out % 8 or k < 8 or k % 8:
+        raise ValueError(f"gemm: m={m} ≥ 1, n={n_out} and k={k} multiples of 8 needed")
+    bn = _out_bn(n_out)
+    tiles = -(-m // GEMM_BM) * -(-n_out // bn)
+    stages = _stages(bn, bn)
+    return dict(bn=bn, stages=stages, grid=min(tiles, sms), smem=_gemm_smem(bn, stages, bn),
+                tiles=tiles)
+
+
 def launch_plan(n: int, c: int, sms: int = 132) -> dict:
     """The kernels' tiles for (n, c) rows on a card of ``sms`` SMs, without
     the card: GEMM 1 (``bn1`` accumulator columns, ``bn1 / 2`` of act a
@@ -62,15 +82,13 @@ def launch_plan(n: int, c: int, sms: int = 132) -> dict:
     inner = 4 * c
     row_tiles = -(-n // GEMM_BM)
     bn1 = next(bn for bn in GEGLU_BN if inner % (bn // 2) == 0)
-    # the widest tile that wastes the fewest columns of c
-    bn2 = min(OUT_BN, key=lambda bn: (-(-c // bn) * bn, -bn))
     tiles1 = row_tiles * inner // (bn1 // 2)
-    tiles2 = row_tiles * -(-c // bn2)
-    st1, st2 = _stages(bn1, bn1 // 2), _stages(bn2, bn2)
+    st1 = _stages(bn1, bn1 // 2)
+    g2 = gemm_plan(n, c, inner, sms)
     return dict(bn1=bn1, stages1=st1, grid1=min(tiles1, sms),
                 smem1=_gemm_smem(bn1, st1, bn1 // 2),
-                bn2=bn2, stages2=st2, grid2=min(tiles2, sms), smem2=_gemm_smem(bn2, st2, bn2),
-                gate_row0=inner, tiles1=tiles1, tiles2=tiles2)
+                bn2=g2["bn"], stages2=g2["stages"], grid2=g2["grid"], smem2=g2["smem"],
+                gate_row0=inner, tiles1=tiles1, tiles2=g2["tiles"])
 
 
 def ln_geglu_reference(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:

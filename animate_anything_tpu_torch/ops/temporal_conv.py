@@ -1,11 +1,14 @@
 """Kernel 3: GroupNorm-apply → SiLU → 3-tap frame conv (+ residual) with a
-per-(batch, frame, channel) stats epilogue (``csrc/temporal_conv.cu``).
+per-(batch, frame, channel) stats epilogue (``csrc/temporal_conv.cu``), a
+persistent TMA + wgmma GEMM with K = 3·cin over the packed taps.
 
 Replaces ``animate_anything_tpu/ops/temporal_conv.py::_pallas_stage``. The
 GroupNorm statistics fold stays plain torch through ``group_affine``, as in
 JAX; the kernel takes the folded (a, b). Unlike the TPU path (gated to
 c ≤ 640 by VMEM) the kernel runs at every width, and it always emits the
-stats of its stored output. Design note in the source header.
+stats of its stored output. Design note in the source header;
+``launch_plan`` picks the tiles, ring depth, grid and shared memory, on any
+machine.
 
 Gradients: ``ops/autograd.Recompute`` differentiates ``tap_conv_twin`` (JAX's
 ``_reference_stage_stats``, the custom_vjp's remat target) with all three
@@ -18,13 +21,47 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops import cuda_lib, geglu
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.group_norm import group_affine
 
-K_TILE = 32  # the kernel's K tile: cin must be a multiple so no tile straddles taps
+CIN_MULTIPLE = 32   # the kernel's reach: cin % 32 == 0, cout % 8 == 0
+SUB_ROWS = 64       # a sub-tile: 64 rows of one (batch, frame) slab, one warpgroup's
+TILE_WIDTHS = (320, 256)  # output columns a tile: 2 accumulators of 160 or 128
+MAX_STAGES = 4
+SMEM_LIMIT = geglu.SMEM_LIMIT
 
 launches = 0  # kernel launches by tap_conv
+
+
+# Output columns a tile → those of one accumulator (``TapLayout``'s NB).
+_ACC_WIDTH = {320: 160, 256: 128}
+
+
+def _smem(bn: int, stages: int) -> int:
+    """Dynamic shared bytes of a block (``TapLayout::smem`` in the source):
+    1024 for the swizzle alignment, per stage the two 64-row A sub-tiles
+    (128 x 64 bf16), the bn x 64 bf16 B tile and two mbarriers, then the two
+    warpgroups' 64-row output tiles of one accumulator's columns."""
+    return 1024 + stages * (128 * 64 * 2 + bn * 64 * 2 + 16) + 2 * 64 * _ACC_WIDTH[bn] * 2
+
+
+def launch_plan(bsz: int, f: int, s: int, cin: int, cout: int, sms: int = 132) -> dict:
+    """The kernel's tiles for one stage on a card of ``sms`` SMs, without
+    the card: ``bn`` output columns a tile (320, or 256 where 320-column
+    tiles would leave SMs idle: the UNet's s = 64 site), 64-row sub-tiles
+    of each (batch, frame) slab paired into 128-row tiles, the ring depth
+    (as many stages as fit, at most 4), the persistent grid and the
+    shared-memory bytes."""
+    if cin % CIN_MULTIPLE or cin < CIN_MULTIPLE or cout % 8 or cout < 8 or min(bsz, f, s) < 1:
+        raise ValueError(f"tap_conv: cin={cin} must be a multiple of {CIN_MULTIPLE}, "
+                         f"cout={cout} of 8")
+    subs = bsz * f * -(-s // SUB_ROWS)
+    bn = 320 if -(-subs // 2) * -(-cout // 320) >= sms else 256
+    tiles = -(-subs // 2) * -(-cout // bn)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - _smem(bn, 0)) // (_smem(bn, 1) - _smem(bn, 0)))
+    return dict(bn=bn, stages=stages, grid=min(tiles, sms), smem=_smem(bn, stages),
+                subs=subs, tiles=tiles, k_steps=3 * -(-cin // 64))
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
@@ -72,9 +109,6 @@ def tap_conv_twin(x, a, b, w, bias, residual):
 def _launch(x, a, b, w, bias, residual):
     bsz, f, s, cin = x.shape
     cout = w.shape[0]
-    if cin % K_TILE or cout % 8:
-        raise ValueError(f"tap_conv: cin={cin} must be a multiple of {K_TILE}, "
-                         f"cout={cout} of 8")
     bf, f32 = torch.bfloat16, torch.float32
     cuda_lib.check_cuda("tap_conv x", x, bf, (bsz, f, s, cin))
     cuda_lib.check_cuda("tap_conv a", a, f32, (bsz, cin))
@@ -83,12 +117,15 @@ def _launch(x, a, b, w, bias, residual):
     cuda_lib.check_cuda("tap_conv bias", bias, f32, (cout,))
     if residual is not None:
         cuda_lib.check_cuda("tap_conv residual", residual, bf, (bsz, f, s, cout))
+    plan = launch_plan(bsz, f, s, cin, cout,
+                       torch.cuda.get_device_properties(x.device).multi_processor_count)
     y = torch.empty((bsz, f, s, cout), device=x.device, dtype=bf)
     s1 = torch.zeros((bsz, f, cout), device=x.device, dtype=f32)
     s2 = torch.zeros_like(s1)
     cuda_lib.call("aat_tap_conv", x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
                   bias.data_ptr(), None if residual is None else residual.data_ptr(),
-                  y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz, f, s, cin, cout)
+                  y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz, f, s, cin, cout, plan["bn"],
+                  plan["stages"], plan["grid"], plan["smem"])
     global launches
     launches += 1
     return y, (s1, s2)

@@ -9,10 +9,12 @@ denoise step), one 16-frame VAE decode, one text encode (a prompt and
 the empty negative, 77 tokens each) and, last, one training step of the
 flagship finetune (``train.mask_motion_finetune``: one 16-frame 512 px clip,
 VAE encode and text inside the step, per-sub-layer checkpointing, AdamW on
-fp32 masters) with ``torch.profiler``. For each it prints the wall time, the
-device kernel time, the device idle share (1 − kernel time / wall time; one
-stream, so kernels do not overlap), the kernel time by group, and the
-largest kernels. The last line is one JSON object with those numbers.
+fp32 masters) with ``torch.profiler``. For each it prints the wall time (the
+median of three calls), the device kernel time, the device idle share (1 −
+kernel time / wall time; one stream, so kernels do not overlap), the kernel
+time by group, the largest kernels, and the host's self time in the
+profiled call by operation (inflated by the profiler's own cost; read it as
+shares). The last line is one JSON object with those numbers.
 
 ``--opt-in`` (``profile_opt_in``) profiles instead one CFG UNet forward and
 one 16-frame VAE decode in the JAX package's opt-in GroupNorm and resnet-conv
@@ -67,10 +69,12 @@ def kernel_group(name: str) -> str:
 
 
 def device_profile(fn: Callable[[], object]) -> Dict:
-    """After two warm-up calls: wall ms of one call of ``fn`` (ended by a
-    device sync), then one profiled call's device kernels: ``{"wall_ms",
-    "kernel_ms", "idle_share", "groups": {group: ms}, "kernels": [[ms,
-    calls, name], ...]}``, the kernels largest first."""
+    """After two warm-up calls: the median wall ms of three calls of ``fn``
+    (each ended by a device sync), then one profiled call's device
+    kernels and host operations: ``{"wall_ms", "walls_ms", "kernel_ms",
+    "idle_share", "groups": {group: ms}, "kernels": [[ms, calls, name],
+    ...], "host_ms", "host_ops": [[ms, calls, name], ...]}``, the kernels
+    and the host operations (self time) largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,16 +83,21 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     fn()
     fn()
     sync()
-    t0 = time.perf_counter()
-    fn()
-    sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls_ms.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls_ms)[len(walls_ms) // 2]
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         fn()
         sync()
-    kernels = []
+    kernels, host = [], []
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
+            host.append([e.self_cpu_time_total / 1e3, e.count, e.key])
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -101,19 +110,25 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     groups = collections.Counter()
     for ms, _, name in kernels:
         groups[kernel_group(name)] += ms
-    return dict(wall_ms=wall_ms, kernel_ms=kernel_ms,
+    host.sort(reverse=True)
+    return dict(wall_ms=wall_ms, walls_ms=walls_ms, kernel_ms=kernel_ms,
                 idle_share=max(0.0, 1.0 - kernel_ms / wall_ms),
-                groups=dict(groups.most_common()), kernels=kernels)
+                groups=dict(groups.most_common()), kernels=kernels,
+                host_ms=sum(h[0] for h in host), host_ops=host)
 
 
 def _report(name: str, prof: Dict) -> None:
     total = prof["kernel_ms"]
-    print(f"== {name}: wall {prof['wall_ms']:.1f} ms, device kernel time {total:.1f} ms, "
-          f"idle share {prof['idle_share']:.3f}", flush=True)
+    walls = ", ".join(f"{w:.1f}" for w in prof["walls_ms"])
+    print(f"== {name}: wall {prof['wall_ms']:.1f} ms ({walls}), device kernel time "
+          f"{total:.1f} ms, idle share {prof['idle_share']:.3f}, host self time "
+          f"{prof['host_ms']:.1f} ms (profiled)", flush=True)
     for group, ms in prof["groups"].items():
         print(f"   {group:28s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
     for ms, calls, kname in prof["kernels"][:20]:
         print(f"   {ms:9.2f} ms  x{calls:5d}  {kname[:110]}")
+    for ms, calls, hname in prof["host_ops"][:12]:
+        print(f"   host {ms:9.2f} ms  x{calls:5d}  {hname[:100]}")
 
 
 def _report_all(profiles) -> None:
@@ -122,8 +137,9 @@ def _report_all(profiles) -> None:
     for name, fn in profiles:
         out[name] = device_profile(fn)
         _report(name, out[name])
-        out[name]["kernels"] = [[ms, calls, kname[:120]]
-                                for ms, calls, kname in out[name]["kernels"][:20]]
+        for key in ("kernels", "host_ops"):
+            out[name][key] = [[ms, calls, kname[:120]]
+                              for ms, calls, kname in out[name][key][:20]]
     print(json.dumps(out))
 
 

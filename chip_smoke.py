@@ -14,10 +14,17 @@
    achieved TFLOP/s beside SDPA's; the backward called twice and held bit
    for bit) and the backward at the three training shapes; kernel 2 at its
    five shapes beside the bf16 composite's time (LayerNorm, Linear, GELU·val,
-   Linear + x) and at JAX's test shapes; the gates that send the head sizes
-   the forward does not take to SDPA or the einsum form; the channel sums,
-   the streaming GroupNorm (+SiLU) and the
-   fused GroupNorm-affine + SiLU -> 3x3 conv at the opt-in configuration's
+   Linear + x) and at JAX's test shapes; kernel 3 at its four sites beside
+   its bf16 composite (GroupNorm apply + SiLU, one GEMM over the taps, + bias
+   + x, the two sums) and at JAX's test shape and the edges of its reach,
+   kernel 5 at its five sites beside its bf16 composite (LayerNorm, q/k/v
+   Linear, SDPA over the frames, Linear + x) and at JAX's test shapes and the
+   reach of JAX's gate (48 and 128 frames, head dims 8 to 256, c = 2048, a
+   ragged s), each of the two called twice: kernel 5 and kernel 3's y bit
+   for bit, kernel 3's atomic sums within a stated tolerance; the gates that
+   send the head sizes the forward does not take to SDPA or the einsum form;
+   the channel sums, the streaming GroupNorm (+SiLU) and the fused
+   GroupNorm-affine + SiLU -> 3x3 conv at the opt-in configuration's
    shapes; times one temporal transformer per width on its fused path
    (kernel 5 + kernel 2) against the composite path;
 4. runs a small UNet on the card through the kernels (every temporal site on
@@ -458,35 +465,105 @@ def check_geglu(gen) -> dict:
     return tally.row
 
 
+# Kernel 3 at the UNet's four temporal-conv sites (b = 2 for CFG, 17 frames,
+# locations s, c -> c), then at the JAX package's test shape (tests/test_ops.py:
+# 2 x 5 frames x 24 locations, 128 -> 128) and at edges of the kernel's
+# reach: ragged s (sub-tiles of 64 rows cut by the slab), cin % 64 == 32,
+# cin = 32, one frame (both outer taps past the ends), cout < 64.
+TAP_CONV_SITES = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
+TAP_CONV_TEST_SHAPES = ((2, 5, 24, 128, 128), (1, 3, 100, 96, 40), (2, 5, 200, 32, 128),
+                        (1, 1, 70, 64, 64), (2, 4, 16, 64, 64))
+# Two calls of kernel 3: y is bit for bit the same (no atomics reach it);
+# each Σy, Σy² is a sum of at most s/64 fp32 atomic adds of 64-row partials
+# (at most 64 at s = 4096) in an order that changes from call to call, and
+# reassociating n fp32 adds moves a sum by at most (n − 1)·2^-24 of the sum
+# of the magnitudes added (3.8e-6 at n = 64): held to 1e-5 of Σ|y| (Σy²).
+ATOMIC_SUM_RTOL = 1e-5
+
+
+def _tap_conv_composite(x, a, b, w, bias, res):
+    """The same function as PyTorch calls in bf16: the GroupNorm apply and
+    SiLU as one pass over x, one cuBLAS GEMM over the concatenated taps, +
+    bias + residual, the two sums. The yardstick a redesign of kernel 3 has
+    to beat, timed only and never called by the port."""
+    bf = torch.bfloat16
+    act = F.silu(torch.addcmul(b.to(bf)[:, None, None], x, a.to(bf)[:, None, None]))
+    taps = torch.cat([F.pad(act[:, :-1], (0, 0, 0, 0, 1, 0)), act,
+                      F.pad(act[:, 1:], (0, 0, 0, 0, 0, 1))], -1)
+    y = F.linear(taps, w.reshape(w.shape[0], -1), bias.to(bf)) + res
+    yf = y.float()
+    return y, (yf.sum(2), yf.square().sum(2))
+
+
+def _tap_conv_args(gen, bsz, f, s, cin, cout):
+    x = torch.randn(bsz, f, s, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    a = 1.0 + 0.1 * torch.randn(bsz, cin, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(bsz, cin, generator=gen, device="cuda")
+    w = _lecun(gen, cout, 3, cin, fan_in=3 * cin)
+    bias = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    res = torch.randn(bsz, f, s, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, a, b, w, bias, res
+
+
+def _tap_conv_case(tag: str, x, a, b, w, bias, residual) -> float:
+    """Kernel 3 against its plain version, and a second call against the
+    first (y bit for bit, the sums within ``ATOMIC_SUM_RTOL``)."""
+    from animate_anything_tpu_torch.ops import temporal_conv as tc
+
+    y, (s1, s2) = tc.tap_conv(x, a, b, w, bias, residual)
+    y2, (t1, t2) = tc.tap_conv(x, a, b, w, bias, residual)
+    wy, (w1, w2) = tc.tap_conv_reference(x, a, b, w, bias, residual)
+    _assert_close(tag, y, wy, Y_ATOL, Y_RTOL)
+    _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
+    _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
+    _assert_stored_sums(tag, y, (s1, s2), dim=2)
+    if not torch.equal(y, y2):
+        raise AssertionError(f"{tag}: two calls give different y")
+    yf = y.float()
+    for name, got, first, mag in (("Σy", t1, s1, yf.abs().sum(2)),
+                                  ("Σy²", t2, s2, yf.square().sum(2))):
+        if bool(((got - first).abs() > ATOMIC_SUM_RTOL * mag).any()):
+            raise AssertionError(f"{tag} {name}: two calls differ by more than "
+                                 f"{ATOMIC_SUM_RTOL} of the magnitudes summed")
+    return _err(y, wy)
+
+
 def check_tap_conv(gen) -> dict:
+    """Kernel 3 at the main path's four sites, each with and without the
+    residual, called twice; timed beside the bf16 composite
+    (``composite_ms``), then at JAX's test shape and the edges of its reach."""
     from animate_anything_tpu_torch.ops import temporal_conv as tc
 
     tally = Tally("tap_conv", "animate_anything_tpu_torch/csrc/temporal_conv.cu",
                   "animate_anything_tpu/ops/temporal_conv.py:159")
     bsz, f = 2, FRAMES + 1
-    for s, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
-        x = torch.randn(bsz, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
-        a = 1.0 + 0.1 * torch.randn(bsz, c, generator=gen, device="cuda")
-        b = 0.1 * torch.randn(bsz, c, generator=gen, device="cuda")
-        w = _lecun(gen, c, 3, c, fan_in=3 * c)
-        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        res = torch.randn(bsz, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
-        err = 0.0
-        for residual in (None, res):
-            y, (s1, s2) = tc.tap_conv(x, a, b, w, bias, residual)
-            wy, (w1, w2) = tc.tap_conv_reference(x, a, b, w, bias, residual)
-            tag = f"tap_conv s={s} c={c} residual={residual is not None}"
-            _assert_close(tag, y, wy, Y_ATOL, Y_RTOL)
-            _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
-            _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
-            _assert_stored_sums(tag, y, (s1, s2), dim=2)
-            err = max(err, _err(y, wy))
+    composite_ms = 0.0
+    for s, c in TAP_CONV_SITES:
+        x, a, b, w, bias, res = _tap_conv_args(gen, bsz, f, s, c, c)
+        err = max(_tap_conv_case(f"tap_conv s={s} c={c} residual={r is not None}", x, a, b, w,
+                                 bias, r) for r in (None, res))
         ms = cuda_ms(lambda: tc.tap_conv(x, a, b, w, bias, res))
         plain = cuda_ms(lambda: tc.tap_conv_reference(x, a, b, w, bias, res), warmup=1, iters=3)
+        with torch.no_grad():
+            comp = cuda_ms(lambda: _tap_conv_composite(x, a, b, w, bias, res))
+        composite_ms += comp
+        log(f"    bf16 composite (GN apply + SiLU, one GEMM over the taps, + bias + x, "
+            f"two sums; a reference line) {comp:.3f} ms")
         rows = bsz * f * s
         nbytes = 3 * rows * c * 2 + 3 * c * c * 2 + 2 * bsz * f * c * 4
+        # FLOP of the taps that land on a frame: the outer taps of the first
+        # and the last frame fall on JAX's zero frames, which the kernel skips
         tally.add(f"tap_conv bsz={bsz} f={f} s={s} c={c}", err, ms, plain,
-                  2 * rows * 3 * c * c, nbytes)
+                  2 * bsz * s * (3 * f - 2) * c * c, nbytes)
+        del x, res
+        torch.cuda.empty_cache()
+    for bsz_, f_, s_, cin, cout in TAP_CONV_TEST_SHAPES:
+        x, a, b, w, bias, res = _tap_conv_args(gen, bsz_, f_, s_, cin, cout)
+        tag = f"tap_conv bsz={bsz_} f={f_} s={s_} cin={cin} cout={cout}"
+        err = max(_tap_conv_case(f"{tag} residual={r is not None}", x, a, b, w, bias, r)
+                  for r in (None, res))
+        log(f"  {tag}: max|err| {err:.3g}")
+    tally.row["composite_ms"] = composite_ms
     return tally.row
 
 
@@ -516,31 +593,86 @@ def check_proj_residual(gen) -> dict:
     return tally.row
 
 
+# Kernel 5 beyond the UNet's sites: the JAX package's test shapes (tests/
+# test_torch_port_temporal_block.py: ragged s = 120 at d = 64, d = 8, f = 4),
+# then the reach JAX's gate ``fused_ok`` admits: f = 48 with d = 40 (d % 16 ==
+# 8) at a ragged s, d = 72, 128 and 256, f = 128, c = 2048. (b, f, s, c, heads).
+TEMPORAL_BLOCK_TEST_SHAPES = ((2, 17, 120, 128, 2), (2, 17, 120, 64, 8), (2, 4, 9, 64, 2),
+                              (2, 48, 51, 80, 2), (1, 33, 20, 144, 2), (1, 128, 5, 256, 2),
+                              (1, 20, 33, 512, 2), (1, 8, 16, 2048, 8))
+
+
+def _temporal_block_args(gen, b, f, s, c):
+    x = torch.randn(b, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+    ln_s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    ln_b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    ws = [_lecun(gen, c, c, fan_in=c) for _ in range(4)]
+    bo = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return (x, ln_s, ln_b, *ws, bo)
+
+
+def _temporal_block_composite(x, ln_s, ln_b, wq, wk, wv, wo, bo, heads):
+    """The same function as PyTorch calls in bf16: ``F.layer_norm``, three
+    ``F.linear``, SDPA over the frames of each (location, head) on a
+    contiguous (b·s, heads, f, d) copy, ``F.linear`` + x. A reference line,
+    timed only and never called by the port."""
+    b, f, s, c = x.shape
+    d, bf = c // heads, torch.bfloat16
+    ln = F.layer_norm(x, (c,), ln_s.to(bf), ln_b.to(bf))
+    q, k, v = (F.linear(ln, w).view(b, f, s, heads, d).permute(0, 2, 3, 1, 4)
+               .reshape(b * s, heads, f, d) for w in (wq, wk, wv))
+    o = F.scaled_dot_product_attention(q, k, v).view(b, s, heads, f, d)
+    return x + F.linear(o.permute(0, 3, 1, 2, 4).reshape(b, f, s, c), wo, bo.to(bf))
+
+
+def _temporal_block_case(tag: str, args, heads: int) -> float:
+    """Kernel 5 against its plain version, and a second call against the
+    first, bit for bit (no atomics)."""
+    from animate_anything_tpu_torch.ops import temporal_block as tb
+
+    got = tb.temporal_block(*args, heads=heads)
+    again = tb.temporal_block(*args, heads=heads)
+    want = tb.temporal_block_reference(*args, heads=heads)
+    _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: two calls differ")
+    return _err(got, want)
+
+
 def check_temporal_block(gen) -> dict:
+    """Kernel 5 at the main path's five sites, called twice, timed beside
+    the bf16 composite (``composite_ms``), then at JAX's test shapes and
+    the edges of its reach."""
     from animate_anything_tpu_torch.ops import temporal_block as tb
 
     tally = Tally("temporal_block", "animate_anything_tpu_torch/csrc/temporal_block.cu",
                   "animate_anything_tpu/ops/temporal_block.py:408")
     b, f = 2, FRAMES + 1
+    composite_ms = 0.0
     for s, c in TEMPORAL_SITES:
         heads = c // 64
-        x = torch.randn(b, f, s, c, generator=gen, device="cuda").to(torch.bfloat16)
-        ln_s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-        ln_b = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        ws = [_lecun(gen, c, c, fan_in=c) for _ in range(4)]
-        bo = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        args = (x, ln_s, ln_b, *ws, bo)
-        got = tb.temporal_block(*args, heads=heads)
-        want = tb.temporal_block_reference(*args, heads=heads)
+        args = _temporal_block_args(gen, b, f, s, c)
         tag = f"temporal_block b={b} f={f} s={s} c={c} heads={heads}"
-        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        err = _temporal_block_case(tag, args, heads)
         ms = cuda_ms(lambda: tb.temporal_block(*args, heads=heads))
         plain = cuda_ms(lambda: tb.temporal_block_reference(*args, heads=heads), warmup=1,
                         iters=3)
+        with torch.no_grad():
+            comp = cuda_ms(lambda: _temporal_block_composite(*args, heads))
+        composite_ms += comp
+        log(f"    bf16 composite (LayerNorm, q/k/v Linear, SDPA over the frames, Linear + x; "
+            f"a reference line) {comp:.3f} ms")
         rows = b * f * s
         flop = 8 * rows * c * c + 4 * b * s * heads * f * f * 64
         nbytes = 2 * rows * c * 2 + 4 * c * c * 2 + 3 * c * 4
-        tally.add(tag, _err(got, want), ms, plain, flop, nbytes)
+        tally.add(tag, err, ms, plain, flop, nbytes)
+        del args
+        torch.cuda.empty_cache()
+    for b_, f_, s_, c, heads in TEMPORAL_BLOCK_TEST_SHAPES:
+        tag = f"temporal_block b={b_} f={f_} s={s_} c={c} heads={heads} d={c // heads}"
+        err = _temporal_block_case(tag, _temporal_block_args(gen, b_, f_, s_, c), heads)
+        log(f"  {tag}: max|err| {err:.3g}")
+    tally.row["composite_ms"] = composite_ms
     return tally.row
 
 

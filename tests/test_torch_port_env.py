@@ -235,5 +235,7 @@ def test_profiler_groups_kernels_and_times_a_call():
     assert kernel_group("nvjet_tst_128x64_64x4") == "matmul (cuBLAS)"
     assert kernel_group("vectorized_elementwise_kernel<4, silu>") == "elementwise/other"
     prof = device_profile(lambda: torch.ones(64, 64) @ torch.ones(64, 64))
-    assert prof["wall_ms"] > 0
+    assert prof["wall_ms"] > 0 and len(prof["walls_ms"]) == 3
+    assert prof["wall_ms"] == sorted(prof["walls_ms"])[1]
+    assert prof["host_ms"] > 0 and any("mm" in op[2] for op in prof["host_ops"])
     assert prof["kernels"] == [] and prof["kernel_ms"] == 0   # no device on this host

@@ -68,12 +68,13 @@ def test_plan_refuses_widths_the_kernel_does_not_take(c):
 
 def test_plan_matches_the_kernel_instantiations():
     """The tile widths the plan may pick are the ones the C entry point
-    dispatches on, and its shared-memory formula is the source's."""
+    dispatches on, and its shared-memory formula is the source's (the GEMM
+    lives in ``gemm.cuh``, which kernel 5 shares)."""
     from animate_anything_tpu_torch.ops import cuda_lib, geglu
 
-    text = (cuda_lib.CSRC / "geglu.cu").read_text()
-    geglu_bn = {int(b) for b in re.findall(r"launch_gemm<(\d+), true>", text)}
-    out_bn = {int(b) for b in re.findall(r"launch_gemm<(\d+), false>", text)}
+    text = (cuda_lib.CSRC / "geglu.cu").read_text() + (cuda_lib.CSRC / "gemm.cuh").read_text()
+    geglu_bn = {int(b) for b in re.findall(r"launch_gemm<(\d+), true\b", text)}
+    out_bn = {int(b) for b in re.findall(r"launch_gemm<(\d+), false\b", text)}
     assert geglu_bn == set(geglu.GEGLU_BN) and out_bn == set(geglu.OUT_BN)
     assert "return 1024 + stages * (STAGE_BYTES + 16) + 2 * OUT_BYTES + 16;" in text
     assert re.search(r"constexpr int BM = 128, BK = 64;", text)
