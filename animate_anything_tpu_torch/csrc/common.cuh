@@ -8,7 +8,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 
 #define AAT_EXPORT extern "C" __attribute__((visibility("default")))
@@ -88,53 +87,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Epilogue shared by the tap-conv and proj-residual kernels.  The block's
-// GEMM tile sits in shared memory as Cs (TM x CLD fp32) and covers rows
-// [m0, min(m0 + TM, M)) of the flattened (M, N) output: y = C + bias
-// (+ residual) is stored as bf16, and Σy, Σy² of the STORED values are added
-// into the per-(slab, channel) fp32 sums, a slab being slab_rows consecutive
-// rows.  Blocks finish in no order, so the sums are fp32 atomics into buffers
-// the wrapper zeroed, one per column and slab run of the tile.  With s1 null
-// only y is stored.
-template <int TM, int TN, int THREADS, int CLD>
-__device__ __forceinline__ void bias_residual_stats(
-    const float* Cs, const float* __restrict__ bias, const bf16* __restrict__ res,
-    bf16* __restrict__ y, float* __restrict__ s1, float* __restrict__ s2, int m0, int M,
-    int slab_rows, int n0, int N) {
-  constexpr int PART_ROWS = TM / (THREADS / TN);
-  const int col = threadIdx.x % TN, part = threadIdx.x / TN;
-  const int gc = n0 + col;
-  const int r_begin = part * PART_ROWS;
-  const int r_end = min(r_begin + PART_ROWS, M - m0);
-  if (gc >= N || r_end <= r_begin) return;
-  const float bv = bias[gc];
-  int slab = (m0 + r_begin) / slab_rows;
-  int slab_end = (slab + 1) * slab_rows;
-  float a1 = 0.f, a2 = 0.f;
-  const bool sums = s1 != nullptr;
-  for (int r = r_begin; r < r_end; ++r) {
-    const int row = m0 + r;
-    if (sums && row == slab_end) {
-      atomicAdd(s1 + (size_t)slab * N + gc, a1);
-      atomicAdd(s2 + (size_t)slab * N + gc, a2);
-      a1 = a2 = 0.f;
-      ++slab;
-      slab_end += slab_rows;
-    }
-    const size_t off = (size_t)row * N + gc;
-    float v = Cs[r * CLD + col] + bv;
-    if (res != nullptr) v += bf2f(res[off]);
-    const bf16 vb = f2bf(v);
-    y[off] = vb;
-    const float vr = bf2f(vb);
-    a1 += vr;
-    a2 += vr * vr;
-  }
-  if (!sums) return;
-  atomicAdd(s1 + (size_t)slab * N + gc, a1);
-  atomicAdd(s2 + (size_t)slab * N + gc, a2);
 }
 
 }  // namespace aat

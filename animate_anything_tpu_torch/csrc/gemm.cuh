@@ -1,9 +1,11 @@
 // The row-wise LayerNorm pass and the persistent TMA + wgmma GEMM of kernel
 // 2 (csrc/geglu.cu), shared with kernel 5 (csrc/temporal_block.cu), which
 // runs the same LayerNorm before its q/k/v products and the same bias +
-// residual GEMM as its out-projection.  Each kernel template takes an Owner
-// tag (ln_geglu_ff or temporal_block) that names the kernel it runs for, so
-// a profile attributes the launches to their kernel.
+// residual GEMM as its out-projection, and with kernel 4
+// (csrc/proj_residual.cu), which runs that GEMM in its slab form (below).
+// Each kernel template takes an Owner tag (ln_geglu_ff, temporal_block or
+// proj_residual) that names the kernel it runs for, so a profile attributes
+// the launches to their kernel.
 //
 // GEMM design (see geglu.cu's header for the numbers): persistent blocks
 // (one a SM, tile after tile with the output-column tile fastest, so the
@@ -19,6 +21,14 @@
 // mainloop) and stores it with one TMA store, so global memory sees whole
 // rows, not 4-byte pieces.  Rows past m and columns past n read as zeros
 // through the maps and are not stored.
+// The slab form (SLABS, the residual GEMM only): the m rows are `slabs`
+// slabs of s rows, and every 64-row sub-tile (one warpgroup's) lies within
+// one slab, so A, the residual and y are 3-D maps (cols, s, slabs) and
+// rows past s read as zeros, never the next slab's.  Two sub-tiles make a
+// 128-row tile, so s = 64 fills whole tiles with two slabs.  After its TMA
+// store each warpgroup sums its stored bf16 tile's columns over the slab's
+// rows and adds Σy, Σy² with one fp32 atomic per column into (slabs, n)
+// buffers the caller zeroed (tiles finish in no order).
 #pragma once
 
 #include "common.cuh"
@@ -29,6 +39,7 @@ namespace aat {
 // Owner tags: the kernel a shared template is instantiated for.
 struct ln_geglu_ff {};
 struct temporal_block {};
+struct proj_residual {};
 
 namespace gemm {
 
@@ -138,7 +149,25 @@ struct GemmParams {
   int m, n, k;         // rows, output columns (GEGLU: act's 4c), reduction
   int gate_row0;       // GEGLU: the W1 row (and b1 entry) of gate column 0, 4c
   int col_tiles, tiles, stages;
+  int s, subs_per_slab, subs;  // the slab form: rows a slab, 64-row sub-tiles a slab, in all
+  float* s1;                   // the slab form: (slabs, n) fp32 Σy, Σy², zeroed
+  float* s2;
 };
+
+// The slab form's sub-tile h (0, 1) of 128-row tile `pair`: whether it
+// exists (the last tile of an odd count has one), its slab and first row.
+struct SlabRows {
+  bool on;
+  int slab, s0;
+};
+__device__ __forceinline__ SlabRows slab_rows(const GemmParams& p, int pair, int h) {
+  const int sub = 2 * pair + h;
+  SlabRows r;
+  r.on = sub < p.subs;
+  r.slab = r.on ? sub / p.subs_per_slab : 0;
+  r.s0 = r.on ? (sub % p.subs_per_slab) * 64 : 0;
+  return r;
+}
 
 // Shared memory of a GEMM block: the ring of K stages (A then B tile), then
 // each consumer warpgroup's 64-row output tile (OUT columns, as 64- and
@@ -167,14 +196,23 @@ struct GemmLayout {
 // K step g of this block's tiles (tile blockIdx.x + (g / nk)·gridDim.x,
 // step g % nk) into its stage, once the consumers have released the
 // stage's previous step (one thread).
-template <int BN, bool GEGLU>
+template <int BN, bool GEGLU, bool SLABS>
 __device__ __forceinline__ void gemm_load_step(const GemmParams& p, const Ring& ring, int nk,
                                                int g) {
   using L = GemmLayout<BN, GEGLU>;
   const int tile = blockIdx.x + (g / nk) * gridDim.x, kb = g % nk;
-  const int m0 = (tile / p.col_tiles) * BM, ct = tile % p.col_tiles;
-  const uint32_t st = ring.stage(g), bar = ring.acquire(g, L::STAGE_BYTES);
-  tma_load_3d(st, &p.a, bar, kb * BK, m0, 0);
+  const int row_tile = tile / p.col_tiles, ct = tile % p.col_tiles;
+  const uint32_t st = ring.stage(g);
+  uint32_t bar;
+  if constexpr (SLABS) {  // one box a sub-tile, none for a missing one
+    const SlabRows r0 = slab_rows(p, row_tile, 0), r1 = slab_rows(p, row_tile, 1);
+    bar = ring.acquire(g, (r0.on + r1.on) * (L::A_BYTES / 2) + L::B_BYTES);
+    if (r0.on) tma_load_3d(st, &p.a, bar, kb * BK, r0.s0, r0.slab);
+    if (r1.on) tma_load_3d(st + L::A_BYTES / 2, &p.a, bar, kb * BK, r1.s0, r1.slab);
+  } else {
+    bar = ring.acquire(g, L::STAGE_BYTES);
+    tma_load_3d(st, &p.a, bar, kb * BK, row_tile * BM, 0);
+  }
   if constexpr (GEGLU) {
     tma_load_3d(st + L::A_BYTES, &p.b, bar, kb * BK, ct * (BN / 2), 0);
     tma_load_3d(st + L::A_BYTES + (BN / 2) * BK * 2, &p.b, bar, kb * BK,
@@ -182,6 +220,18 @@ __device__ __forceinline__ void gemm_load_step(const GemmParams& p, const Ring& 
   } else {
     tma_load_3d(st + L::A_BYTES, &p.b, bar, kb * BK, ct * BN, 0);
   }
+}
+
+// SiLU in the tanh identity 0.5·z·(1 + tanh(z/2)) with tanh(z/2) = 1 −
+// 2/(1 + e^z), which is z − z/(1 + e^z): e^z and the reciprocal on the
+// special-function unit, then one FMA (kernels 3 and 8).  Large z: e^z =
+// +inf, its reciprocal 0, y = z.  Below z = −17, 1 + e^z rounds to 1 and y
+// to 0, where the exact z·e^z is under 1e-6 in magnitude (as 1 + tanh(z/2)
+// loses it in the TPU kernels' form).
+__device__ __forceinline__ float silu_tanh(float z) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + exp2_ftz(z * kLog2e)));
+  return fmaf(-z, r, z);
 }
 
 // gelu_tanh(g) = 0.5·g·(1 + tanh(z)) = g·sigmoid(2z), z = √(2/π)·(g + 0.044715·g³):
@@ -226,7 +276,31 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, 
   }
 }
 
-template <int BN, bool GEGLU, typename Owner>
+// The slab form's Σy, Σy² of the warpgroup's stored output tile `out`
+// (OUT columns from j0, `rows` rows of slab `slab`): two columns a thread,
+// one fp32 atomic each.
+template <typename Chunks, int OUT>
+__device__ __forceinline__ void column_sums(const GemmParams& p, const uint8_t* out, int j0,
+                                            int slab, int rows, int lt) {
+  const int col = 2 * lt;
+  if (col >= OUT || j0 + col >= p.n) return;
+  float a0 = 0.f, a1 = 0.f, q0 = 0.f, q1 = 0.f;
+  for (int r = 0; r < rows; ++r) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(out + out_offset<Chunks>(r, col)));
+    a0 += v.x;
+    a1 += v.y;
+    q0 = fmaf(v.x, v.x, q0);
+    q1 = fmaf(v.y, v.y, q1);
+  }
+  const size_t o = (size_t)slab * p.n + j0 + col;
+  atomicAdd(p.s1 + o, a0);
+  atomicAdd(p.s1 + o + 1, a1);
+  atomicAdd(p.s2 + o, q0);
+  atomicAdd(p.s2 + o + 1, q1);
+}
+
+template <int BN, bool GEGLU, typename Owner, bool SLABS = false>
 __global__ void __launch_bounds__(GemmLayout<BN, GEGLU>::THREADS, 1)
 tma_gemm_kernel(const __grid_constant__ GemmParams p) {
   using L = GemmLayout<BN, GEGLU>;
@@ -256,19 +330,21 @@ tma_gemm_kernel(const __grid_constant__ GemmParams p) {
     if (tid >= CONSUMERS) {
       // ---- producer warp: one thread streams every K step of every tile --
       if (tid == CONSUMERS)
-        for (int g = 0; g < steps; ++g) gemm_load_step<BN, GEGLU>(p, ring, nk, g);
+        for (int g = 0; g < steps; ++g) gemm_load_step<BN, GEGLU, SLABS>(p, ring, nk, g);
       return;
     }
   } else {
     if (tid == 0)
-      for (int g = 0; g < steps && g < stages; ++g) gemm_load_step<BN, GEGLU>(p, ring, nk, g);
+      for (int g = 0; g < steps && g < stages; ++g)
+        gemm_load_step<BN, GEGLU, SLABS>(p, ring, nk, g);
     __syncwarp();
   }
   // Release step g's stage; without a producer warp, thread 0 refills it.
   auto release = [&](int g) {
     ring.release(g);
     if constexpr (!L::PRODUCER) {
-      if (tid == 0 && g + stages < steps) gemm_load_step<BN, GEGLU>(p, ring, nk, g + stages);
+      if (tid == 0 && g + stages < steps)
+        gemm_load_step<BN, GEGLU, SLABS>(p, ring, nk, g + stages);
       __syncwarp();  // warp 0 reconverges before the next .aligned wgmma
     }
   };
@@ -281,16 +357,24 @@ tma_gemm_kernel(const __grid_constant__ GemmParams p) {
   float acc[BN / 2];
   int it = 0, local = 0;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++local) {
-    const int m0 = (tile / p.col_tiles) * BM, ct = tile % p.col_tiles;
-    const int j0 = ct * L::OUT, row0 = m0 + 64 * wg;
+    const int row_tile = tile / p.col_tiles, ct = tile % p.col_tiles;
+    const int j0 = ct * L::OUT;
+    // the warpgroup's 64 rows: row0.. of slab `slab` (the slab form), else of the m rows
+    SlabRows me{true, 0, row_tile * BM + 64 * wg};
+    if constexpr (SLABS) me = slab_rows(p, row_tile, wg);
+    const int row0 = me.s0;
     if (lt == 0) {
       bulk_wait_read();  // the last tile's store has read the output tile
       if constexpr (!GEGLU) {  // the residual tile, in place of the output
-        mbar_expect_tx(res_bar, L::OUT_BYTES);
+        if (me.on) {
+          mbar_expect_tx(res_bar, L::OUT_BYTES);
 #pragma unroll
-        for (int i = 0; i < Chunks::COUNT; ++i)
-          tma_load_3d(out + Chunks::offset(i, 64), &p.res[Chunks::kind(i)], res_bar,
-                      j0 + Chunks::col(i), row0, 0);
+          for (int i = 0; i < Chunks::COUNT; ++i)
+            tma_load_3d(out + Chunks::offset(i, 64), &p.res[Chunks::kind(i)], res_bar,
+                        j0 + Chunks::col(i), row0, me.slab);
+        } else {
+          mbar_arrive(res_bar);  // no sub-tile: complete the phase without bytes
+        }
       }
     }
     for (int kb = 0; kb < nk; ++kb, ++it) {
@@ -316,34 +400,41 @@ tma_gemm_kernel(const __grid_constant__ GemmParams p) {
     epilogue<BN, GEGLU>(p, acc, out_ptr, r0, j0, t);
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
-    if (lt == 0) {  // rows past m and columns past n are not written
+    if (lt == 0 && me.on) {  // rows past m (s) and columns past n are not written
 #pragma unroll
       for (int i = 0; i < Chunks::COUNT; ++i)
         tma_store_3d(&p.out[Chunks::kind(i)], out + Chunks::offset(i, 64), j0 + Chunks::col(i),
-                     row0, 0);
+                     row0, me.slab);
       bulk_commit();
+    }
+    if constexpr (SLABS) {
+      if (me.on) column_sums<Chunks, L::OUT>(p, out_ptr, j0, me.slab, min(64, p.s - row0), lt);
+      named_bar_sync(1 + wg, 128);  // the sums have read the tile before the next residual load
     }
   }
   if (lt == 0) bulk_wait();
 }
 
-template <int BN, bool GEGLU, typename Owner>
+template <int BN, bool GEGLU, typename Owner, bool SLABS = false>
 int launch_gemm(GemmParams& p, const void* a, const void* w, int w_rows, void* out,
                 const void* res, int grid, int smem, cudaStream_t stream) {
   using L = GemmLayout<BN, GEGLU>;
   if (p.stages < 2 || smem < L::smem(p.stages) || smem > SMEM_LIMIT || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = make_map_3d(&p.a, a, p.k, p.m, 1, BK, BM);
+  // rows as (s, slabs) in the slab form, else (m, 1); A boxes of 64 or BM rows
+  const uint64_t rows = SLABS ? p.s : p.m, slabs = SLABS ? p.m / p.s : 1;
+  int err = make_map_3d(&p.a, a, p.k, rows, slabs, BK, SLABS ? 64 : BM);
   if (!err) err = make_map_3d(&p.b, w, p.k, w_rows, 1, BK, GEGLU ? BN / 2 : BN);
   for (int kind = 0; kind < 2 && !err; ++kind) {
-    err = make_map_3d(&p.out[kind], out, p.n, p.m, 1, 64 >> kind, 64);
-    if (!err && res != nullptr) err = make_map_3d(&p.res[kind], res, p.n, p.m, 1, 64 >> kind, 64);
+    err = make_map_3d(&p.out[kind], out, p.n, rows, slabs, 64 >> kind, 64);
+    if (!err && res != nullptr)
+      err = make_map_3d(&p.res[kind], res, p.n, rows, slabs, 64 >> kind, 64);
   }
   if (err) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(tma_gemm_kernel<BN, GEGLU, Owner>,
+  cudaError_t e = cudaFuncSetAttribute(tma_gemm_kernel<BN, GEGLU, Owner, SLABS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  tma_gemm_kernel<BN, GEGLU, Owner><<<grid, L::THREADS, smem, stream>>>(p);
+  tma_gemm_kernel<BN, GEGLU, Owner, SLABS><<<grid, L::THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,6 +457,37 @@ int gemm_bias_residual(const void* a, const void* w, const void* bias, const voi
     case 160: return launch_gemm<160, false, Owner>(p, a, w, n, y, res, grid, smem, stream);
     case 128: return launch_gemm<128, false, Owner>(p, a, w, n, y, res, grid, smem, stream);
     case 64: return launch_gemm<64, false, Owner>(p, a, w, n, y, res, grid, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The slab form: h (slabs, s, k), y and res (slabs, s, n); y = h·wᵀ + bias +
+// res with Σy, Σy² of the stored y per (slab, column) added into s1, s2
+// (slabs, n), zeroed by the caller.  Tile width bn in 256, 160, 128, 64
+// (the launch plan's, ops/proj_residual.py::launch_plan).
+template <typename Owner>
+int gemm_bias_residual_stats(const void* a, const void* w, const void* bias, const void* res,
+                             void* y, float* s1, float* s2, int slabs, int s, int n, int k,
+                             int bn, int stages, int grid, int smem, cudaStream_t stream) {
+  if (slabs < 1 || s < 1 || res == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  GemmParams p = {};
+  p.bias = static_cast<const float*>(bias);
+  p.m = slabs * s;
+  p.n = n;
+  p.k = k;
+  p.s = s;
+  p.subs_per_slab = (s + 63) / 64;
+  p.subs = slabs * p.subs_per_slab;
+  p.s1 = s1;
+  p.s2 = s2;
+  p.col_tiles = (n + bn - 1) / bn;
+  p.tiles = (p.subs + 1) / 2 * p.col_tiles;
+  p.stages = stages;
+  switch (bn) {
+    case 256: return launch_gemm<256, false, Owner, true>(p, a, w, n, y, res, grid, smem, stream);
+    case 160: return launch_gemm<160, false, Owner, true>(p, a, w, n, y, res, grid, smem, stream);
+    case 128: return launch_gemm<128, false, Owner, true>(p, a, w, n, y, res, grid, smem, stream);
+    case 64: return launch_gemm<64, false, Owner, true>(p, a, w, n, y, res, grid, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -73,6 +73,7 @@ namespace {
 
 using namespace hopper;
 using gemm::CONSUMERS;
+using gemm::silu_tanh;
 
 constexpr int SUB = 64;                // rows of a sub-tile (one warpgroup's)
 constexpr int NACC = 2;                // accumulators a tile, NB columns each
@@ -94,18 +95,6 @@ struct TapLayout {
   }
   static_assert(NB % 32 == 0, "output chunks of 64 and 32 columns");
 };
-
-// SiLU in the tanh identity 0.5·z·(1 + tanh(z/2)) with tanh(z/2) = 1 −
-// 2/(1 + e^z), which is z − z/(1 + e^z): e^z and the reciprocal on the
-// special-function unit, then one FMA.  Large z: e^z = +inf, its reciprocal
-// 0, y = z.  Below z = −17, 1 + e^z rounds to 1 and y to 0, where the
-// exact z·e^z is under 1e-6 in magnitude (as 1 + tanh(z/2) loses it in the
-// TPU kernel's form).
-__device__ __forceinline__ float silu_tanh(float z) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + exp2_ftz(z * gemm::kLog2e)));
-  return fmaf(-z, r, z);
-}
 
 struct TapParams {
   CUtensorMap x;       // 4-D (cin, s, f, bsz) bf16, box 64 x 64 x 1 x 1

@@ -15,7 +15,12 @@ Under ``attn_impl="pallas"``:
   norm3+feed-forward tail as kernel 2 (tanh GELU); the composite branch
   runs the frame attention and the exact-erf GEGLU feed-forward in plain
   torch. At full width every temporal transformer takes the fused branch,
-  ``transformer_in`` (inner = 8 × 64 = 512 on 320 channels) included. The
+  ``transformer_in`` (inner = 8 × 64 = 512 on 320 channels) included. Where
+  JAX's gate admits a head dim kernel 5 does not take (d > 256,
+  ``temporal_block.kernel_ok``; no configuration of the repo has one), the
+  fused branch runs each LN + frame attention + out-projection + residual
+  as the composite does, the same function as JAX's fused block, and keeps
+  kernel 2's tail: a shape gate on both devices, not a fallback. The
   output projection runs kernel 4.
 
 Under ``attn_impl="xla"`` or ``"packed"`` (JAX's composite configuration):
@@ -40,7 +45,7 @@ from animate_anything_tpu_torch.ops.attention import attention
 from animate_anything_tpu_torch.ops.geglu import ln_geglu_ff
 from animate_anything_tpu_torch.ops.proj_residual import proj_residual_stats
 from animate_anything_tpu_torch.ops.temporal_attention import temporal_attention
-from animate_anything_tpu_torch.ops.temporal_block import fused_ok, temporal_block
+from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, temporal_block
 
 
 class CrossAttention(nn.Module):
@@ -177,8 +182,9 @@ class TemporalSelfAttention(nn.Module):
 class TemporalBasicBlock(nn.Module):
     """Double-self-attention block on (b, f, s, c): LN → frame attention ×2 →
     LN → GEGLU feed-forward, each with a residual. Keys as
-    BasicTransformerBlock. ``fused``: each LN + attention through kernel 5,
-    the tail through kernel 2 (tanh GELU); otherwise plain torch with the
+    BasicTransformerBlock. ``fused``: each LN + attention through kernel 5
+    (or, where ``kernel5`` is False, through ``TemporalSelfAttention``), the
+    tail through kernel 2 (tanh GELU); otherwise plain torch with the
     exact-erf GELU around ``TemporalSelfAttention``."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, attn_impl: str = "pallas"):
@@ -190,13 +196,17 @@ class TemporalBasicBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, h: torch.Tensor, fused: bool) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, fused: bool, kernel5: bool) -> torch.Tensor:
         dt = self.attn1.to_q.weight.dtype
         if fused:
             for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
-                h = temporal_block(h.to(dt), norm.weight, norm.bias, attn.to_q.weight,
-                                   attn.to_k.weight, attn.to_v.weight, attn.to_out[0].weight,
-                                   attn.to_out[0].bias, heads=attn.heads, eps=norm.eps)
+                if kernel5:
+                    h = temporal_block(h.to(dt), norm.weight, norm.bias, attn.to_q.weight,
+                                       attn.to_k.weight, attn.to_v.weight,
+                                       attn.to_out[0].weight, attn.to_out[0].bias,
+                                       heads=attn.heads, eps=norm.eps)
+                else:
+                    h = h + attn(layer_norm(h, norm, dt))
             return self.ff.fused_tail(h.to(dt), self.norm3)
         h = h + self.attn1(layer_norm(h, self.norm1, dt))
         h = h + self.attn2(layer_norm(h, self.norm2, dt))
@@ -229,10 +239,11 @@ class TemporalTransformer(nn.Module):
         h = self.norm(x.reshape(b, num_frames, hh, ww, c), sums=entry_sums)
         h = self.proj_in(h.reshape(b, num_frames, hh * ww, c))
         pallas = self.attn_impl == "pallas"
-        fused = pallas and fused_ok(num_frames, self.heads * self.head_dim, self.heads,
-                                    self.head_dim)
+        inner = self.heads * self.head_dim
+        fused = pallas and fused_ok(num_frames, inner, self.heads, self.head_dim)
+        kernel5 = kernel_ok(num_frames, inner, self.heads)
         for block in self.transformer_blocks:
-            h = block(h, fused)
+            h = block(h, fused, kernel5)
         if not pallas:
             return self.proj_out(h).reshape(bf, hh, ww, c) + x, None
         dt = self.proj_out.weight.dtype

@@ -36,7 +36,14 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d on channels-last (n, h, w, c) tensors."""
+    """nn.Conv2d on channels-last (n, h, w, c) tensors, its weight held
+    channels_last too: casts, ``load_state_dict`` and in-place updates keep
+    the layout, cuDNN takes the weight without a copy, and kernel 8 reads it
+    in place as its (cout, 9·cin) operand (``ops/spatial_conv.pack_weight``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.weight.data = self.weight.data.contiguous(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.weight.dtype

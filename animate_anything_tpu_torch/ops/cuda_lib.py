@@ -37,8 +37,8 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _P],
     # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, bn, stages, grid, smem, stream
     "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # h, w, bias, res, y, s1, s2, n, s, k, c, stream
-    "aat_proj_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # h, w, bias, res, y, s1, s2, n, s, k, c, bn, stages, grid, smem, stream
+    "aat_proj_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, ln_s, ln_b, wq, wk, wv, wo, bo, ln, o, y, b, f, s, c, heads, eps, L, stages, grid,
     # smem, bn_out, stages_out, grid_out, smem_out, stream
     "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -49,8 +49,10 @@ _SIGNATURES = {
     "aat_add_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, bias, work, y, n, s, c, groups, chunks, eps, silu, stream
     "aat_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # x, a, b, w, bias, res, y, n, h, w, cin, cout, silu, stream
-    "aat_spatial_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, a, b, w (packed), bias, res, act, y, n, h, w, cin, cout, silu, bn, stages, grid,
+    # smem, stream
+    "aat_spatial_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     # q, k, v, o, b, f, s, heads, d, stream
     "aat_temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, ln_s, ln_b, wq, wk, wv, q, k, v, n, c, hd, eps, qscale, stream
@@ -161,5 +163,5 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> 
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 32:  # WMMA fragment loads need 32-byte alignment
+    if t.data_ptr() % 32:  # TMA maps and vector loads need 16-byte alignment; held to 32
         raise ValueError(f"{name}: data pointer is not 32-byte aligned")

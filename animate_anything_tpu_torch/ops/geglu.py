@@ -56,6 +56,22 @@ def _out_bn(n_out: int) -> int:
     return min(OUT_BN, key=lambda bn: (-(-n_out // bn) * bn, -bn))
 
 
+# A tile's fixed cost (ring fill, epilogue, store) in output columns of its
+# mainloop, for ``pick_width``.
+TILE_OVERHEAD_COLS = 64
+
+
+def pick_width(row_tiles: int, n_out: int, widths, sms: int = 132) -> int:
+    """The output-column tile width of a persistent GEMM over ``row_tiles``
+    128-row tiles on ``sms`` SMs: the fewest waves of tiles times a tile's
+    work (its columns plus ``TILE_OVERHEAD_COLS``), then the widest. The
+    waves count the tail: 272 tiles take three waves of 132."""
+    def cost(bn: int) -> tuple:
+        tiles = row_tiles * -(-n_out // bn)
+        return -(-tiles // sms) * (bn + TILE_OVERHEAD_COLS), -bn
+    return min(widths, key=cost)
+
+
 def gemm_plan(m: int, n_out: int, k: int, sms: int = 132) -> dict:
     """The residual GEMM ``y (m, n_out) = a (m, k)·wᵀ + bias + res``
     (``gemm.cuh::gemm_bias_residual``, kernel 2's GEMM 2, which kernel 5's

@@ -4,7 +4,10 @@ epilogue (``csrc/proj_residual.cu``).
 Replaces ``animate_anything_tpu/ops/proj_residual.py::_pallas_proj``:
 ``y = h·Wᵀ + bias + residual`` with per-(n, c) fp32 (Σy, Σy²) of the STORED
 y, which the consumer GroupNorm takes through ``group_affine(sums=)``. The
-weight is the torch Linear layout (c, k). Design note in the source header.
+weight is the torch Linear layout (c, k). The kernel is the slab form of
+``csrc/gemm.cuh``'s persistent TMA + wgmma residual GEMM (kernel 2's second
+GEMM); design note in the source header. ``launch_plan`` picks the tile
+width, ring depth, grid and shared memory, on any machine.
 
 Gradients: ``ops/autograd.Recompute`` differentiates ``proj_residual_twin``
 (JAX's ``_reference``, the custom_vjp's remat target) with all three
@@ -16,10 +19,33 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.ops import cuda_lib, geglu
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 
+SUB_ROWS = 64  # a sub-tile: 64 rows of one slab, one warpgroup's; two make a tile
+TILE_WIDTHS = geglu.OUT_BN  # output columns a tile: the residual GEMM's instantiations
+MAX_STAGES = 6  # as many as fit: 5 at 160 columns, where 4 were 5 % slower at s = 4096
+
 launches = 0  # kernel launches by proj_residual_stats
+
+
+def launch_plan(n: int, s: int, k: int, c: int, sms: int = 132) -> dict:
+    """The kernel's tiles for n slabs of s rows on a card of ``sms`` SMs,
+    without the card: 64-row sub-tiles of each slab paired into 128-row
+    tiles; ``bn`` output columns a tile by ``geglu.pick_width``; the ring as
+    deep as fits (at most ``MAX_STAGES``), persistent grid and shared-memory
+    bytes (``GemmLayout::smem``)."""
+    if min(n, s) < 1 or k < 8 or k % 8 or c < 8 or c % 8:
+        raise ValueError(f"proj_residual_stats: n={n}, s={s} ≥ 1, k={k} and c={c} "
+                         "multiples of 8 needed")
+    subs = n * -(-s // SUB_ROWS)
+    pairs = -(-subs // 2)
+    bn = geglu.pick_width(pairs, c, TILE_WIDTHS, sms)
+    tiles = pairs * -(-c // bn)
+    per_stage = geglu._gemm_smem(bn, 1, bn) - geglu._gemm_smem(bn, 0, bn)
+    stages = min(MAX_STAGES, (geglu.SMEM_LIMIT - geglu._gemm_smem(bn, 0, bn)) // per_stage)
+    return dict(bn=bn, stages=stages, grid=min(tiles, sms), smem=geglu._gemm_smem(bn, stages, bn),
+                subs=subs, tiles=tiles)
 
 
 def proj_residual_reference(h, w, bias, residual):
@@ -44,18 +70,18 @@ def proj_residual_twin(h, w, bias, residual):
 def _launch(h, w, bias, residual):
     n, s, k = h.shape
     c = w.shape[0]
-    if k % 8 or c % 8:
-        raise ValueError(f"proj_residual_stats: k={k} and c={c} must be multiples of 8")
     bf = torch.bfloat16
     cuda_lib.check_cuda("proj_residual h", h, bf, (n, s, k))
     cuda_lib.check_cuda("proj_residual w", w, bf, (c, k))
     cuda_lib.check_cuda("proj_residual bias", bias, torch.float32, (c,))
     cuda_lib.check_cuda("proj_residual residual", residual, bf, (n, s, c))
+    plan = launch_plan(n, s, k, c, torch.cuda.get_device_properties(h.device).multi_processor_count)
     y = torch.empty_like(residual)
     s1 = torch.zeros((n, c), device=h.device, dtype=torch.float32)
     s2 = torch.zeros_like(s1)
     cuda_lib.call("aat_proj_residual", h.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                  residual.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, s, k, c)
+                  residual.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, s, k, c,
+                  plan["bn"], plan["stages"], plan["grid"], plan["smem"])
     global launches
     launches += 1
     return y, (s1, s2)

@@ -23,10 +23,17 @@
    ragged s), each of the two called twice: kernel 5 and kernel 3's y bit
    for bit, kernel 3's atomic sums within a stated tolerance; the gates that
    send the head sizes the forward does not take to SDPA or the einsum form;
-   the channel sums, the streaming GroupNorm (+SiLU) and the fused
-   GroupNorm-affine + SiLU -> 3x3 conv at the opt-in configuration's
-   shapes; times one temporal transformer per width on its fused path
-   (kernel 5 + kernel 2) against the composite path;
+   the channel sums and the streaming GroupNorm (+SiLU) at the opt-in
+   configuration's shapes; the fused GroupNorm-affine + SiLU -> 3x3 conv
+   (kernel 8) at every resnet stage of the opt-in forward beside its bf16
+   composite (affine + SiLU, cuDNN's conv2d, + bias (+ residual)), summed
+   over a CFG forward by the stages' counts, at JAX's test shapes and at W >
+   64, called twice (bit for bit, the channels_last weight read in place);
+   the projection + residual + sums (kernel 4) at its five sites beside its
+   bf16 composite and its profiled device time, summed likewise, and at
+   ragged s, called twice; times one temporal
+   transformer per width on its fused path (kernel 5 + kernel 2) against
+   the composite path;
 4. runs a small UNet on the card through the kernels (every temporal site on
    the fused path) and holds it against the same weights through the plain
    versions on the CPU: its forward, then one training loss and its
@@ -337,6 +344,46 @@ def check_attention_gates(gen) -> None:
     _assert_close("temporal_attention d=160", got, ta.temporal_attention_reference(q, k, v),
                   Y_ATOL, Y_RTOL)
     log("  temporal_attention(impl='packed') d=160: einsum form, no kernel 9")
+    check_wide_head_temporal(gen)
+
+
+# A temporal transformer whose head dim kernel 5 does not take (d = 320 > 256)
+# but JAX's gate ``fused_ok`` sends to its fused block: bf16 on the card
+# against the same weights in fp32 on the CPU, as a relative RMS of bf16
+# storage through LayerNorm, two frame attentions and the GEGLU tail.
+WIDE_HEAD_REL_RMS = 2e-2
+
+
+def check_wide_head_temporal(gen) -> None:
+    """c = 640 with 2 heads at 17 frames on the card: the fused branch runs
+    each LN + frame attention as the composite does (no kernel-5 launch)
+    and keeps kernel 2's tail and kernel 4's projection, where kernel 5
+    would raise; held against the CPU."""
+    from animate_anything_tpu_torch.core.dtypes import cast_module_
+    from animate_anything_tpu_torch.models.attention import TemporalTransformer
+    from animate_anything_tpu_torch.ops import geglu, temporal_block
+    from animate_anything_tpu_torch.utils.convert import init_unet3d_
+
+    f, c, heads = FRAMES + 1, 640, 2
+    if temporal_block.kernel_ok(f, c, heads) or not temporal_block.fused_ok(f, c, heads,
+                                                                            c // heads):
+        raise AssertionError("d = 320: expected JAX's gate to admit it and kernel 5 not")
+    tt = init_unet3d_(TemporalTransformer(c, heads, c // heads), torch.Generator().manual_seed(7))
+    x = torch.randn(2 * f, 4, 4, c, generator=gen, device="cuda")
+    with torch.no_grad():
+        want, _ = tt.eval()(x.cpu(), f)
+        card = cast_module_(copy.deepcopy(tt).cuda()).eval()
+        k5, k2 = temporal_block.launches, geglu.launches
+        got, sums = card(x.to(torch.bfloat16), f)
+        torch.cuda.synchronize()
+    if temporal_block.launches != k5 or geglu.launches != k2 + 1:
+        raise AssertionError(f"d = 320: kernel 5 launched {temporal_block.launches - k5} times, "
+                             f"kernel 2 {geglu.launches - k2}")
+    rel = float((got.float().cpu() - want).square().mean().sqrt() / want.square().mean().sqrt())
+    if not torch.isfinite(got).all() or rel > WIDE_HEAD_REL_RMS:
+        raise AssertionError(f"d = 320 temporal transformer: relative RMS {rel:.4g}")
+    log(f"  temporal transformer c={c} heads={heads} (d=320): composite attention, kernel 2 "
+        f"tail, no kernel 5; relative RMS against the CPU {rel:.3g} (limit {WIDE_HEAD_REL_RMS})")
 
 
 def _sdpa_backward(q, k, v, do):
@@ -567,29 +614,131 @@ def check_tap_conv(gen) -> dict:
     return tally.row
 
 
-def check_proj_residual(gen) -> dict:
+# Beyond kernel 4's sites (``utils/kernel_sites.PROJ_SITES``): ragged s, the
+# last 64-row sub-tile of each slab cut by the slab, as (n, s, k, c).
+PROJ_TEST_SHAPES = ((34, 100, 320, 320), (3, 100, 64, 128))
+
+
+def _proj_composite(h, w, bias, r):
+    """The same function as PyTorch calls in bf16: ``F.linear`` with the bias,
+    + the residual, the two sums of the stored y. A reference line, timed
+    only and never called by the port."""
+    y = F.linear(h, w, bias.to(h.dtype)) + r
+    yf = y.float()
+    return y, (yf.sum(1), yf.square().sum(1))
+
+
+def _proj_case(gen, n, s, k, c):
+    """Kernel 4 against its plain version, and a second call against the
+    first: y bit for bit, the atomic sums within ``ATOMIC_SUM_RTOL``."""
     from animate_anything_tpu_torch.ops import proj_residual as pr
+
+    h = torch.randn(n, s, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = _lecun(gen, c, k, fan_in=k)
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    r = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+    y, (s1, s2) = pr.proj_residual_stats(h, w, bias, r)
+    y2, (t1, t2) = pr.proj_residual_stats(h, w, bias, r)
+    wy, (w1, w2) = pr.proj_residual_reference(h, w, bias, r)
+    tag = f"proj_residual n={n} s={s} k={k} c={c}"
+    _assert_close(tag, y, wy, Y_ATOL, Y_RTOL)
+    _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
+    _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
+    _assert_stored_sums(tag, y, (s1, s2), dim=1)
+    if not torch.equal(y, y2):
+        raise AssertionError(f"{tag}: two calls give different y")
+    yf = y.float()
+    for name, got, first, mag in (("Σy", t1, s1, yf.abs().sum(1)),
+                                  ("Σy²", t2, s2, yf.square().sum(1))):
+        if bool(((got - first).abs() > ATOMIC_SUM_RTOL * mag).any()):
+            raise AssertionError(f"{tag} {name}: two calls differ by more than "
+                                 f"{ATOMIC_SUM_RTOL} of the magnitudes summed")
+    return tag, (h, w, bias, r), _err(y, wy)
+
+
+def _device_ms(fn, group: str, iters: int = 20) -> float | None:
+    """Device time of ``group``'s kernels a call of fn, from one profiled run
+    of ``iters`` calls (``utils/profiling.device_profile``): the kernel's
+    own time, where CUDA events around a loop of short calls also time the
+    host that issues them. None where the profiler saw no device time."""
+    from animate_anything_tpu_torch.utils.profiling import device_profile
+
+    ms = device_profile(lambda: [fn() for _ in range(iters)])["groups"].get(group)
+    return None if not ms else ms / iters
+
+
+def _proj_width_device_ms(args, want) -> dict:
+    """Kernel 4's device time at one site with each tile width of its
+    instantiations forced on the plan (the plan's choice narrowed to one
+    width), each held against the plain version ``want``: what the plan's
+    pick is measured against."""
+    from animate_anything_tpu_torch.ops import proj_residual as pr
+
+    widths, out = pr.TILE_WIDTHS, {}
+    try:
+        for bn in widths:
+            pr.TILE_WIDTHS = (bn,)
+            with torch.no_grad():
+                _assert_close(f"proj_residual bn={bn}", pr.proj_residual_stats(*args)[0], want,
+                              Y_ATOL, Y_RTOL)
+                out[bn] = _device_ms(lambda: pr.proj_residual_stats(*args),
+                                     "proj_residual (kernel 4)")
+    finally:
+        pr.TILE_WIDTHS = widths
+    return out
+
+
+def check_proj_residual(gen) -> dict:
+    """Kernel 4 at its five sites, each called twice, timed by CUDA events
+    and by the profiler's device time (``site_device_ms``) beside its bf16
+    composite (``composite_ms``) and summed over a CFG forward by the sites'
+    counts (``forward_ms``, ``forward_device_ms``, ``forward_bound_ms``,
+    ``forward_composite_ms``); at s = 64 also by tile width
+    (``s64_width_device_ms``: 85 tiles of 256 columns leave 47 SMs idle);
+    then at ragged s."""
+    from animate_anything_tpu_torch.ops import proj_residual as pr
+    from animate_anything_tpu_torch.utils.kernel_sites import PROJ_SITES
 
     tally = Tally("proj_residual_stats", "animate_anything_tpu_torch/csrc/proj_residual.cu",
                   "animate_anything_tpu/ops/proj_residual.py:83")
     n = 2 * (FRAMES + 1)
-    for s, k, c in ((4096, 512, 320), (4096, 320, 320), (1024, 640, 640), (256, 1280, 1280),
-                    (64, 1280, 1280)):
-        h = torch.randn(n, s, k, generator=gen, device="cuda").to(torch.bfloat16)
-        w = _lecun(gen, c, k, fan_in=k)
-        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        r = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
-        y, (s1, s2) = pr.proj_residual_stats(h, w, bias, r)
-        wy, (w1, w2) = pr.proj_residual_reference(h, w, bias, r)
-        tag = f"proj_residual n={n} s={s} k={k} c={c}"
-        _assert_close(tag, y, wy, Y_ATOL, Y_RTOL)
-        _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
-        _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
-        _assert_stored_sums(tag, y, (s1, s2), dim=1)
-        ms = cuda_ms(lambda: pr.proj_residual_stats(h, w, bias, r))
-        plain = cuda_ms(lambda: pr.proj_residual_reference(h, w, bias, r), warmup=1, iters=3)
+    composite_ms = forward = forward_bound = forward_comp = 0.0
+    device = []
+    for s, k, c, count in PROJ_SITES:
+        tag, args, err = _proj_case(gen, n, s, k, c)
+        ms = cuda_ms(lambda: pr.proj_residual_stats(*args))
+        with torch.no_grad():
+            device.append(_device_ms(lambda: pr.proj_residual_stats(*args),
+                                     "proj_residual (kernel 4)"))
+        plain = cuda_ms(lambda: pr.proj_residual_reference(*args), warmup=1, iters=3)
+        with torch.no_grad():
+            comp = cuda_ms(lambda: _proj_composite(*args))
+        composite_ms += comp
+        flop = 2 * n * s * k * c
         nbytes = n * s * (k + 2 * c) * 2 + k * c * 2 + 2 * n * c * 4
-        tally.add(tag, _err(y, wy), ms, plain, 2 * n * s * k * c, nbytes)
+        forward += count * ms
+        forward_bound += count * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        forward_comp += count * comp
+        dev = "not measured" if device[-1] is None else f"{device[-1]:.3f} ms"
+        log(f"    device time (profiler) {dev}; bf16 composite (Linear + bias, + residual, two "
+            f"sums; a reference line) {comp:.3f} ms; {count} a CFG forward")
+        tally.add(tag, err, ms, plain, flop, nbytes)
+        if s == 64:
+            widths = _proj_width_device_ms(args, pr.proj_residual_reference(*args)[0])
+            tally.row["s64_width_device_ms"] = widths
+            log(f"    s=64 device ms by tile width {widths}; the plan picks "
+                f"{pr.launch_plan(n, s, k, c)['bn']}")
+    for shape in PROJ_TEST_SHAPES:
+        tag, _, err = _proj_case(gen, *shape)
+        log(f"  {tag}: max|err| {err:.3g}")
+    forward_device = (None if None in device else
+                      sum(d * site[-1] for d, site in zip(device, PROJ_SITES)))
+    tally.row.update(composite_ms=composite_ms, forward_ms=forward, forward_bound_ms=forward_bound,
+                     forward_composite_ms=forward_comp, site_device_ms=device,
+                     forward_device_ms=forward_device)
+    log(f"  kernel 4 a CFG forward (33 launches by the sites' counts): {forward:.3f} ms against "
+        f"a bound of {forward_bound:.3f} ms ({forward_bound / forward:.0%}); device time "
+        f"{forward_device}; bf16 composite {forward_comp:.3f} ms")
     return tally.row
 
 
@@ -733,55 +882,107 @@ def check_streaming_gn(gen) -> dict:
     return tally.row
 
 
-# (n, H, W, cin, cout, time bias, residual): the opt-in UNet's resnet stages at
-# full width (34 = 2 x 17 frames), the last one a skip-concat up-block resnet.
-SPATIAL_CONV_SITES = ((34, 64, 64, 320, 320, True, False), (34, 32, 32, 640, 640, False, False),
-                      (34, 16, 16, 2560, 1280, False, True), (34, 8, 8, 1280, 1280, False, False))
+# Beyond the UNet's sites, (n, H, W, cin, cout, time bias, residual): JAX's test
+# shape (tests/test_torch_port_spatial_conv.py) and W > 64, where a sub-tile
+# is a 64-pixel run of one row and rows end past W.
+SPATIAL_CONV_TEST_SHAPES = ((2, 16, 16, 64, 48, False, True), (1, 5, 100, 32, 64, True, True))
 
 
-def _spatial_conv_case(gen, tally, n, hw, cin, cout, extra, residual, silu=True,
-                       entry="gn_silu_spatial_conv") -> None:
-    from animate_anything_tpu_torch.ops import spatial_conv as sc
-
-    x = torch.randn(n, hw, hw, cin, generator=gen, device="cuda").to(torch.bfloat16)
+def _spatial_conv_args(gen, n, h, w, cin, cout, extra, residual):
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda").to(torch.bfloat16)
     a = 1.0 + 0.1 * torch.randn(n, cin, generator=gen, device="cuda")
     b = 0.1 * torch.randn(n, cin, generator=gen, device="cuda")
-    w = _lecun(gen, cout, cin, 3, 3, fan_in=9 * cin)
+    # channels_last, as the port's Conv2d holds its weight: the kernel reads it in place
+    wt = _lecun(gen, cout, cin, 3, 3, fan_in=9 * cin).contiguous(memory_format=torch.channels_last)
     bias = 0.1 * torch.randn(cout, generator=gen, device="cuda")[None, :].repeat(n, 1)
     if extra:
         bias = bias + 0.1 * torch.randn(n, cout, generator=gen, device="cuda")
-    res = (torch.randn(n, hw, hw, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    res = (torch.randn(n, h, w, cout, generator=gen, device="cuda").to(torch.bfloat16)
            if residual else None)
+    return x, a, b, wt, bias, res
+
+
+def _spatial_conv_composite(x, a, b, w, bias, res):
+    """The same function as PyTorch calls in bf16: the GroupNorm-affine and
+    SiLU as one pass over x, cuDNN's ``F.conv2d`` on the channels-last view,
+    + bias (+ residual). The yardstick kernel 8 has to beat, timed only and
+    never called by the port."""
+    bf = torch.bfloat16
+    act = F.silu(torch.addcmul(b.to(bf)[:, None, None], x, a.to(bf)[:, None, None]))
+    y = F.conv2d(act.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    y = y + bias.to(bf)[:, None, None]
+    return y if res is None else y + res
+
+
+def _spatial_conv_case(tag: str, args) -> float:
+    """Kernel 8 against its plain version, and a second call against the
+    first, bit for bit (no atomics); the channels_last weight is the
+    kernel's operand as it is, with no copy."""
+    from animate_anything_tpu_torch.ops import spatial_conv as sc
+
+    if sc.pack_weight(args[3]).data_ptr() != args[3].data_ptr():
+        raise AssertionError(f"{tag}: the weight is not the kernel's operand in place")
     with torch.no_grad():
-        got = sc.spatial_conv(x, a, b, w, bias, res, silu)
-        want = sc.spatial_conv_reference(x, a, b, w, bias, res, silu)
-        tag = (f"{entry} n={n} {hw}x{hw} {cin}->{cout} time_bias={extra} "
-               f"residual={residual}")
-        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
-        ms = cuda_ms(lambda: sc.spatial_conv(x, a, b, w, bias, res, silu))
-        plain = cuda_ms(lambda: sc.spatial_conv_reference(x, a, b, w, bias, res, silu),
-                        warmup=1, iters=3)
-        pack = cuda_ms(lambda: sc.pack_weight(w))
-        xc = x.permute(0, 3, 1, 2)   # channels_last NCHW view, no copy
-        cudnn = cuda_ms(lambda: F.conv2d(xc, w, padding=1))
-    pixels = n * hw * hw
-    nbytes = pixels * (cin + cout * (2 if residual else 1)) * 2 + 9 * cin * cout * 2 \
-        + (2 * cin + cout) * n * 4
-    tally.add(tag, _err(got, want), ms, plain, 2 * pixels * 9 * cin * cout, nbytes)
-    tally.row["cudnn_conv_ms"] = tally.row.get("cudnn_conv_ms", 0.0) + cudnn
-    log(f"    of which the per-call weight reorder {pack:.3f} ms; cuDNN conv2d of the same "
-        f"shape (bf16, no norm, bias or residual; a reference line) {cudnn:.3f} ms")
+        got = sc.spatial_conv(*args)
+        again = sc.spatial_conv(*args)
+        want = sc.spatial_conv_reference(*args, True)
+    _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: two calls differ")
+    return _err(got, want)
 
 
 def check_spatial_conv(gen) -> dict:
-    """Kernel 8 at the UNet's four resnet-stage shapes, and through
-    ``gn_silu_conv3x3``'s function (no residual) at one more."""
+    """Kernel 8 at every resnet stage of the opt-in forward
+    (``utils/kernel_sites.SPATIAL_CONV_SITES``), each called
+    twice, timed beside its bf16 composite (``composite_ms``) and summed
+    over a CFG forward by the sites' launch counts (``forward_ms``,
+    ``forward_bound_ms``, ``forward_composite_ms``); then at JAX's test
+    shape, at W > 64 and at JAX's conv3x3 test shape (``gn_silu_conv3x3``'s
+    stage: no residual, always SiLU)."""
+    from animate_anything_tpu_torch.ops import spatial_conv as sc
+    from animate_anything_tpu_torch.utils.kernel_sites import SPATIAL_CONV_SITES
+
     tally = Tally("spatial_conv", "animate_anything_tpu_torch/csrc/spatial_conv.cu",
                   "animate_anything_tpu/ops/attic/spatial_conv.py:197")
-    for n, hw, _, cin, cout, extra, residual in SPATIAL_CONV_SITES:
-        _spatial_conv_case(gen, tally, n, hw, cin, cout, extra, residual)
+    tally.row["replaces_also"] = "animate_anything_tpu/ops/attic/conv3x3.py:128"
+    n = 2 * (FRAMES + 1)
+    composite_ms = forward = forward_bound = forward_comp = 0.0
+    for hw, cin, cout, extra, residual, count in SPATIAL_CONV_SITES:
+        args = _spatial_conv_args(gen, n, hw, hw, cin, cout, extra, residual)
+        tag = f"spatial_conv n={n} {hw}x{hw} {cin}->{cout} time_bias={extra} residual={residual}"
+        err = _spatial_conv_case(tag, args)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: sc.spatial_conv(*args))
+            plain = cuda_ms(lambda: sc.spatial_conv_reference(*args, True), warmup=1, iters=3)
+            comp = cuda_ms(lambda: _spatial_conv_composite(*args))
+        composite_ms += comp
+        pixels = n * hw * hw
+        # FLOP of the (pixel, tap) pairs that land in the image: (3H - 2)(3W - 2)
+        # of an image's 9HW; the others read the zero padding
+        flop = 2 * n * (3 * hw - 2) ** 2 * cin * cout
+        nbytes = pixels * (cin + cout * (2 if residual else 1)) * 2 + 9 * cin * cout * 2 \
+            + (2 * cin + cout) * n * 4
+        forward += count * ms
+        forward_bound += count * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        forward_comp += count * comp
+        log(f"    bf16 composite (affine + SiLU, cuDNN conv2d, + bias (+ residual); a reference "
+            f"line) {comp:.3f} ms; {count} a CFG forward")
+        tally.add(tag, err, ms, plain, flop, nbytes)
+        del args
         torch.cuda.empty_cache()
-    _spatial_conv_case(gen, tally, 34, 32, 640, 640, True, False, entry="gn_silu_conv3x3")
+    for n_, h, w, cin, cout, extra, residual in SPATIAL_CONV_TEST_SHAPES:
+        tag = f"spatial_conv n={n_} {h}x{w} {cin}->{cout} time_bias={extra} residual={residual}"
+        args = _spatial_conv_args(gen, n_, h, w, cin, cout, extra, residual)
+        log(f"  {tag}: max|err| {_spatial_conv_case(tag, args):.3g}")
+    tag = "gn_silu_conv3x3's stage n=2 8x8 32->48 time_bias=True"
+    args = _spatial_conv_args(gen, 2, 8, 8, 32, 48, True, False)
+    log(f"  {tag}: max|err| {_spatial_conv_case(tag, args):.3g}")
+    tally.row.update(composite_ms=composite_ms, forward_ms=forward, forward_bound_ms=forward_bound,
+                     forward_composite_ms=forward_comp)
+    log(f"  kernel 8 a CFG forward (44 stages by the sites' counts): {forward:.3f} ms against a "
+        f"bound of {forward_bound:.3f} ms ({forward_bound / forward:.0%}); bf16 composite "
+        f"{forward_comp:.3f} ms")
     return tally.row
 
 

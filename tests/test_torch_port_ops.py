@@ -307,6 +307,31 @@ def test_proj_residual_plain_matches_jax_kernel_and_twin(k):
         np.testing.assert_allclose(n(s2), n(want2), rtol=2e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("s", [100, 64])   # ragged (s % 64 ≠ 0), and one sub-tile a slab
+def test_proj_residual_plain_matches_jax_kernel_at_the_slab_edges(s):
+    """The kernel pairs 64-row sub-tiles of one slab into a tile: at a ragged
+    s the last sub-tile of each slab is cut by the slab, at s = 64 a tile
+    holds two slabs. The plain version holds the per-slab sums there, as
+    the Pallas kernel and its twin compute them."""
+    from animate_anything_tpu.ops.proj_residual import _pallas_proj, _reference
+    from animate_anything_tpu_torch.ops.proj_residual import proj_residual_stats
+
+    r = _rng(s)
+    nn_, k, c = 3, 64, 128
+    h = r.standard_normal((nn_, s, k)).astype(np.float32)
+    w = (0.05 * r.standard_normal((k, c))).astype(np.float32)
+    bias = (0.1 * r.standard_normal(c)).astype(np.float32)
+    res = r.standard_normal((nn_, s, c)).astype(np.float32)
+    y, (s1, s2) = proj_residual_stats(t(h), t(w.T), t(bias), t(res))
+    with pltpu.force_tpu_interpret_mode():
+        ky, ks1, ks2 = _pallas_proj(h, w, bias, res, ch=4 if s % 8 else 8)
+    ry, rs1, rs2 = _reference(h, w, bias, res)
+    for want_y, want1, want2 in ((ky, ks1, ks2), (ry, rs1, rs2)):
+        np.testing.assert_allclose(n(y), n(want_y), atol=2e-5)
+        np.testing.assert_allclose(n(s1), n(want1), rtol=2e-5, atol=1e-3)
+        np.testing.assert_allclose(n(s2), n(want2), rtol=2e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("op", ["tap_conv", "proj_residual"])
 def test_plain_stats_are_sums_of_the_stored_bf16_output(op):
     """With bf16 activations the Σy, Σy² epilogue sums the rounded y that is

@@ -9,6 +9,13 @@ path is the plain version). Tolerance 2e-5 absolute, as the JAX package
 holds its kernels against their twins; gradients go through JAX's custom
 VJPs (``_fused_p``) and the port's ``Recompute``. The resnet is held at
 5e-5 (two stages and a shortcut) with the same params on both sides.
+
+The kernel's own arithmetic, the activation pass and one GEMM with K =
+9·cin of the nine shifted, zero-padded windows of its output against the
+weight's (cout, 9·cin) view (``activation``, ``tap_gemm_reference``,
+``pack_weight``), is held against ``F.conv2d`` (the plain version) and
+``_pallas_stage`` at the same shapes, and that view of the channels_last
+conv weight against casts, loads and in-place updates.
 """
 
 import contextlib
@@ -54,8 +61,10 @@ def jax_kernel_stage(module, ch=8):
         yield calls
 
 
-@pytest.mark.parametrize("hw,cin,cout,extra,residual", [
-    (16, 64, 48, False, True), (16, 64, 64, True, False), (8, 128, 128, True, True)])
+STAGE_CASES = [(16, 64, 48, False, True), (16, 64, 64, True, False), (8, 128, 128, True, True)]
+
+
+@pytest.mark.parametrize("hw,cin,cout,extra,residual", STAGE_CASES)
 def test_gn_silu_spatial_conv_matches_the_pallas_stage(hw, cin, cout, extra, residual):
     from animate_anything_tpu.ops.attic import spatial_conv as jsc
     from animate_anything_tpu_torch.ops import spatial_conv as sc
@@ -96,6 +105,81 @@ def test_gn_silu_conv3x3_matches_the_pallas_stage():
         got = sc.gn_silu_conv3x3(t(c["x"]), t(c["scale"]), t(c["shift"]), _oihw(c["w"]),
                                  t(c["bias"]), groups=8, extra_bias=t(c["extra"]))
     np.testing.assert_allclose(n(got), n(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("hw,cin,cout,extra,residual", STAGE_CASES + [(8, 32, 48, True, False)])
+def test_packed_weight_gemm_over_shifted_windows_matches_conv_and_the_pallas_stage(
+        hw, cin, cout, extra, residual):
+    """The kernel's arithmetic on the CPU: ``activation`` (the first launch),
+    then one GEMM over the nine shifted windows of its output, zero-padded
+    after the activation, against ``pack_weight``'s (cout, 9·cin) operand
+    (the second launch), equals ``F.conv2d`` on the same activation (the
+    plain version) and JAX's ``_pallas_stage`` in interpret mode."""
+    from animate_anything_tpu.ops.attic import spatial_conv as jsc
+    from animate_anything_tpu_torch.ops import spatial_conv as sc
+
+    c = _case(hw, cin, cout, seed=cin + cout)
+    a, b, bias = _folded(c, cout)
+    if not extra:
+        bias = np.broadcast_to(bias[:1], bias.shape).copy()   # one bias for every sample
+    res = c["res"] if residual else None
+    w = _oihw(c["w"])
+    wp = sc.pack_weight(w)
+    assert wp.shape == (cout, 9 * cin) and wp.is_contiguous()
+    act = sc.activation(t(c["x"]), t(a), t(b), True)
+    got = sc.tap_gemm_reference(act, wp, t(bias), None if res is None else t(res))
+    conv = sc.spatial_conv_reference(t(c["x"]), t(a), t(b), w, t(bias),
+                                     None if res is None else t(res), True)
+    with pltpu.force_tpu_interpret_mode():
+        want = jsc._pallas_stage(jnp.asarray(c["x"]), jnp.asarray(a), jnp.asarray(b),
+                                 jnp.asarray(c["w"].reshape(9, cin, cout)),
+                                 jnp.asarray(bias[:, None, :]),
+                                 None if res is None else jnp.asarray(res), ch=8, co_ch=cout,
+                                 silu=True)
+    np.testing.assert_allclose(n(got), n(conv), atol=ATOL)
+    np.testing.assert_allclose(n(got), np.asarray(want), atol=ATOL)
+
+
+def test_conv_weight_is_the_kernels_operand_in_place():
+    """Nothing is packed or cached: the port's ``Conv2d`` holds its weight
+    channels_last, through casts and ``load_state_dict``, so ``pack_weight``
+    is a view of the weight's memory, the kernel's operand as it is. An
+    in-place update (an optimizer step, ``copy_``) is seen by the next call,
+    and the wrapper takes a weight in any other layout by copying it."""
+    from animate_anything_tpu_torch.models.layers import Conv2d
+    from animate_anything_tpu_torch.ops import spatial_conv as sc
+
+    torch.manual_seed(0)
+    conv = Conv2d(16, 8, 3, padding=1)
+    state = {k: torch.randn(v.shape) for k, v in conv.state_dict().items()}
+    conv.load_state_dict(state)
+    conv = conv.to(torch.float64)
+    w = conv.weight
+    assert w.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(w, state["weight"].double(), rtol=0, atol=0)
+    view = sc.pack_weight(w)
+    assert view.shape == (8, 9 * 16) and view.is_contiguous()
+    assert view.data_ptr() == w.data_ptr()
+    torch.testing.assert_close(view, state["weight"].double().permute(0, 2, 3, 1).reshape(8, -1),
+                               rtol=0, atol=0)
+    x = torch.randn(2, 5, 7, 16, dtype=torch.float64)
+    a, b = 1.0 + 0.1 * torch.randn(2, 16, dtype=torch.float64), torch.randn(2, 16, dtype=torch.float64)
+    bias = torch.randn(2, 8, dtype=torch.float64)
+
+    def stage(weight):
+        with torch.no_grad():
+            return sc.spatial_conv(x, a, b, weight, bias)
+
+    first = stage(w)
+    w.grad = torch.ones_like(w)
+    torch.optim.SGD([w], lr=0.5).step()
+    assert w.is_contiguous(memory_format=torch.channels_last)
+    assert sc.pack_weight(w).data_ptr() == w.data_ptr()
+    moved = stage(w)
+    want = sc.spatial_conv_reference(x, a, b, w.detach().contiguous(), bias, None, True)
+    torch.testing.assert_close(moved, want, rtol=1e-5, atol=ATOL)   # fp32 convs, two layouts
+    assert not torch.equal(moved, first)
+    torch.testing.assert_close(stage(w.detach().contiguous()), moved, rtol=0, atol=0)
 
 
 def _folded(c, cout):

@@ -170,3 +170,37 @@ def test_fused_temporal_transformer_matches_jax(channels, heads, d, hw, geometry
         got, sums = port(t(x), f)
     np.testing.assert_allclose(n(got), n(want), atol=5e-5)
     np.testing.assert_allclose(n(sums[0]), n(want_sums[0]), rtol=1e-5, atol=1e-3)
+
+
+def test_head_dims_past_kernel_5_run_the_composite_attention_on_the_fused_path():
+    """c = 640 with 2 heads (d = 320): JAX's gate ``fused_ok`` sends it to its
+    fused block, kernel 5 does not take d > 256 (``kernel_ok``). The port's
+    temporal transformer then runs each LN + frame attention + out-projection
+    as the composite does, on the CPU as on the card (a shape gate, not a
+    fallback), and keeps the fused tail (kernel 2, tanh GELU): the same
+    function as JAX's fused block, held at the module tests' 5e-5."""
+    from unittest import mock
+
+    from animate_anything_tpu.models.attention import TemporalTransformer as JaxTT
+    from animate_anything_tpu.ops.temporal_block import fused_ok
+    from animate_anything_tpu_torch.models import attention
+    from animate_anything_tpu_torch.models.attention import TemporalTransformer
+    from animate_anything_tpu_torch.ops import temporal_block as ptb
+    from animate_anything_tpu_torch.utils.convert import unet3d_state_dict
+
+    f, c, heads = 4, 640, 2
+    d = c // heads
+    assert fused_ok(f, c, heads, d) and ptb.fused_ok(f, c, heads, d)
+    assert not ptb.kernel_ok(f, c, heads) and ptb.kernel_ok(f, c, 4)
+    r = np.random.default_rng(9)
+    x = r.standard_normal((2 * f, 2, 3, c)).astype(np.float32)
+    p = jax_params(JaxTT(heads, d, attn_impl="xla"), x, f)
+    want, want_sums = JaxTT(heads, d, attn_impl="pallas").apply(p, x, f, None, None, True)
+    port = load_into(TemporalTransformer(c, heads, d), unet3d_state_dict(p["params"]))
+    with mock.patch.object(attention, "temporal_block", wraps=attention.temporal_block) as k5, \
+            mock.patch.object(attention, "ln_geglu_ff", wraps=attention.ln_geglu_ff) as tail, \
+            torch.no_grad():
+        got, sums = port(t(x), f)
+    assert k5.call_count == 0 and tail.call_count == 1
+    np.testing.assert_allclose(n(got), n(want), atol=5e-5)
+    np.testing.assert_allclose(n(sums[0]), n(want_sums[0]), rtol=1e-5, atol=1e-3)
