@@ -1,8 +1,9 @@
 // Kernel 2: LayerNorm -> GEGLU feed-forward -> + residual, on TMA and wgmma.
 //
 // Replaces animate_anything_tpu/ops/geglu.py::_pallas_ln_geglu (_kernel,
-// c <= 640) and ::_pallas_ln_geglu_wide (_wide_kernel, c = 1280) with one
-// code path for every c % 16 == 0 up to 1280:
+// c <= 640) and ::_pallas_ln_geglu_wide (_wide_kernel, 128-aligned c from
+// 768 to 2432) with one code path for every c % 8 == 0 up to 4096 (the
+// wrapper zero-pads other widths to the next multiple of 8, below):
 //     y = x + W2·(val ⊙ gelu_tanh(gate)) + b2,   [val ‖ gate] = LN(x)·W1 + b1
 // with LN statistics in fp32, LN(x) rounded to bf16 before W1, the GEGLU
 // product rounded to bf16 before W2 and the residual added in fp32.
@@ -41,7 +42,16 @@
 // shared memory in TMA's swizzle (GEMM 2 over the residual tile, TMA-loaded
 // there during the mainloop) and stores it with one TMA store, so global
 // memory sees whole rows, not 4-byte pieces.  Rows past n and columns past
-// c read as zeros through the maps and are not stored.
+// c read as zeros through the maps and are not stored; where 4c is not a
+// multiple of GEMM 1's BN/2 val columns, its last column tile reads gate
+// rows as val rows for act columns past 4c, which are not stored.
+// TMA needs 16-byte row strides, so c % 8 == 0.  At another c the wrapper
+// runs the kernel at cp = c rounded up to 8: x, the LN scale and bias, b2
+// and each weight zero-padded (W1's val and gate halves each to 4cp rows),
+// the LN statistics over the first c columns (cs = c below), y cut back to
+// c columns.  The zero columns add nothing: LN(x) there is 0·rstd·0 + 0,
+// the padded act columns are (0 + 0)·gelu(0 + 0), and the padded W2 rows
+// and columns are zero.
 // Tiles, ring depth, grid and shared-memory bytes come from the wrapper's
 // launch plan (ops/geglu.py::launch_plan), checked here.  The LN pass and
 // the GEMM are in gemm.cuh, which kernel 5 shares.
@@ -49,22 +59,23 @@
 
 // x, y: (n, c) bf16; w1: (8c, c) bf16 [val rows, then gate rows]; w2: (c, 4c)
 // bf16; ln_s, ln_b, b2: (c,) fp32; b1: (8c,) fp32; ln: (n, c) and act: (n, 4c)
-// bf16 scratch.  c % 16 == 0, c <= 1280; all 16-byte aligned.  The launch
+// bf16 scratch.  c % 8 == 0, c <= 4096; the LN statistics over the first cs
+// columns (cs <= c; the rest zero padding); all 16-byte aligned.  The launch
 // plan (ops/geglu.py::launch_plan): GEMM 1's tile width bn1 (128 or 256:
 // bn1/2 val and bn1/2 gate columns), ring stages, grid and dynamic shared
 // bytes; GEMM 2's likewise (bn2 in 64, 128, 160, 256); gate_row0 = 4c.
 AAT_EXPORT int aat_ln_geglu(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* y, void* ln,
-                            void* act, int n, int c, float eps, int bn1, int stages1, int grid1,
-                            int smem1, int bn2, int stages2, int grid2, int smem2, int gate_row0,
-                            void* stream) {
+                            void* act, int n, int c, int cs, float eps, int bn1, int stages1,
+                            int grid1, int smem1, int bn2, int stages2, int grid2, int smem2,
+                            int gate_row0, void* stream) {
   using namespace aat;
   using namespace aat::gemm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int inner = 4 * c;
-  if (n < 1 || c % 16 != 0 || c > 1280 || gate_row0 != inner || inner % (bn1 / 2) != 0)
+  if (n < 1 || c % 8 != 0 || c > 4096 || gate_row0 != inner)
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_layer_norm<ln_geglu_ff>(x, ln_s, ln_b, ln, n, c, eps, st);
+  int err = launch_layer_norm<ln_geglu_ff>(x, ln_s, ln_b, ln, n, c, cs, eps, st);
   if (err) return err;
 
   const int row_tiles = (n + BM - 1) / BM;
@@ -74,7 +85,7 @@ AAT_EXPORT int aat_ln_geglu(const void* x, const void* ln_s, const void* ln_b, c
   p1.n = inner;
   p1.k = c;
   p1.gate_row0 = gate_row0;
-  p1.col_tiles = inner / (bn1 / 2);
+  p1.col_tiles = (inner + bn1 / 2 - 1) / (bn1 / 2);
   p1.tiles = row_tiles * p1.col_tiles;
   p1.stages = stages1;
   if (bn1 == 256)

@@ -49,30 +49,31 @@ constexpr int CONSUMERS = 256;  // two warpgroups (and, where the registers allo
 constexpr int BM = 128, BK = 64;         // tile rows; K step (one 128-byte swizzle row)
 constexpr int SMEM_LIMIT = 232448;
 constexpr int LN_WARPS = 8;   // warps a block of the LN pass
-constexpr int LN_CHUNKS = 8;  // 16-byte chunks a lane may hold
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---- LN ---------------------------------------------------------------------------
 
-// LN(x) of (n, c) rows into ln, bf16, fp32 two-pass statistics: LPR lanes
-// a row (so a warp holds 32 / LPR rows), each lane up to LN_CHUNKS 16-byte
-// chunks of it in registers, read once; c <= 64·LPR.  A row of one warp
-// (the first version) left a lane one or two loads in flight at c = 320,
-// and the pass ran at a third of HBM's rate.  c % 8 == 0.
-template <int LPR, typename Owner>
+// LN(x) of (n, c) rows into ln, bf16, fp32 two-pass statistics over the
+// first cs columns (the rest are zero padding, kernel 2 at c % 8 != 0): LPR
+// lanes a row (so a warp holds 32 / LPR rows), each lane up to CHUNKS
+// 16-byte chunks of it in registers, read once; c <= 8·CHUNKS·LPR.  A row of
+// one warp (the first version) left a lane one or two loads in flight at
+// c = 320, and the pass ran at a third of HBM's rate.  c % 8 == 0.
+template <int LPR, int CHUNKS, typename Owner>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
-                  const float* __restrict__ b, bf16* __restrict__ ln, int n, int c, float eps) {
+                  const float* __restrict__ b, bf16* __restrict__ ln, int n, int c, int cs,
+                  float eps) {
   const int lane = threadIdx.x & 31, sub = lane % LPR;
   const int row = (blockIdx.x * LN_WARPS + threadIdx.x / 32) * (32 / LPR) + lane / LPR;
   const bool ok = row < n;  // no early exit: the shuffles take the whole warp
   const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)row * c);
   uint4* dst = reinterpret_cast<uint4*>(ln + (size_t)row * c);
   const int chunks = c / 8;
-  uint4 v[LN_CHUNKS];
+  uint4 v[CHUNKS];
   float sum = 0.f;
 #pragma unroll
-  for (int k = 0; k < LN_CHUNKS; ++k) {
+  for (int k = 0; k < CHUNKS; ++k) {
     if (!ok || sub + LPR * k >= chunks) continue;
     v[k] = src[sub + LPR * k];
     const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[k]);
@@ -84,23 +85,25 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
   }
 #pragma unroll
   for (int o = 1; o < LPR; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  const float mu = sum / c;
+  const float mu = sum / cs;
   float sq = 0.f;
 #pragma unroll
-  for (int k = 0; k < LN_CHUNKS; ++k) {
+  for (int k = 0; k < CHUNKS; ++k) {
     if (!ok || sub + LPR * k >= chunks) continue;
     const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[k]);
+    const int col = 8 * (sub + LPR * k);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(e[i]);
-      sq += (f.x - mu) * (f.x - mu) + (f.y - mu) * (f.y - mu);
+      if (col + 2 * i < cs) sq += (f.x - mu) * (f.x - mu);
+      if (col + 2 * i + 1 < cs) sq += (f.y - mu) * (f.y - mu);
     }
   }
 #pragma unroll
   for (int o = 1; o < LPR; o <<= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  const float rstd = rsqrtf(sq / c + eps);
+  const float rstd = rsqrtf(sq / cs + eps);
 #pragma unroll
-  for (int k = 0; k < LN_CHUNKS; ++k) {
+  for (int k = 0; k < CHUNKS; ++k) {
     const int u = sub + LPR * k;
     if (!ok || u >= chunks) continue;
     const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[k]);
@@ -117,25 +120,28 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
   }
 }
 
-template <int LPR, typename Owner>
+template <int LPR, int CHUNKS, typename Owner>
 int launch_layer_norm_lpr(const void* x, const void* s, const void* b, void* ln, int n, int c,
-                          float eps, cudaStream_t stream) {
+                          int cs, float eps, cudaStream_t stream) {
   constexpr int rows = LN_WARPS * (32 / LPR);  // a block's
-  layer_norm_kernel<LPR, Owner><<<(n + rows - 1) / rows, LN_WARPS * 32, 0, stream>>>(
+  layer_norm_kernel<LPR, CHUNKS, Owner><<<(n + rows - 1) / rows, LN_WARPS * 32, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(s), static_cast<const float*>(b),
-      static_cast<bf16*>(ln), n, c, eps);
+      static_cast<bf16*>(ln), n, c, cs, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The LN pass for c <= 2048: 8 lanes a row up to c = 512, 16 up to 1024,
-// else 32 (at most 8 chunks a lane).
+// The LN pass for c <= 4096, statistics over the first cs columns: 8 lanes
+// a row up to c = 512, 16 up to 1024, else 32 (at most 8 chunks a lane, 16
+// past c = 2048).
 template <typename Owner>
 int launch_layer_norm(const void* x, const void* s, const void* b, void* ln, int n, int c,
-                      float eps, cudaStream_t stream) {
-  if (n < 1 || c < 8 || c % 8 != 0 || c > 2048) return static_cast<int>(cudaErrorInvalidValue);
-  if (c <= 512) return launch_layer_norm_lpr<8, Owner>(x, s, b, ln, n, c, eps, stream);
-  if (c <= 1024) return launch_layer_norm_lpr<16, Owner>(x, s, b, ln, n, c, eps, stream);
-  return launch_layer_norm_lpr<32, Owner>(x, s, b, ln, n, c, eps, stream);
+                      int cs, float eps, cudaStream_t stream) {
+  if (n < 1 || c < 8 || c % 8 != 0 || c > 4096 || cs < 1 || cs > c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c <= 512) return launch_layer_norm_lpr<8, 8, Owner>(x, s, b, ln, n, c, cs, eps, stream);
+  if (c <= 1024) return launch_layer_norm_lpr<16, 8, Owner>(x, s, b, ln, n, c, cs, eps, stream);
+  if (c <= 2048) return launch_layer_norm_lpr<32, 8, Owner>(x, s, b, ln, n, c, cs, eps, stream);
+  return launch_layer_norm_lpr<32, 16, Owner>(x, s, b, ln, n, c, cs, eps, stream);
 }
 
 // ---- the GEMMs ------------------------------------------------------------------
@@ -256,9 +262,12 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, 
   for (int jj = 0; jj < L::OUT / 8; ++jj) {
     const int col = 8 * jj + 2 * t;
     if (!GEGLU && j0 + col >= p.n) continue;  // past n: not stored
-    const float2 bv = *reinterpret_cast<const float2*>(p.bias + j0 + col);
+    // GEGLU: a last tile past 4c takes the last column's biases for the act
+    // columns it does not store (no branch, no read past b1)
+    const int bc = GEGLU ? min(j0 + col, p.n - 2) : j0 + col;
+    const float2 bv = *reinterpret_cast<const float2*>(p.bias + bc);
     float2 bg;
-    if constexpr (GEGLU) bg = *reinterpret_cast<const float2*>(p.bias + p.gate_row0 + j0 + col);
+    if constexpr (GEGLU) bg = *reinterpret_cast<const float2*>(p.bias + p.gate_row0 + bc);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t* dst =

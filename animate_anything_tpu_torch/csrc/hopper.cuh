@@ -44,14 +44,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (2..5) dims over a contiguous tensor, dims[0]
-// the contiguous one, boxes of box[0..rank), swizzled by box[0] (64, 32 or
-// 16 columns, see above; any other width unswizzled).  Elements of a box
-// past a dim read as zeros on a load and are not written by a store.  The
-// base must be 16-byte aligned and dims[0] a multiple of 8 (TMA's stride
-// rule).  Returns 0 on success, else a CUresult.
-inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                    const uint32_t* box) {
+// A bf16 tensor map of `rank` (2..5) dims, dims[0] the contiguous one, with
+// the byte strides of dims 1..rank-1 in strides[0..rank-1) (each a multiple
+// of 16, in any order: a map may walk a permuted view), boxes of
+// box[0..rank), swizzled by box[0] (64, 32 or 16 columns, see above; any
+// other width unswizzled).  Elements of a box past a dim read as zeros on a
+// load and are not written by a store, so a box may be longer than its dim.
+// The base must be 16-byte aligned.  Returns 0 on success, else a CUresult.
+inline int make_map_strided(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   if (rank < 2 || rank > 5) return CUDA_ERROR_INVALID_VALUE;
@@ -59,22 +60,31 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
                                      : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                      : box[0] == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                     : CU_TENSOR_MAP_SWIZZLE_NONE;
-  cuuint64_t d[5], strides[4];
+  cuuint64_t d[5], st[4];
   cuuint32_t b[5], unit[5];
-  uint64_t stride = 2;  // bytes
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
     unit[i] = 1;
-    if (i > 0) {
-      stride *= dims[i - 1];
-      strides[i - 1] = stride;
-    }
+    if (i > 0) st[i - 1] = strides[i - 1];
   }
   return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                             d, strides, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             d, st, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The same over a contiguous tensor: dims[0] a multiple of 8 (TMA's stride
+// rule).
+inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                    const uint32_t* box) {
+  uint64_t strides[4];
+  uint64_t stride = 2;  // bytes
+  for (int i = 1; i < rank && i < 5; ++i) {
+    stride *= dims[i - 1];
+    strides[i - 1] = stride;
+  }
+  return make_map_strided(map, base, rank, dims, strides, box);
 }
 
 // A 3-D map over (cols, rows, batch): boxes of box_cols x box_rows x 1, so
@@ -226,8 +236,11 @@ __device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map, int c0, 
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
+// Until the committed bulk groups have read their shared-memory sources
+// (N > 0: all but the N most recent groups, for a ring of N + 1 buffers).
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // ... and until they are complete (their writes done), before the block exits.
 __device__ __forceinline__ void bulk_wait() {

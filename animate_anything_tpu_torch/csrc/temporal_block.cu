@@ -339,7 +339,7 @@ AAT_EXPORT int aat_temporal_block(const void* x, const void* ln_s, const void* l
       smem < attention_smem(stages, chunks) || smem > gemm::SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
 
-  int err = gemm::launch_layer_norm<temporal_block>(x, ln_s, ln_b, ln, n, c, eps, st);
+  int err = gemm::launch_layer_norm<temporal_block>(x, ln_s, ln_b, ln, n, c, c, eps, st);
   if (err) return err;
 
   AttnParams p = {};

@@ -4,9 +4,9 @@
 
 ``add_with_stats(x, r, impl="pallas")`` returns ``(y, (Σy, Σy²))`` with
 y = x + r added in fp32 and rounded to x's dtype, and the fp32 sums taken of
-the stored y over the row axis. The kernel is kernel 6's first pass with the
-add in front, followed by kernel 6's fixed-order second pass, so the sums
-are the same from run to run. It runs at every shape (JAX's ``_pick_chunk``
+the stored y over the row axis. The kernel is kernel 6 with the add in
+front (one launch; the last block of each slab adds the chunks' partials in
+a fixed order), so the sums are the same from run to run. It runs at every shape (JAX's ``_pick_chunk``
 VMEM gate is TPU arithmetic). Off ``"pallas"`` the function is a plain add
 with no sums, as in JAX. No model path of the JAX package calls it.
 """
@@ -17,7 +17,7 @@ import torch
 
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
-from animate_anything_tpu_torch.ops.group_norm import sums_chunks
+from animate_anything_tpu_torch.ops.group_norm import sums_args
 
 launches = 0  # kernel launches by add_with_stats
 
@@ -36,13 +36,14 @@ def _launch(x, r):
         raise ValueError(f"add_with_stats: c={c} must be a multiple of 8")
     cuda_lib.check_cuda("add_with_stats x", x, torch.bfloat16, (n, s, c))
     cuda_lib.check_cuda("add_with_stats r", r, torch.bfloat16, (n, s, c))
-    chunks = sums_chunks(n, s, c)
+    plan, tk = sums_args(x)
     y = torch.empty_like(x)
-    work = torch.empty(2 * n * chunks * c, device=x.device, dtype=torch.float32)
+    work = torch.empty(2 * n * plan["chunks"] * c, device=x.device, dtype=torch.float32)
     s1 = torch.empty((n, c), device=x.device, dtype=torch.float32)
     s2 = torch.empty_like(s1)
     cuda_lib.call("aat_add_stats", x.data_ptr(), r.data_ptr(), y.data_ptr(), work.data_ptr(),
-                  s1.data_ptr(), s2.data_ptr(), n, s, c, chunks)
+                  tk.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, s, c, plan["ct"],
+                  plan["threads"], plan["chunks"], plan["rows"])
     global launches
     launches += 1
     return y, (s1, s2)

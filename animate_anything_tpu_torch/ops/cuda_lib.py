@@ -10,6 +10,7 @@ the CPU tests import every module of the port on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,10 +32,10 @@ _SIGNATURES = {
     # q, k, v, o, dout, lse, rows, qhat, dq, dk, dv, b, sq, sk, heads, d, scale, stream
     "aat_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _P],
-    # x, ln_s, ln_b, w1, b1, w2, b2, y, ln, act, n, c, eps, bn1, stages1, grid1, smem1,
+    # x, ln_s, ln_b, w1, b1, w2, b2, y, ln, act, n, c, cs, eps, bn1, stages1, grid1, smem1,
     # bn2, stages2, grid2, smem2, gate_row0, stream
-    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _P],
+    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _P],
     # x, a, b, w, bias, res, y, s1, s2, bsz, f, s, cin, cout, bn, stages, grid, smem, stream
     "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # h, w, bias, res, y, s1, s2, n, s, k, c, bn, stages, grid, smem, stream
@@ -43,18 +44,19 @@ _SIGNATURES = {
     # smem, bn_out, stages_out, grid_out, smem_out, stream
     "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, work, s1, s2, n, s, c, chunks, stream
-    "aat_channel_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, r, y, work, s1, s2, n, s, c, chunks, stream
-    "aat_add_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, scale, bias, work, y, n, s, c, groups, chunks, eps, silu, stream
-    "aat_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, work, tickets, s1, s2, n, s, c, ct, threads, chunks, rows, stream
+    "aat_channel_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, r, y, work, tickets, s1, s2, n, s, c, ct, threads, chunks, rows, stream
+    "aat_add_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, scale, bias, work, tickets, y, n, s, c, groups, ct, threads, chunks, rows, eps, silu,
+    # stream
+    "aat_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, a, b, w (packed), bias, res, act, y, n, h, w, cin, cout, silu, bn, stages, grid,
     # smem, stream
     "aat_spatial_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
-    # q, k, v, o, b, f, s, heads, d, stream
-    "aat_temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, b, f, s, heads, d, L, HB, stages, warps, grid, smem, stream
+    "aat_temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, ln_s, ln_b, wq, wk, wv, q, k, v, n, c, hd, eps, qscale, stream
     "aat_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
 }
@@ -151,6 +153,13 @@ def call(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
                            f"{lib.aat_error_string(err).decode()}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once: the launch
+    plans ask on every call)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

@@ -2,8 +2,12 @@
 (``csrc/geglu.cu``).
 
 Replaces ``animate_anything_tpu/ops/geglu.py::_pallas_ln_geglu`` (c ≤ 640)
-and ``::_pallas_ln_geglu_wide`` (c = 1280) with one Hopper code path for
-every width. GELU is the tanh form, the JAX package's default
+and ``::_pallas_ln_geglu_wide`` (128-aligned c from 768 to 2432) with one
+Hopper code path for every width up to ``MAX_C`` = 4096 (``kernel_ok``): the
+kernel takes c % 8 == 0 (TMA's 16-byte row strides), and the wrapper runs
+any other c zero-padded to the next multiple of 8 (``pad_operands``). Past
+``MAX_C`` the card runs ``ln_geglu_twin``, JAX's lean composite, which is
+what JAX runs at every c > 2432. GELU is the tanh form, the JAX package's default
 (``_GELU_IMPL``). A call is three launches: the LayerNorm pass and two
 TMA + wgmma GEMMs, the first with the GEGLU epilogue, the second
 with the bias and residual; the (n, 4c) bf16 GEGLU product goes through
@@ -27,7 +31,7 @@ import torch.nn.functional as F
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute
 
-MAX_C = 1280
+MAX_C = 4096              # the LayerNorm pass holds a row in a warp's registers
 SMEM_LIMIT = 232448        # dynamic shared memory a block may use on the H100
 GEMM_BM, GEMM_BK = 128, 64  # tile rows (two warpgroups of 64); K step
 GEGLU_BN = (256, 128)       # GEMM 1 tile widths: half val, half gate columns
@@ -86,25 +90,53 @@ def gemm_plan(m: int, n_out: int, k: int, sms: int = 132) -> dict:
                 tiles=tiles)
 
 
+def kernel_ok(c: int) -> bool:
+    """Kernel 2's reach: 0 < c ≤ ``MAX_C`` (``launch_plan`` takes exactly
+    these). It holds wherever JAX runs one of its kernels (its fused kernel
+    at c ≤ 640, its wide kernel at 128-aligned c up to 2432); past it the
+    port runs ``ln_geglu_twin``, JAX's ``_reference_lean``, as JAX does."""
+    return 0 < c <= MAX_C
+
+
+def padded_width(c: int) -> int:
+    """The width kernel 2 runs a c-wide call at: c rounded up to 8."""
+    return -(-c // 8) * 8
+
+
 def launch_plan(n: int, c: int, sms: int = 132) -> dict:
     """The kernels' tiles for (n, c) rows on a card of ``sms`` SMs, without
-    the card: GEMM 1 (``bn1`` accumulator columns, ``bn1 / 2`` of act a
-    tile: val columns [j, j + bn1/2) from W1 rows j.. and the gate columns
-    from rows ``gate_row0`` + j..), GEMM 2 (``bn2`` output columns), each
-    with its ring depth, persistent grid and shared-memory bytes."""
-    if c % 16 or not 0 < c <= MAX_C or n < 1:
-        raise ValueError(f"ln_geglu_ff: c={c} must be a multiple of 16 in (0, {MAX_C}], "
-                         f"n={n} ≥ 1")
-    inner = 4 * c
+    the card, at the padded width ``cp``: GEMM 1 (``bn1`` accumulator
+    columns, ``bn1 / 2`` of act a tile: val columns [j, j + bn1/2) from W1
+    rows j.. and the gate columns from rows ``gate_row0`` + j..; the last
+    tile's columns past 4·cp are not stored), GEMM 2 (``bn2`` output
+    columns), each with its ring depth, persistent grid and shared-memory
+    bytes."""
+    if not kernel_ok(c) or n < 1:
+        raise ValueError(f"ln_geglu_ff: c={c} must be in (0, {MAX_C}], n={n} ≥ 1")
+    cp = padded_width(c)
+    inner = 4 * cp
     row_tiles = -(-n // GEMM_BM)
-    bn1 = next(bn for bn in GEGLU_BN if inner % (bn // 2) == 0)
-    tiles1 = row_tiles * inner // (bn1 // 2)
+    bn1 = min(GEGLU_BN, key=lambda bn: (-(-inner // (bn // 2)) * (bn // 2), -bn))
+    tiles1 = row_tiles * -(-inner // (bn1 // 2))
     st1 = _stages(bn1, bn1 // 2)
-    g2 = gemm_plan(n, c, inner, sms)
-    return dict(bn1=bn1, stages1=st1, grid1=min(tiles1, sms),
+    g2 = gemm_plan(n, cp, inner, sms)
+    return dict(cp=cp, bn1=bn1, stages1=st1, grid1=min(tiles1, sms),
                 smem1=_gemm_smem(bn1, st1, bn1 // 2),
                 bn2=g2["bn"], stages2=g2["stages"], grid2=g2["grid"], smem2=g2["smem"],
                 gate_row0=inner, tiles1=tiles1, tiles2=g2["tiles"])
+
+
+def pad_operands(x2, s, b, w1, b1, w2, b2, cp: int) -> tuple:
+    """The operands of a c-wide call zero-padded to width cp ≥ c: x2, the LN
+    scale and bias and b2 to cp columns; W1's val and gate halves each to
+    (4cp, cp) and b1's each to 4cp; W2 to (cp, 4cp). The padded act and y
+    columns come out zero, and y's first c columns are the call's."""
+    p = cp - x2.shape[-1]
+    halves = w1.shape[0] // 2
+    w1 = torch.cat([F.pad(h, (0, p, 0, 4 * p)) for h in w1.split(halves)])
+    b1 = torch.cat([F.pad(h, (0, 4 * p)) for h in b1.split(halves)])
+    return (F.pad(x2, (0, p)), F.pad(s, (0, p)), F.pad(b, (0, p)), w1, b1,
+            F.pad(w2, (0, 4 * p, 0, p)), F.pad(b2, (0, p)))
 
 
 def ln_geglu_reference(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
@@ -143,28 +175,34 @@ def _launch(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     n, c = x2.shape
     bf, f32 = torch.bfloat16, torch.float32
     cuda_lib.check_cuda("ln_geglu x", x2, bf, (n, c))
-    cuda_lib.check_cuda("ln_geglu ln scale", s, f32, (c,))
-    cuda_lib.check_cuda("ln_geglu ln bias", b, f32, (c,))
-    cuda_lib.check_cuda("ln_geglu w1", w1, bf, (8 * c, c))
-    cuda_lib.check_cuda("ln_geglu b1", b1, f32, (8 * c,))
-    cuda_lib.check_cuda("ln_geglu w2", w2, bf, (c, 4 * c))
-    cuda_lib.check_cuda("ln_geglu b2", b2, f32, (c,))
-    plan = launch_plan(n, c, torch.cuda.get_device_properties(x2.device).multi_processor_count)
+    plan = launch_plan(n, c, cuda_lib.sm_count(x2.device))
+    cp = plan["cp"]
+    if cp != c:
+        x2, s, b, w1, b1, w2, b2 = pad_operands(x2, s, b, w1, b1, w2, b2, cp)
+    cuda_lib.check_cuda("ln_geglu ln scale", s, f32, (cp,))
+    cuda_lib.check_cuda("ln_geglu ln bias", b, f32, (cp,))
+    cuda_lib.check_cuda("ln_geglu w1", w1, bf, (8 * cp, cp))
+    cuda_lib.check_cuda("ln_geglu b1", b1, f32, (8 * cp,))
+    cuda_lib.check_cuda("ln_geglu w2", w2, bf, (cp, 4 * cp))
+    cuda_lib.check_cuda("ln_geglu b2", b2, f32, (cp,))
     y = torch.empty_like(x2)
     ln = torch.empty_like(x2)                          # LN(x) in bf16
-    act = torch.empty((n, 4 * c), device=x2.device, dtype=bf)  # val ⊙ gelu(gate) in bf16
+    act = torch.empty((n, 4 * cp), device=x2.device, dtype=bf)  # val ⊙ gelu(gate) in bf16
     cuda_lib.call("aat_ln_geglu", x2.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(),
                   b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), ln.data_ptr(),
-                  act.data_ptr(), n, c, eps, plan["bn1"], plan["stages1"], plan["grid1"],
+                  act.data_ptr(), n, cp, c, eps, plan["bn1"], plan["stages1"], plan["grid1"],
                   plan["smem1"], plan["bn2"], plan["stages2"], plan["grid2"], plan["smem2"],
                   plan["gate_row0"])
     global launches
     launches += 1
-    return y
+    return y if cp == c else y[:, :c].contiguous()
 
 
 def ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5) -> torch.Tensor:
-    """``x + GEGLU_FF(LayerNorm(x))`` over the last axis of x (..., c)."""
+    """``x + GEGLU_FF(LayerNorm(x))`` over the last axis of x (..., c): kernel
+    2 for a CUDA tensor up to ``MAX_C``, past it ``ln_geglu_twin`` in x's
+    dtype, JAX's lean composite at those widths; the plain version for a
+    CPU tensor."""
     shape = x.shape
     c = shape[-1]
     x2 = x.reshape(-1, c)
@@ -172,5 +210,10 @@ def ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5) -> t
     args = (x2, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
             w1.to(dt).contiguous(), b1.float().contiguous(), w2.to(dt).contiguous(),
             b2.float().contiguous())
-    run = ln_geglu_reference if x.device.type == "cpu" else _launch
+    if x.device.type == "cpu":
+        run = ln_geglu_reference
+    elif kernel_ok(c):
+        run = _launch
+    else:
+        return ln_geglu_twin(*args, eps).reshape(shape)
     return Recompute.apply(run, ln_geglu_twin, *args, eps).reshape(shape)

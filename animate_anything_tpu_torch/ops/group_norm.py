@@ -20,6 +20,7 @@ off); "pallas" names the hand-written CUDA kernel here:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -93,15 +94,68 @@ def channel_sums(x2: torch.Tensor):
     return xf.sum(1), xf.square().sum(1)
 
 
-THREADS, TARGET_BLOCKS = 256, 4 * 132
+# Kernel 6's plan (``csrc/group_norm.cu::channel_sums_kernel``): a block is
+# one chunk of rows of one slab of CT column threads, each one 16-byte
+# vector of 8 channels (CT divides c/8, MIN_COLS ≤ CT ≤ MAX_COLS where c
+# allows), times RT row lanes, at most SUMS_THREADS threads; BLOCKS_PER_SM
+# of them fit a SM at once (the kernel's launch bounds).
+SUMS_THREADS, MAX_COLS, MIN_COLS, BLOCKS_PER_SM = 320, 256, 8, 2
 
 
-def sums_chunks(n: int, s: int, c: int) -> int:
-    """Row chunks of kernel 6's first pass: about ``TARGET_BLOCKS`` blocks
-    over the card, no more chunks than each block's row lanes can fill."""
-    ct = min(32, c // 8)
-    slabs = -(-(c // 8) // ct)
-    return max(1, min(-(-s // (THREADS // ct)), math.ceil(TARGET_BLOCKS / (n * slabs))))
+@functools.lru_cache(maxsize=None)
+def sums_plan(n: int, s: int, c: int, sms: int = 132) -> dict:
+    """Kernel 6's launch for (n, s, c) on a card of ``sms`` SMs, without the
+    card: ``slabs`` of ``ct`` column threads cover the c/8 vectors of a row
+    with no idle lane, ``rt`` row lanes a block, and ``chunks`` of ``rows``
+    rows (a multiple of rt) cover the s rows; the grid is (slabs, chunks,
+    n). The block with a (sample, slab)'s last ticket adds its chunks, so the
+    chunks stay at most √s / 2 (that finish reads at most the bytes one block
+    sums: 4·chunks² ≤ s). The slab width gives the most blocks that still
+    run in one wave of BLOCKS_PER_SM a SM (a second, part-full wave would
+    leave most of the card idle), the widest of equals."""
+    if c % 8 or c < 8 or n < 1 or s < 1:
+        raise ValueError(f"channel_sums: c={c} must be a positive multiple of 8")
+    vecs = c // 8
+    slots = BLOCKS_PER_SM * sms
+    max_chunks = max(1, math.isqrt(s) // 2)
+    divs = [w for w in range(min(vecs, MAX_COLS), 0, -1) if vecs % w == 0]
+    best = None
+    for ct in [w for w in divs if w >= MIN_COLS] or divs[:1]:
+        slabs, rt = vecs // ct, max(1, SUMS_THREADS // ct)
+        chunks = max(1, min(max_chunks, slots // (n * slabs), -(-s // rt)))
+        per_chunk = -(-s // chunks)
+        rows = -(-per_chunk // rt) * rt
+        chunks = -(-s // rows)
+        blocks = n * slabs * chunks
+        if best is None or best["blocks"] < blocks <= slots:
+            best = dict(ct=ct, rt=rt, threads=ct * rt, slabs=slabs, chunks=chunks, rows=rows,
+                        blocks=blocks)
+    return best
+
+
+_TICKETS: dict = {}
+
+
+def tickets(device: torch.device, count: int) -> torch.Tensor:
+    """The per-(sample, slab) ticket counters of kernels 6, 7 and 10 on
+    ``device`` for the current stream: zeroed once here, and left zeroed by
+    each launch (the last block of a slab resets its counter). A launch
+    finds them zero only if the launch before it on them has ended, so each
+    stream has its own: launches on one stream run in turn."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), device=device, dtype=torch.int32)
+        _TICKETS[key] = buf
+    return buf
+
+
+def sums_args(x2: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """The plan for x2 (n, s, c) on its device and the tickets of that
+    device's current stream."""
+    n, s, c = x2.shape
+    plan = sums_plan(n, s, c, cuda_lib.sm_count(x2.device))
+    return plan, tickets(x2.device, n * plan["slabs"])
 
 
 def _launch_channel_sums(x2):
@@ -109,12 +163,13 @@ def _launch_channel_sums(x2):
     if c % 8:
         raise ValueError(f"channel_sums: c={c} must be a multiple of 8")
     cuda_lib.check_cuda("channel_sums x", x2, torch.bfloat16, (n, s, c))
-    chunks = sums_chunks(n, s, c)
-    work = torch.empty(2 * n * chunks * c, device=x2.device, dtype=torch.float32)
+    plan, tk = sums_args(x2)
+    work = torch.empty(2 * n * plan["chunks"] * c, device=x2.device, dtype=torch.float32)
     s1 = torch.empty((n, c), device=x2.device, dtype=torch.float32)
     s2 = torch.empty_like(s1)
-    cuda_lib.call("aat_channel_sums", x2.data_ptr(), work.data_ptr(), s1.data_ptr(),
-                  s2.data_ptr(), n, s, c, chunks)
+    cuda_lib.call("aat_channel_sums", x2.data_ptr(), work.data_ptr(), tk.data_ptr(),
+                  s1.data_ptr(), s2.data_ptr(), n, s, c, plan["ct"], plan["threads"],
+                  plan["chunks"], plan["rows"])
     global launches
     launches += 1
     return s1, s2

@@ -75,7 +75,7 @@ def _launch(h, w, bias, residual):
     cuda_lib.check_cuda("proj_residual w", w, bf, (c, k))
     cuda_lib.check_cuda("proj_residual bias", bias, torch.float32, (c,))
     cuda_lib.check_cuda("proj_residual residual", residual, bf, (n, s, c))
-    plan = launch_plan(n, s, k, c, torch.cuda.get_device_properties(h.device).multi_processor_count)
+    plan = launch_plan(n, s, k, c, cuda_lib.sm_count(h.device))
     y = torch.empty_like(residual)
     s1 = torch.zeros((n, c), device=h.device, dtype=torch.float32)
     s2 = torch.zeros_like(s1)

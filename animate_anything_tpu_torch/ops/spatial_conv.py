@@ -177,8 +177,7 @@ def _launch(x, a, b, w, bias, residual, silu: bool):
     cuda_lib.check_cuda("spatial_conv bias", bias, f32, (n, cout))
     if residual is not None:
         cuda_lib.check_cuda("spatial_conv residual", residual, bf, (n, h, wd, cout))
-    plan = launch_plan(n, h, wd, cin, cout,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = launch_plan(n, h, wd, cin, cout, cuda_lib.sm_count(x.device))
     act = torch.empty_like(x)   # SiLU(a·x + b) in bf16, read back by the GEMM's TMA
     y = torch.empty((n, h, wd, cout), device=x.device, dtype=bf)
     cuda_lib.call("aat_spatial_conv", x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),

@@ -21,9 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
-from animate_anything_tpu_torch.ops.group_norm import channel_sums, group_affine, sums_chunks
+from animate_anything_tpu_torch.ops.group_norm import channel_sums, group_affine, sums_args
 
-launches = 0  # calls of the kernel-7 entry point (four launches each)
+launches = 0  # calls of the kernel-7 entry point (three launches each)
 
 
 def group_norm_stream_reference(x2, scale, bias, groups: int, eps: float, silu: bool):
@@ -43,11 +43,13 @@ def _launch(x2, scale, bias, groups: int, eps: float, silu: bool):
     cuda_lib.check_cuda("group_norm_stream x", x2, torch.bfloat16, (n, s, c))
     cuda_lib.check_cuda("group_norm_stream scale", scale, torch.float32, (c,))
     cuda_lib.check_cuda("group_norm_stream bias", bias, torch.float32, (c,))
-    chunks = sums_chunks(n, s, c)
-    work = torch.empty(2 * n * chunks * c + 4 * n * c, device=x2.device, dtype=torch.float32)
+    plan, tk = sums_args(x2)
+    work = torch.empty(2 * n * plan["chunks"] * c + 4 * n * c, device=x2.device,
+                       dtype=torch.float32)
     y = torch.empty_like(x2)
     cuda_lib.call("aat_group_norm", x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  work.data_ptr(), y.data_ptr(), n, s, c, groups, chunks, eps, int(silu))
+                  work.data_ptr(), tk.data_ptr(), y.data_ptr(), n, s, c, groups, plan["ct"],
+                  plan["threads"], plan["chunks"], plan["rows"], eps, int(silu))
     global launches
     launches += 1
     return y

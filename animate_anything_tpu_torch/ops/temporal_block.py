@@ -185,8 +185,7 @@ def _launch(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int, eps: float) ->
         cuda_lib.check_cuda(f"temporal_block {name}", t, f32, (c,))
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
         cuda_lib.check_cuda(f"temporal_block {name}", w, bf, (c, c))
-    plan = launch_plan(b, f, s, c, heads,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = launch_plan(b, f, s, c, heads, cuda_lib.sm_count(x.device))
     y = torch.empty_like(x)
     ln = torch.empty_like(x)  # LN(x) in bf16
     o = torch.empty_like(x)   # the attention output in bf16, before the out-projection

@@ -117,8 +117,7 @@ def _launch(x, a, b, w, bias, residual):
     cuda_lib.check_cuda("tap_conv bias", bias, f32, (cout,))
     if residual is not None:
         cuda_lib.check_cuda("tap_conv residual", residual, bf, (bsz, f, s, cout))
-    plan = launch_plan(bsz, f, s, cin, cout,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = launch_plan(bsz, f, s, cin, cout, cuda_lib.sm_count(x.device))
     y = torch.empty((bsz, f, s, cout), device=x.device, dtype=bf)
     s1 = torch.zeros((bsz, f, cout), device=x.device, dtype=f32)
     s2 = torch.zeros_like(s1)

@@ -1,6 +1,6 @@
-"""The sites of kernels 8 and 4 in one CFG forward of the full-width UNet
-in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents), with
-their launch counts. ``chip_smoke.py`` checks and times both kernels at
+"""The sites of kernels 8, 4 and 6 in one CFG forward of the full-width
+UNet in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents),
+with their launch counts. ``chip_smoke.py`` checks and times the kernels at
 these sites and sums them over a forward by the counts; the plan tests
 hold the launch plans to them.
 """
@@ -28,3 +28,17 @@ SPATIAL_CONV_SITES = (
 # 33 a forward.
 PROJ_SITES = ((4096, 512, 320, 1), (4096, 320, 320, 10), (1024, 640, 640, 10),
               (256, 1280, 1280, 10), (64, 1280, 1280, 2))
+# Kernel 6: (n, s, c, launches a CFG forward), the GroupNorm statistics that
+# no producer kernel hands over: the temporal convs' first stages (n = 2
+# samples of 17 frames x h·w rows) and the resnet and transformer norms of
+# 34 frames; 67 a forward, the profile's kernel-6 count.
+# tests/test_torch_port_sums_plans.py counts them through the wrapper over
+# one forward of the full-width UNet on the meta device.
+CHANNEL_SUMS_SITES = (
+    (2, 69632, 320, 6), (2, 17408, 640, 5), (2, 4352, 1280, 5), (2, 1088, 1280, 7),
+    (34, 4096, 320, 7), (34, 4096, 960, 1), (34, 4096, 640, 2),
+    (34, 1024, 320, 1), (34, 1024, 640, 6), (34, 1024, 1920, 1), (34, 1024, 1280, 1),
+    (34, 1024, 960, 1),
+    (34, 256, 640, 1), (34, 256, 1280, 6), (34, 256, 2560, 2), (34, 256, 1920, 1),
+    (34, 64, 1280, 11), (34, 64, 2560, 3),
+)

@@ -19,9 +19,8 @@ shares). The last line is one JSON object with those numbers.
 ``--opt-in`` (``profile_opt_in``) profiles instead one CFG UNet forward and
 one 16-frame VAE decode in the JAX package's opt-in GroupNorm and resnet-conv
 configuration (``ops/spatial_conv.opt_in_config``), each beside the same call
-in the default configuration. Kernel 7's two sum passes are the
-``channel_partial``/``channel_finish`` kernels, so they count in kernel 6's
-group.
+in the default configuration. Kernel 7's sum pass is kernel 6's
+``channel_sums_kernel``, so it counts in kernel 6's group.
 
 ``--attn-impl packed`` (or ``xla``; ``profile_attn_impl``) profiles one CFG
 UNet forward with the same weights under ``UNet3DConfig(attn_impl=IMPL)``,
@@ -46,7 +45,7 @@ KERNEL_GROUPS = (
     ("tap_conv (kernel 3)", ("tap_conv",)),
     ("proj_residual (kernel 4)", ("proj_residual",)),
     ("temporal_block (kernel 5)", ("temporal_block",)),
-    ("channel_sums (kernel 6)", ("channel_partial", "channel_finish")),
+    ("channel_sums (kernel 6)", ("channel_sums",)),
     ("group_norm_stream (kernel 7)", ("group_fold", "gn_apply")),
     ("spatial_conv (kernel 8)", ("spatial_conv",)),
     ("temporal_attention (kernel 9)", ("temporal_attention",)),
@@ -72,9 +71,10 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     """After two warm-up calls: the median wall ms of three calls of ``fn``
     (each ended by a device sync), then one profiled call's device
     kernels and host operations: ``{"wall_ms", "walls_ms", "kernel_ms",
-    "idle_share", "groups": {group: ms}, "kernels": [[ms, calls, name],
-    ...], "host_ms", "host_ops": [[ms, calls, name], ...]}``, the kernels
-    and the host operations (self time) largest first."""
+    "idle_share", "groups": {group: ms}, "group_kernels": {group: kernels
+    run}, "kernels": [[ms, calls, name], ...], "host_ms", "host_ops": [[ms,
+    calls, name], ...]}``, the kernels and the host operations (self time)
+    largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -107,13 +107,15 @@ def device_profile(fn: Callable[[], object]) -> Dict:
             kernels.append([us / 1e3, e.count, e.key])
     kernels.sort(reverse=True)
     kernel_ms = sum(k[0] for k in kernels)
-    groups = collections.Counter()
-    for ms, _, name in kernels:
+    groups, runs = collections.Counter(), collections.Counter()
+    for ms, calls, name in kernels:
         groups[kernel_group(name)] += ms
+        runs[kernel_group(name)] += calls
     host.sort(reverse=True)
     return dict(wall_ms=wall_ms, walls_ms=walls_ms, kernel_ms=kernel_ms,
                 idle_share=max(0.0, 1.0 - kernel_ms / wall_ms),
-                groups=dict(groups.most_common()), kernels=kernels,
+                groups=dict(groups.most_common()),
+                group_kernels={g: runs[g] for g, _ in groups.most_common()}, kernels=kernels,
                 host_ms=sum(h[0] for h in host), host_ops=host)
 
 
@@ -124,7 +126,8 @@ def _report(name: str, prof: Dict) -> None:
           f"{total:.1f} ms, idle share {prof['idle_share']:.3f}, host self time "
           f"{prof['host_ms']:.1f} ms (profiled)", flush=True)
     for group, ms in prof["groups"].items():
-        print(f"   {group:28s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
+        print(f"   {group:28s} {ms:9.2f} ms  {100 * ms / total:5.1f}%  "
+              f"{prof['group_kernels'][group]:6d} kernels")
     for ms, calls, kname in prof["kernels"][:20]:
         print(f"   {ms:9.2f} ms  x{calls:5d}  {kname[:110]}")
     for ms, calls, hname in prof["host_ops"][:12]:

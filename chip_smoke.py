@@ -22,9 +22,13 @@
    reach of JAX's gate (48 and 128 frames, head dims 8 to 256, c = 2048, a
    ragged s), each of the two called twice: kernel 5 and kernel 3's y bit
    for bit, kernel 3's atomic sums within a stated tolerance; the gates that
-   send the head sizes the forward does not take to SDPA or the einsum form;
-   the channel sums and the streaming GroupNorm (+SiLU) at the opt-in
-   configuration's shapes; the fused GroupNorm-affine + SiLU -> 3x3 conv
+   send the head sizes the forward does not take to SDPA or the einsum form
+   and the widths past kernel 2's reach (c > 4096) to its lean composite,
+   with kernel 2 at widths off 16, off 8 (zero-padded) and past 1280; the
+   channel sums (kernel 6) at every statistics site of the opt-in forward,
+   called twice (bit for bit) and summed over a CFG forward by the sites'
+   counts, and the streaming GroupNorm (+SiLU) at the opt-in configuration's
+   shapes; the fused GroupNorm-affine + SiLU -> 3x3 conv
    (kernel 8) at every resnet stage of the opt-in forward beside its bf16
    composite (affine + SiLU, cuDNN's conv2d, + bias (+ residual)), summed
    over a CFG forward by the stages' counts, at JAX's test shapes and at W >
@@ -74,8 +78,10 @@
    the device line.
 
 Steps 3 and 4 also check kernel 9 against its plain version at the packed
-configuration's frame-attention shapes and at JAX's ragged test shapes, the
-three entry points' kernels at full-width and JAX's test shapes, and a small
+configuration's frame-attention shapes (summed over a packed CFG forward by
+the sites' counts), at JAX's ragged test shapes and at the edges of its
+reach (head dims 40 to 256, 48 and 128 frames, a ragged s), each called
+twice (bit for bit), the three entry points' kernels at full-width and JAX's test shapes, and a small
 UNet's forward under ``attn_impl="packed"`` on the card against the CPU.
 
 Exits non-zero without a CUDA device, or when any phase fails.
@@ -146,8 +152,11 @@ PROMPTS = ("a red ball rolls across a wooden table", "clouds drift over a mounta
 # The packed request's frame-attention sites at full width: (locations h·w,
 # heads) at f = 17, d = 64, b = 2 (CFG). (4096, 8) is transformer_in.
 PACKED_SITES = ((4096, 8), (4096, 5), (1024, 10), (256, 20), (64, 20))
-# Kernel 9 per UNet forward: 17 temporal transformers x 2 frame attentions.
-PACKED_PER_FORWARD = 34
+# Kernel 9's launches a UNet forward by site: 17 temporal transformers x 2
+# frame attentions (transformer_in; 5 transformers at each of the 64², 32²
+# and 16² levels; the mid block).
+PACKED_SITE_CALLS = (2, 10, 10, 10, 2)
+PACKED_PER_FORWARD = sum(PACKED_SITE_CALLS)
 # One CFG forward under "packed" against "xla": the same weights and inputs,
 # differing only in the frame-attention core (kernel 9 against the einsum
 # form, both bf16 out); bf16 rounding carried through ~100 layers.
@@ -312,12 +321,17 @@ def check_flash(gen) -> dict:
 
 
 def check_attention_gates(gen) -> None:
-    """Head sizes the kernels do not take run without raising through their
+    """Shapes the kernels do not take run without raising through their
     gates: ``attention(impl="pallas")`` sends d % 16 == 8 and d > 256 to SDPA
     (no kernel-1 launch) and takes kernel 1 at d = 96; ``temporal_attention``
-    under ``"packed"`` keeps the einsum form above d = 128 (no kernel-9
-    launch). Each output against its plain version."""
+    under ``"packed"`` takes kernel 9 at d = 160 and keeps the einsum form
+    above d = 256 (no kernel-9 launch); ``ln_geglu_ff`` takes kernel 2 at
+    widths off 16 (600) and off 8 (100, 36: zero-padded), past 1280 (1536,
+    2048, 2432: the 16-chunk LayerNorm) and at ``MAX_C`` (4096), and the lean
+    composite past it (4104, no kernel-2 launch). Each output against its
+    plain version."""
     from animate_anything_tpu_torch.ops import flash_attention as fa
+    from animate_anything_tpu_torch.ops import geglu
     from animate_anything_tpu_torch.ops import temporal_attention as ta
     from animate_anything_tpu_torch.ops.attention import attention
 
@@ -334,16 +348,35 @@ def check_attention_gates(gen) -> None:
             raise AssertionError(f"attention d={d}: kernel 1 launched {ran} times")
         log(f"  attention(impl='pallas') d={d}: {'kernel 1' if kernel else 'SDPA'}, "
             f"max|err| {_err(got, want):.3g}")
-    q, k, v = (torch.randn(1, 17, 64, 8, 160, generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    before = ta.launches
-    with torch.no_grad():
-        got = ta.temporal_attention(q, k, v, impl="packed")
-    if ta.launches != before:
-        raise AssertionError("temporal_attention d=160: kernel 9 launched")
-    _assert_close("temporal_attention d=160", got, ta.temporal_attention_reference(q, k, v),
-                  Y_ATOL, Y_RTOL)
-    log("  temporal_attention(impl='packed') d=160: einsum form, no kernel 9")
+    for d, kernel in ((160, True), (320, False)):
+        q, k, v = (torch.randn(1, 17, 64, 8, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        before = ta.launches
+        with torch.no_grad():
+            got = ta.temporal_attention(q, k, v, impl="packed")
+        ran = ta.launches - before
+        _assert_close(f"temporal_attention d={d}", got, ta.temporal_attention_reference(q, k, v),
+                      Y_ATOL, Y_RTOL)
+        if ran != int(kernel):
+            raise AssertionError(f"temporal_attention d={d}: kernel 9 launched {ran} times")
+        log(f"  temporal_attention(impl='packed') d={d}: "
+            f"{'kernel 9' if kernel else 'einsum form, no kernel 9'}")
+    for c in (600, 100, 36, 1536, 2048, 2432, geglu.MAX_C, geglu.MAX_C + 8):
+        args = _geglu_args(gen, 300, c)
+        kernel = geglu.kernel_ok(c)
+        before = geglu.launches
+        with torch.no_grad():
+            got = geglu.ln_geglu_ff(*args)
+            again = geglu.ln_geglu_ff(*args)
+        ran = geglu.launches - before
+        want = geglu.ln_geglu_reference(*args, 1e-5)
+        _assert_close(f"ln_geglu_ff c={c}", got, want, Y_ATOL, Y_RTOL)
+        if ran != 2 * kernel or not torch.equal(got, again):
+            raise AssertionError(f"ln_geglu_ff c={c}: kernel 2 launched {ran} times in two "
+                                 f"calls, or the calls differ")
+        log(f"  ln_geglu_ff c={c}: {'kernel 2' if kernel else 'lean composite, no kernel 2'}, "
+            f"max|err| {_err(got, want):.3g}")
+        del args, got, again, want
     check_wide_head_temporal(gen)
 
 
@@ -656,15 +689,19 @@ def _proj_case(gen, n, s, k, c):
     return tag, (h, w, bias, r), _err(y, wy)
 
 
-def _device_ms(fn, group: str, iters: int = 20) -> float | None:
+def _device_ms(fn, group: str, iters: int = 20) -> float:
     """Device time of ``group``'s kernels a call of fn, from one profiled run
     of ``iters`` calls (``utils/profiling.device_profile``): the kernel's
     own time, where CUDA events around a loop of short calls also time the
-    host that issues them. None where the profiler saw no device time."""
+    host that issues them. Raises where the profiler saw no device time for
+    the group: fn launches its kernel, so the profile missed it, and no
+    other time may stand in for a device time."""
     from animate_anything_tpu_torch.utils.profiling import device_profile
 
     ms = device_profile(lambda: [fn() for _ in range(iters)])["groups"].get(group)
-    return None if not ms else ms / iters
+    if not ms:
+        raise AssertionError(f"{group}: the profiler saw no device time")
+    return ms / iters
 
 
 def _proj_width_device_ms(args, want) -> dict:
@@ -719,8 +756,7 @@ def check_proj_residual(gen) -> dict:
         forward += count * ms
         forward_bound += count * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         forward_comp += count * comp
-        dev = "not measured" if device[-1] is None else f"{device[-1]:.3f} ms"
-        log(f"    device time (profiler) {dev}; bf16 composite (Linear + bias, + residual, two "
+        log(f"    device time (profiler) {device[-1]:.3f} ms; bf16 composite (Linear + bias, + residual, two "
             f"sums; a reference line) {comp:.3f} ms; {count} a CFG forward")
         tally.add(tag, err, ms, plain, flop, nbytes)
         if s == 64:
@@ -731,14 +767,13 @@ def check_proj_residual(gen) -> dict:
     for shape in PROJ_TEST_SHAPES:
         tag, _, err = _proj_case(gen, *shape)
         log(f"  {tag}: max|err| {err:.3g}")
-    forward_device = (None if None in device else
-                      sum(d * site[-1] for d, site in zip(device, PROJ_SITES)))
+    forward_device = sum(d * site[-1] for d, site in zip(device, PROJ_SITES))
     tally.row.update(composite_ms=composite_ms, forward_ms=forward, forward_bound_ms=forward_bound,
                      forward_composite_ms=forward_comp, site_device_ms=device,
                      forward_device_ms=forward_device)
     log(f"  kernel 4 a CFG forward (33 launches by the sites' counts): {forward:.3f} ms against "
         f"a bound of {forward_bound:.3f} ms ({forward_bound / forward:.0%}); device time "
-        f"{forward_device}; bf16 composite {forward_comp:.3f} ms")
+        f"{forward_device:.3f} ms; bf16 composite {forward_comp:.3f} ms")
     return tally.row
 
 
@@ -826,25 +861,55 @@ def check_temporal_block(gen) -> dict:
 
 
 def check_channel_sums(gen) -> dict:
-    """Kernel 6 at the UNet's 320-wide statistics sites of the opt-in
-    configuration: a resnet stage's input (34 frames of 64x64) and a
-    temporal conv's first stage (2 samples x 17 frames x 64x64)."""
+    """Kernel 6 at every statistics site of the opt-in CFG forward
+    (``utils/kernel_sites.CHANNEL_SUMS_SITES``: resnet inputs of 34 frames,
+    temporal convs' first stages of 2 samples x 17 frames), each called
+    twice (bit for bit: no atomics on the sums) and summed over a forward by
+    the sites' counts, by events and by the profiler's device time (the
+    events of a call this short time the host that issues it:
+    ``forward_ms``, ``forward_device_ms``, ``forward_bound_ms``); and each
+    site's call with its rows knocked out (one row a sample), whose device
+    time is what a call costs beyond its bytes
+    (``forward_one_row_device_ms``)."""
     from animate_anything_tpu_torch.ops import group_norm as gn
+    from animate_anything_tpu_torch.utils.kernel_sites import CHANNEL_SUMS_SITES
 
     tally = Tally("channel_sums", "animate_anything_tpu_torch/csrc/group_norm.cu",
                   "animate_anything_tpu/ops/group_norm.py:102")
-    for n, s, c in ((2 * (FRAMES + 1), 4096, 320), (2, (FRAMES + 1) * 4096, 320)):
+    forward = forward_bound = forward_device = forward_fixed = 0.0
+    for n, s, c, count in CHANNEL_SUMS_SITES:
         x = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
         got = gn.stream_channel_sums(x)
+        again = gn.stream_channel_sums(x)
         want = gn.channel_sums(x)
         tag = f"channel_sums n={n} s={s} c={c}"
         # the same fp32 sums in another order
         _assert_close(tag + " Σx", got[0], want[0], STORED_SUM_ATOL, STORED_SUM_RTOL)
         _assert_close(tag + " Σx²", got[1], want[1], STORED_SUM_ATOL, STORED_SUM_RTOL)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"{tag}: two calls differ")
         ms = cuda_ms(lambda: gn.stream_channel_sums(x))
         plain = cuda_ms(lambda: gn.channel_sums(x))
+        nbytes = n * s * c * 2 + 2 * n * c * 4
+        device = _device_ms(lambda: gn.stream_channel_sums(x), "channel_sums (kernel 6)")
+        # the rows knocked out: one row a sample, what a call costs beyond its bytes
+        x1 = x[:, :1].contiguous()
+        fixed = _device_ms(lambda: gn.stream_channel_sums(x1), "channel_sums (kernel 6)")
+        forward += count * ms
+        forward_device += count * device
+        forward_fixed += count * fixed
+        forward_bound += count * nbytes / PEAK_HBM_BYTES * 1e3
+        log(f"    device time {device:.4f} ms (profiler), {fixed:.4f} ms with one row a sample; "
+            f"{count} a CFG forward")
         tally.add(tag, max(_err(got[0], want[0]), _err(got[1], want[1])), ms, plain,
-                  3 * n * s * c, n * s * c * 2 + 2 * n * c * 4)
+                  3 * n * s * c, nbytes)
+        del x
+    tally.row.update(forward_ms=forward, forward_device_ms=forward_device,
+                     forward_bound_ms=forward_bound, forward_one_row_device_ms=forward_fixed)
+    log(f"  kernel 6 a CFG forward ({sum(site[3] for site in CHANNEL_SUMS_SITES)} calls by the "
+        f"sites' counts): {forward:.3f} ms by events, {forward_device:.3f} ms of device time "
+        f"({forward_fixed:.3f} with one row a sample), against a bound of "
+        f"{forward_bound:.3f} ms")
     return tally.row
 
 
@@ -987,33 +1052,62 @@ def check_spatial_conv(gen) -> dict:
 
 
 def check_temporal_attention(gen) -> dict:
-    """Kernel 9 at the packed request's five frame-attention sites, at JAX's
-    ragged test shapes (locations that do not fill the last pack of
-    ``_packed_forward``; below the gate's 512 locations·heads, so through the
-    kernel's wrapper directly), at a head dim of 40 and at 48 frames; SDPA
-    over the (b, s, h, f, d) permuted view as the library time."""
+    """Kernel 9 at the packed request's five frame-attention sites, summed
+    over a CFG forward by the sites' launch counts (``forward_ms``,
+    ``forward_bound_ms``, ``forward_library_ms``), at JAX's ragged test
+    shapes (locations that do not fill the last pack of ``_packed_forward``;
+    below the gate's 512 locations·heads, so through the kernel's wrapper
+    directly), and at the edges of its reach at a ragged s: head dims 40,
+    128, 160 and 256, 48 and 128 frames; each called twice (bit for bit).
+    SDPA over the (b, s, h, f, d) permuted view as the library time."""
     from animate_anything_tpu_torch.ops import temporal_attention as ta
 
     tally = Tally("temporal_attention", "animate_anything_tpu_torch/csrc/temporal_attention.cu",
                   "animate_anything_tpu/ops/temporal_attention.py:97")
     full = [(2, FRAMES + 1, s, h, 64) for s, h in PACKED_SITES]
     ragged = [(1, 17, 33, 2, 64), (2, 14, 40, 1, 32), (2, 2, 40, 1, 32)]
-    # a head dim padded to the kernel's next multiple of 16, and f > 32
-    padded = [(2, 17, 40, 3, 40), (1, 48, 24, 2, 64)]
-    for b, f, s, h, d in full + ragged + padded:
+    # head dims not a multiple of 16 or 64 and up to 256, f > 32 and f = 128
+    reach = [(2, 17, 40, 3, 40), (1, 48, 24, 2, 64), (2, 17, 100, 4, 128), (2, 17, 100, 3, 160),
+             (1, 17, 70, 2, 256), (1, 128, 30, 2, 64), (1, 128, 9, 2, 256)]
+    counts = dict(zip(full, PACKED_SITE_CALLS))
+    forward = forward_bound = forward_library = forward_device = 0.0
+    for b, f, s, h, d in full + ragged + reach:
         q, k, v = (torch.randn(b, f, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
+        tag = f"temporal_attention b={b} f={f} s={s} h={h} d={d}"
+        plan = ta.launch_plan(b, f, s, h, d)
+        log(f"    plan: L={plan['L']} HB={plan['HB']} stages={plan['stages']} "
+            f"warps={plan['warps']} grid={plan['grid']} smem={plan['smem']}")
         with torch.no_grad():
             got = ta.packed_temporal_attention(q, k, v)
+            again = ta.packed_temporal_attention(q, k, v)
             want = ta.temporal_attention_reference(q, k, v)
-            tag = f"temporal_attention b={b} f={f} s={s} h={h} d={d}"
             _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two calls differ")
             ms = cuda_ms(lambda: ta.packed_temporal_attention(q, k, v))
             plain = cuda_ms(lambda: ta.temporal_attention_reference(q, k, v), warmup=1, iters=3)
             qp, kp, vp = (x.permute(0, 2, 3, 1, 4) for x in (q, k, v))
             library = cuda_ms(lambda: F.scaled_dot_product_attention(qp, kp, vp))
-        tally.add(tag, _err(got, want), ms, plain, 4 * b * s * h * f * f * d,
-                  4 * b * f * s * h * d * 2, library)
+        flop, nbytes = 4 * b * s * h * f * f * d, 4 * b * f * s * h * d * 2
+        count = counts.get((b, f, s, h, d), 0)
+        if count:
+            with torch.no_grad():
+                device = _device_ms(lambda: ta.packed_temporal_attention(q, k, v),
+                                    "temporal_attention (kernel 9)")
+            log(f"    device time {device} ms (profiler); {count} a packed CFG forward")
+            forward_device += count * device
+        forward += count * ms
+        forward_bound += count * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        forward_library += count * library
+        tally.add(tag, _err(got, want), ms, plain, flop, nbytes, library)
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
+    tally.row.update(forward_ms=forward, forward_device_ms=forward_device,
+                     forward_bound_ms=forward_bound, forward_library_ms=forward_library)
+    log(f"  kernel 9 a packed CFG forward ({PACKED_PER_FORWARD} launches by the sites' counts): "
+        f"{forward:.3f} ms by events, {forward_device:.3f} ms of device time, against a bound "
+        f"of {forward_bound:.3f} ms; SDPA on the permuted view {forward_library:.3f} ms")
     return tally.row
 
 

@@ -227,7 +227,8 @@ def test_profiler_groups_kernels_and_times_a_call():
     assert kernel_group("void flash_fwd_kernel<64>(Params)") == "flash_attention (kernel 1)"
     assert kernel_group("void flash_bwd_dkv_kernel<64, 64>(...)") == "flash_attention backward"
     assert kernel_group("void multi_tensor_apply_kernel<...>") == "optimizer (foreach)"
-    assert kernel_group("void channel_partial_kernel(...)") == "channel_sums (kernel 6)"
+    assert kernel_group("void aat::(anonymous namespace)::channel_sums_kernel<false>(...)") \
+        == "channel_sums (kernel 6)"
     assert kernel_group("void gn_apply_kernel(...)") == "group_norm_stream (kernel 7)"
     assert kernel_group("void spatial_conv_kernel(...)") == "spatial_conv (kernel 8)"
     assert kernel_group("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"

@@ -137,13 +137,13 @@ def test_attention_routes_head_sizes_by_the_kernel_gate(d, requires_grad, device
 
 
 # Kernel 9's gate: JAX's packed kernel takes every d % 8 == 0; the port's
-# kernel stops at MAX_HEAD_DIM, and its gate keeps the einsum form above it.
-@pytest.mark.parametrize("d,want", [(64, True), (128, True), (40, True), (136, False),
-                                    (256, False), (36, False)])
+# kernel stops at MAX_HEAD_DIM = 256, and its gate keeps the einsum form above it.
+@pytest.mark.parametrize("d,want", [(64, True), (128, True), (40, True), (136, True),
+                                    (256, True), (36, False), (264, False), (320, False)])
 def test_packed_gate_refuses_head_dims_past_the_kernel(d, want):
     from animate_anything_tpu_torch.ops.temporal_attention import MAX_HEAD_DIM, packed_ok
 
-    assert MAX_HEAD_DIM == 128
+    assert MAX_HEAD_DIM == 256
     assert packed_ok((2, 17, 256, 1, d), "packed", on_cuda=True) == want
     assert not packed_ok((2, 17, 256, 1, d), "packed", on_cuda=False)
 

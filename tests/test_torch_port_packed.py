@@ -3,8 +3,10 @@ configurations against the JAX package, on the CPU, in fp32.
 
 - Kernel 9's plain version against JAX's packed Pallas kernel
   (``_temporal_attention_p``) in interpret mode, at f ∈ {2, 14, 17} with
-  locations that do not fill the last pack; atol 2e-5, the JAX test's own.
-- The ``temporal_attention`` gate against JAX's, case by case.
+  locations that do not fill the last pack and at head dims 160 and 256;
+  atol 2e-5, the JAX test's own.
+- The ``temporal_attention`` gate against JAX's, case by case up to
+  d = 256, and the port's own clause above it (the einsum form).
 - The composite modules (``TemporalConvLayer`` and ``TemporalTapConv``, the
   spatial and temporal transformers) and the tiny mask+motion UNet under
   each configuration against JAX's with the same ``attn_impl``; atol 5e-5,
@@ -74,8 +76,9 @@ def _impl_context(impl: str):
     return packed_on_cpu() if impl == "packed" else contextlib.nullcontext({})
 
 
-@pytest.mark.parametrize("shape", [(1, 17, 33, 2, 64), (2, 14, 40, 1, 32), (2, 2, 40, 1, 32)],
-                         ids=["f17", "f14", "f2"])
+@pytest.mark.parametrize("shape", [(1, 17, 33, 2, 64), (2, 14, 40, 1, 32), (2, 2, 40, 1, 32),
+                                   (1, 17, 12, 1, 160), (1, 17, 12, 1, 256)],
+                         ids=["f17", "f14", "f2", "d160", "d256"])
 def test_temporal_attention_plain_matches_packed_pallas(shape):
     from animate_anything_tpu.ops.temporal_attention import _temporal_attention_p
     from animate_anything_tpu_torch.ops.temporal_attention import (packed_temporal_attention,
@@ -103,6 +106,9 @@ GATE_CASES = [
     ("packed", (2, 17, 4096, 8, 64)),   # transformer_in at full width
     ("packed", (2, 17, 64, 20, 64)),    # the 8x8 level: 2560
     ("packed", (2, 17, 16, 8, 8)),      # the tiny UNet's 4x4 level: 256
+    ("packed", (2, 17, 256, 1, 128)),   # head dims up to kernel 9's 256
+    ("packed", (2, 17, 256, 1, 160)),
+    ("packed", (2, 17, 256, 1, 256)),
 ]
 
 
@@ -119,6 +125,25 @@ def test_temporal_attention_gate_matches_jax(impl, shape):
         want = jta.temporal_attention(q, q, q, impl=impl) == "kernel"
     assert packed_ok(shape, impl, on_cuda=True) == want
     assert not packed_ok(shape, impl, on_cuda=False)
+
+
+@pytest.mark.parametrize("d", [264, 320])
+def test_temporal_attention_gate_keeps_the_einsum_form_past_the_kernel(d):
+    """The port's one clause of its own: JAX's packed kernel takes d > 256,
+    kernel 9 does not, so the port's gate keeps the einsum form there (the
+    same function)."""
+    from animate_anything_tpu.ops import temporal_attention as jta
+    from animate_anything_tpu_torch.ops.temporal_attention import MAX_HEAD_DIM, packed_ok
+
+    shape = (2, 17, 256, 1, d)
+    q = types.SimpleNamespace(shape=shape)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jta, "jax", _OnTpu())
+        mp.setattr(jta, "_temporal_attention_p", lambda *a: "kernel")
+        mp.setattr(jta, "_einsum_reference", lambda *a: "einsum")
+        assert jta.temporal_attention(q, q, q, impl="packed") == "kernel"
+    assert d > MAX_HEAD_DIM == 256
+    assert not packed_ok(shape, "packed", on_cuda=True)
 
 
 def test_temporal_tap_conv_matches_jax():
