@@ -3,9 +3,10 @@
 // runs the same LayerNorm before its q/k/v products and the same bias +
 // residual GEMM as its out-projection, and with kernel 4
 // (csrc/proj_residual.cu), which runs that GEMM in its slab form (below).
-// Each kernel template takes an Owner tag (ln_geglu_ff, temporal_block or
-// proj_residual) that names the kernel it runs for, so a profile attributes
-// the launches to their kernel.
+// Each kernel template takes an Owner tag (ln_geglu_ff, temporal_block,
+// proj_residual or ln_qkv) that names the kernel it runs for, so a profile
+// attributes the launches to their kernel; kernel 11 (csrc/ln_qkv.cu) takes
+// the LN pass's statistics alone.
 //
 // GEMM design (see geglu.cu's header for the numbers): persistent blocks
 // (one a SM, tile after tile with the output-column tile fastest, so the
@@ -40,6 +41,7 @@ namespace aat {
 struct ln_geglu_ff {};
 struct temporal_block {};
 struct proj_residual {};
+struct ln_qkv {};
 
 namespace gemm {
 
@@ -59,16 +61,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 // 16-byte chunks of it in registers, read once; c <= 8·CHUNKS·LPR.  A row of
 // one warp (the first version) left a lane one or two loads in flight at
 // c = 320, and the pass ran at a third of HBM's rate.  c % 8 == 0.
-template <int LPR, int CHUNKS, typename Owner>
+// STATS: the statistics alone, each row's (mean, 1/σ) fp32 into `out` (n, 2)
+// and no normalised row (kernel 11 normalises its GEMM's A in registers);
+// else the normalised rows into `out` (n, c) bf16.
+template <int LPR, int CHUNKS, typename Owner, bool STATS>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
-                  const float* __restrict__ b, bf16* __restrict__ ln, int n, int c, int cs,
+                  const float* __restrict__ b, void* __restrict__ out, int n, int c, int cs,
                   float eps) {
   const int lane = threadIdx.x & 31, sub = lane % LPR;
   const int row = (blockIdx.x * LN_WARPS + threadIdx.x / 32) * (32 / LPR) + lane / LPR;
   const bool ok = row < n;  // no early exit: the shuffles take the whole warp
   const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)row * c);
-  uint4* dst = reinterpret_cast<uint4*>(ln + (size_t)row * c);
   const int chunks = c / 8;
   uint4 v[CHUNKS];
   float sum = 0.f;
@@ -102,6 +106,11 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
 #pragma unroll
   for (int o = 1; o < LPR; o <<= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
   const float rstd = rsqrtf(sq / cs + eps);
+  if (STATS) {
+    if (ok && sub == 0) static_cast<float2*>(out)[row] = make_float2(mu, rstd);
+    return;
+  }
+  uint4* dst = static_cast<uint4*>(out) + (size_t)row * chunks;
 #pragma unroll
   for (int k = 0; k < CHUNKS; ++k) {
     const int u = sub + LPR * k;
@@ -120,28 +129,32 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
   }
 }
 
-template <int LPR, int CHUNKS, typename Owner>
-int launch_layer_norm_lpr(const void* x, const void* s, const void* b, void* ln, int n, int c,
+template <int LPR, int CHUNKS, typename Owner, bool STATS>
+int launch_layer_norm_lpr(const void* x, const void* s, const void* b, void* out, int n, int c,
                           int cs, float eps, cudaStream_t stream) {
   constexpr int rows = LN_WARPS * (32 / LPR);  // a block's
-  layer_norm_kernel<LPR, CHUNKS, Owner><<<(n + rows - 1) / rows, LN_WARPS * 32, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(s), static_cast<const float*>(b),
-      static_cast<bf16*>(ln), n, c, cs, eps);
+  layer_norm_kernel<LPR, CHUNKS, Owner, STATS>
+      <<<(n + rows - 1) / rows, LN_WARPS * 32, 0, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const float*>(s),
+          static_cast<const float*>(b), out, n, c, cs, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The LN pass for c <= 4096, statistics over the first cs columns: 8 lanes
 // a row up to c = 512, 16 up to 1024, else 32 (at most 8 chunks a lane, 16
-// past c = 2048).
-template <typename Owner>
-int launch_layer_norm(const void* x, const void* s, const void* b, void* ln, int n, int c,
+// past c = 2048).  `out` as layer_norm_kernel's.
+template <typename Owner, bool STATS = false>
+int launch_layer_norm(const void* x, const void* s, const void* b, void* out, int n, int c,
                       int cs, float eps, cudaStream_t stream) {
   if (n < 1 || c < 8 || c % 8 != 0 || c > 4096 || cs < 1 || cs > c)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (c <= 512) return launch_layer_norm_lpr<8, 8, Owner>(x, s, b, ln, n, c, cs, eps, stream);
-  if (c <= 1024) return launch_layer_norm_lpr<16, 8, Owner>(x, s, b, ln, n, c, cs, eps, stream);
-  if (c <= 2048) return launch_layer_norm_lpr<32, 8, Owner>(x, s, b, ln, n, c, cs, eps, stream);
-  return launch_layer_norm_lpr<32, 16, Owner>(x, s, b, ln, n, c, cs, eps, stream);
+  if (c <= 512)
+    return launch_layer_norm_lpr<8, 8, Owner, STATS>(x, s, b, out, n, c, cs, eps, stream);
+  if (c <= 1024)
+    return launch_layer_norm_lpr<16, 8, Owner, STATS>(x, s, b, out, n, c, cs, eps, stream);
+  if (c <= 2048)
+    return launch_layer_norm_lpr<32, 8, Owner, STATS>(x, s, b, out, n, c, cs, eps, stream);
+  return launch_layer_norm_lpr<32, 16, Owner, STATS>(x, s, b, out, n, c, cs, eps, stream);
 }
 
 // ---- the GEMMs ------------------------------------------------------------------
@@ -226,18 +239,6 @@ __device__ __forceinline__ void gemm_load_step(const GemmParams& p, const Ring& 
   } else {
     tma_load_3d(st + L::A_BYTES, &p.b, bar, kb * BK, ct * BN, 0);
   }
-}
-
-// SiLU in the tanh identity 0.5·z·(1 + tanh(z/2)) with tanh(z/2) = 1 −
-// 2/(1 + e^z), which is z − z/(1 + e^z): e^z and the reciprocal on the
-// special-function unit, then one FMA (kernels 3 and 8).  Large z: e^z =
-// +inf, its reciprocal 0, y = z.  Below z = −17, 1 + e^z rounds to 1 and y
-// to 0, where the exact z·e^z is under 1e-6 in magnitude (as 1 + tanh(z/2)
-// loses it in the TPU kernels' form).
-__device__ __forceinline__ float silu_tanh(float z) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + exp2_ftz(z * kLog2e)));
-  return fmaf(-z, r, z);
 }
 
 // gelu_tanh(g) = 0.5·g·(1 + tanh(z)) = g·sigmoid(2z), z = √(2/π)·(g + 0.044715·g³):

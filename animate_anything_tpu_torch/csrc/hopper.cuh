@@ -360,6 +360,18 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// SiLU in the tanh identity 0.5·z·(1 + tanh(z/2)) with tanh(z/2) = 1 −
+// 2/(1 + e^z), which is z − z/(1 + e^z): e^z and the reciprocal on the
+// special-function unit, then one FMA (kernels 3, 7 and 8).  Large z: e^z =
+// +inf, its reciprocal 0, y = z.  Below z = −17, 1 + e^z rounds to 1 and y
+// to 0, where the exact z·e^z is under 1e-6 in magnitude (as 1 + tanh(z/2)
+// loses it in the TPU kernels' form).
+__device__ __forceinline__ float silu_tanh(float z) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + exp2_ftz(z * 1.4426950408889634f)));
+  return fmaf(-z, r, z);
+}
+
 // Accumulator layout of m64nNk16 (fp32, N/2 registers a thread): thread
 // (warp w of the warpgroup, lane = 4g + t) holds d[4j + e] = D[16w + g + 8(e >> 1)][8j + 2t + (e & 1)].
 // With 16-bit inputs, the accumulators of n8 blocks 2kk and 2kk + 1, packed

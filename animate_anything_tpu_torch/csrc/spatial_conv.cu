@@ -17,7 +17,7 @@
 // generalised from 3 frame taps to 9 spatial taps:
 // - the activation pass writes act = SiLU(a·x + b) in fp32, rounded once to
 //   bf16, into an (n, H, W, cin) buffer: 16 bytes a thread, one ex2 and one
-//   reciprocal an element (gemm.cuh's silu_tanh).  This splits the TPU
+//   reciprocal an element (hopper.cuh's silu_tanh).  This splits the TPU
 //   kernel's fusion: act goes through device memory (4·n·H·W·cin bytes
 //   written and read back, ~1.3 ms a CFG forward at 3.35 TB/s against the
 //   forward's ~11 ms FLOP bound), where the first version activated the
@@ -73,7 +73,6 @@ namespace {
 
 using namespace hopper;
 using gemm::CONSUMERS;
-using gemm::silu_tanh;
 
 constexpr int SUB = 64;                // pixels of a sub-tile (one warpgroup's)
 constexpr int HALF_BYTES = SUB * 128;  // its A box of a 64-channel K step

@@ -73,7 +73,6 @@ namespace {
 
 using namespace hopper;
 using gemm::CONSUMERS;
-using gemm::silu_tanh;
 
 constexpr int SUB = 64;                // rows of a sub-tile (one warpgroup's)
 constexpr int NACC = 2;                // accumulators a tile, NB columns each

@@ -1,6 +1,6 @@
 """Spatial and temporal transformer modules — the port of
 ``animate_anything_tpu/models/attention.py``. Every module takes JAX's
-``attn_impl``; the port's default is ``"pallas"``.
+``attn_impl`` (the UNet's default, ``None``, reaches them as ``"xla"``).
 
 Under ``attn_impl="pallas"``:
 

@@ -16,9 +16,9 @@ inside. CFG is an ordinary batch doubling by the caller.
 ``UNet3DConfig.attn_impl`` picks JAX's configuration: ``"pallas"`` (kernels
 1–5, the GroupNorm sums threaded between them), ``"xla"`` (the composite
 modules, SDPA for attention) or ``"packed"`` (``"xla"`` with kernel 9 for the
-frame attention). The parameters are the same in all three. One divergence:
-the port's default is ``"pallas"``, where JAX's ``None`` means ``"xla"``;
-every caller of the port (pipeline, trainer, configs) means ``"pallas"``.
+frame attention). The parameters are the same in all three. The default,
+``None``, means ``"xla"`` as in JAX (``ops/attention.py``'s process default
+there); callers that want the kernels pass ``"pallas"``.
 """
 
 from __future__ import annotations
@@ -56,16 +56,21 @@ class UNet3DConfig:
     attention_head_dim: int = 64
     motion_mask: bool = False
     motion_strength: bool = False
-    # "pallas" | "xla" | "packed" (module docstring)
-    attn_impl: str = "pallas"
+    # "pallas" | "xla" | "packed" | None, which means "xla" (module docstring)
+    attn_impl: Optional[str] = None
     # per-sub-layer activation checkpointing while autograd records
     # (unet3d_blocks._run); JAX's per-sub-layer nn.remat
     gradient_checkpointing: bool = False
 
     def __post_init__(self):
-        if self.attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"UNet3DConfig.attn_impl must be one of {ATTN_IMPLS}, "
+        if self.attn_impl is not None and self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"UNet3DConfig.attn_impl must be None or one of {ATTN_IMPLS}, "
                              f"got {self.attn_impl!r}")
+
+    @property
+    def impl(self) -> str:
+        """The configuration ``attn_impl`` names: ``None`` reads as ``"xla"``."""
+        return self.attn_impl or "xla"
 
     @classmethod
     def tiny(cls, **kw) -> "UNet3DConfig":
@@ -84,7 +89,7 @@ class UNet3DConditionModel(nn.Module):
         ch0, temb = ch[0], ch[0] * 4
         g, eps, hd, xd = cfg.norm_num_groups, cfg.norm_eps, cfg.attention_head_dim, \
             cfg.cross_attention_dim
-        remat, impl = cfg.gradient_checkpointing, cfg.attn_impl
+        remat, impl = cfg.gradient_checkpointing, cfg.impl
 
         self.time_embedding = TimestepEmbedding(ch0, temb, ch0 if cfg.motion_strength else None)
         if cfg.motion_mask:

@@ -48,8 +48,7 @@ _SIGNATURES = {
     "aat_channel_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, r, y, work, tickets, s1, s2, n, s, c, ct, threads, chunks, rows, stream
     "aat_add_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, scale, bias, work, tickets, y, n, s, c, groups, ct, threads, chunks, rows, eps, silu,
-    # stream
+    # x, scale, bias, work, bar, y, n, s, c, groups, pieces, ring, grid, smem, eps, silu, stream
     "aat_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, a, b, w (packed), bias, res, act, y, n, h, w, cin, cout, silu, bn, stages, grid,
     # smem, stream
@@ -57,8 +56,10 @@ _SIGNATURES = {
                          _P],
     # q, k, v, o, b, f, s, heads, d, L, HB, stages, warps, grid, smem, stream
     "aat_temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, ln_s, ln_b, wq, wk, wv, q, k, v, n, c, hd, eps, qscale, stream
-    "aat_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    # x, ln_s, ln_b, wq, wk, wv, q, k, v, stats, n, c, hd, eps, qscale, bn, stages, grid, smem,
+    # stream
+    "aat_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+                   _P],
 }
 
 _lock = threading.Lock()

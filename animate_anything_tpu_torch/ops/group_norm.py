@@ -137,9 +137,10 @@ _TICKETS: dict = {}
 
 
 def tickets(device: torch.device, count: int) -> torch.Tensor:
-    """The per-(sample, slab) ticket counters of kernels 6, 7 and 10 on
-    ``device`` for the current stream: zeroed once here, and left zeroed by
-    each launch (the last block of a slab resets its counter). A launch
+    """The per-(sample, slab) ticket counters of kernels 6 and 10, and
+    kernel 7's grid-barrier counts, on ``device`` for the current stream:
+    zeroed once here, and left zeroed by each launch (the last block of a
+    slab resets its counter; kernel 7's last block, its counts). A launch
     finds them zero only if the launch before it on them has ended, so each
     stream has its own: launches on one stream run in turn."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)

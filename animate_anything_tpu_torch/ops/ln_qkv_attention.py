@@ -3,9 +3,11 @@
 
 Its Pallas kernel ``_pallas_fwd`` computes the whole function in one
 program. Here it is two hand-written kernels: kernel 11
-(``csrc/ln_qkv.cu``) normalises the rows in fp32 and projects them to q, k
-and v on the tensor cores, q pre-scaled by log2 e/√d and rounded to bf16 as
-the TPU kernel's ``_kernel`` :79-82 does; kernel 1 (``csrc/flash_attention.cu``,
+(``csrc/ln_qkv.cu``) takes each row's LayerNorm statistics in fp32 and
+projects the rows, normalised on their way into the tensor cores, to q, k
+and v in one persistent TMA + wgmma GEMM that reads the weights where they
+lie (``launch_plan``), q pre-scaled by log2 e/√d and rounded to bf16 as the
+TPU kernel's ``_kernel`` :79-82 does; kernel 1 (``csrc/flash_attention.cu``,
 told that q is pre-scaled) then runs the exp2-domain attention on them in
 the ``(b, s, h·d)`` layout. The normalised rows never reach device memory.
 
@@ -30,11 +32,54 @@ from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute
 from animate_anything_tpu_torch.ops.flash_attention import (LOG2E, attention_reference,
                                                             flash_forward_with_lse)
+from animate_anything_tpu_torch.ops.geglu import pick_width
 
 HEAD_DIM = 64
 MIN_SEQ = 256
 
-launches = 0  # kernel-11 launches by ln_qkv_attention
+launches = 0  # kernel-11 calls by ln_qkv_attention (each: the statistics pass and the GEMM)
+
+# The GEMM's tiles (``csrc/ln_qkv.cu``): 128 rows (two warpgroups of 64) ×
+# BN columns of one of q, k, v, BN dividing heads·head_dim; K steps of 64;
+# per stage the x tile and BN/64 weight chunks of 64 x 64; four 64 x 64
+# output chunks (two a warpgroup).
+GEMM_BM, GEMM_BK = 128, 64
+TILE_WIDTHS = (320, 256, 192, 128, 64)
+SMEM_LIMIT = 232448
+MAX_STAGES = 4
+MAX_C = 4096  # the statistics pass holds a row in a warp's registers
+
+
+def _smem(bn: int, stages: int, c: int) -> int:
+    """Dynamic shared bytes of a GEMM block (``Layout::smem`` in the
+    source): 1024 for the swizzle alignment; per stage the x tile (128 x 64)
+    and the weight tile (64 x bn) in bf16 and two mbarriers; four 64 x 64
+    bf16 output chunks; the LayerNorm scale and bias over c rounded up to 64
+    in fp32."""
+    kpad = -(-c // GEMM_BK) * GEMM_BK
+    return (1024 + stages * (2 * GEMM_BK * (GEMM_BM + bn) + 16) + 4 * 64 * 64 * 2
+            + 2 * kpad * 4)
+
+
+def launch_plan(n: int, c: int, hd: int, sms: int = 132) -> dict:
+    """Kernel 11's GEMM for n rows of width c onto three hd-wide outputs on
+    a card of ``sms`` SMs, without the card: the tile width ``bn`` (a width
+    of ``TILE_WIDTHS`` dividing hd, so no tile straddles q, k and v; the
+    fewest waves of tile work by ``geglu.pick_width``), the ring depth (as
+    many stages as fit, at most ``MAX_STAGES``), the persistent grid and the
+    shared bytes."""
+    if n < 1 or c < 8 or c % 8 or c > MAX_C or hd < 64 or hd % 64:
+        raise ValueError(f"ln_qkv: c={c} must be a multiple of 8 up to {MAX_C}, "
+                         f"heads·head_dim={hd} a multiple of 64")
+    row_tiles = -(-n // GEMM_BM)
+    bn = pick_width(row_tiles, 3 * hd, [w for w in TILE_WIDTHS if hd % w == 0], sms)
+    stages = max(s for s in range(2, MAX_STAGES + 1) if _smem(bn, s, c) <= SMEM_LIMIT) \
+        if _smem(bn, 2, c) <= SMEM_LIMIT else 0
+    if not stages:
+        raise ValueError(f"ln_qkv: c={c} leaves no room for two stages")
+    tiles = row_tiles * 3 * hd // bn
+    return dict(bn=bn, stages=stages, grid=min(tiles, sms), smem=_smem(bn, stages, c),
+                tiles=tiles, row_tiles=row_tiles, per_w=hd // bn)
 
 
 def ln_qkv_attention_ok(s: int, head_dim: int) -> bool:
@@ -55,22 +100,22 @@ def ln_qkv_attention_reference(x, ln_scale, ln_bias, wq, wk, wv, heads: int, hea
 def _launch(x, ln_scale, ln_bias, wq, wk, wv, heads: int, head_dim: int, eps: float):
     b, s, c = x.shape
     hd = heads * head_dim
-    if c % 8 or hd % 64:
-        raise ValueError(f"ln_qkv_attention: c={c} must be a multiple of 8, "
-                         f"heads·head_dim={hd} of 64")
     bf = torch.bfloat16
+    plan = launch_plan(b * s, c, hd, cuda_lib.sm_count(x.device))
     cuda_lib.check_cuda("ln_qkv x", x, bf, (b, s, c))
     cuda_lib.check_cuda("ln_qkv ln scale", ln_scale, torch.float32, (c,))
     cuda_lib.check_cuda("ln_qkv ln bias", ln_bias, torch.float32, (c,))
-    # the kernel streams each weight as (hd, c) rows: one output channel a row
-    wts = [w.to(bf).t().contiguous() for w in (wq, wk, wv)]
+    wts = [w.to(bf) for w in (wq, wk, wv)]  # read in place: (c, hd), hd along the row
     for name, w in zip("qkv", wts):
-        cuda_lib.check_cuda(f"ln_qkv w{name}", w, bf, (hd, c))
+        cuda_lib.check_cuda(f"ln_qkv w{name}", w, bf, (c, hd))
     q, k, v = (torch.empty((b, s, heads, head_dim), device=x.device, dtype=bf)
                for _ in range(3))
+    stats = torch.empty((b * s, 2), device=x.device, dtype=torch.float32)
     cuda_lib.call("aat_ln_qkv", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                   wts[0].data_ptr(), wts[1].data_ptr(), wts[2].data_ptr(), q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), b * s, c, hd, eps, LOG2E / math.sqrt(head_dim))
+                  k.data_ptr(), v.data_ptr(), stats.data_ptr(), b * s, c, hd, eps,
+                  LOG2E / math.sqrt(head_dim), plan["bn"], plan["stages"], plan["grid"],
+                  plan["smem"])
     global launches
     launches += 1
     out, _ = flash_forward_with_lse(q, k, v, with_lse=False, prescaled=True)

@@ -1,8 +1,9 @@
 """The sites of kernels 8, 4 and 6 in one CFG forward of the full-width
 UNet in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents),
+and of kernel 7 in the SD VAE's 512 px image encode and 16-frame decode,
 with their launch counts. ``chip_smoke.py`` checks and times the kernels at
-these sites and sums them over a forward by the counts; the plan tests
-hold the launch plans to them.
+these sites and sums them by the counts; the plan tests hold the launch
+plans to them.
 """
 
 from __future__ import annotations
@@ -42,3 +43,25 @@ CHANNEL_SUMS_SITES = (
     (34, 256, 640, 1), (34, 256, 1280, 6), (34, 256, 2560, 2), (34, 256, 1920, 1),
     (34, 64, 1280, 11), (34, 64, 2560, 3),
 )
+
+# Kernel 7: (n, s, c, SiLU, launches) in the opt-in configuration: every
+# GroupNorm of the VAE (the resnets' two, with SiLU; the mid-block
+# attention's, without; the output norm, with) at its level's h·w rows and
+# width. The image encode (n = 1 image at 512 px) runs 22, the 16-frame
+# decode (n = 16 at 64² latents) 30: 52 a request.
+# tests/test_torch_port_norm_qkv_plans.py counts them through the wrapper
+# over an encode and a decode of the full-width VAE on the meta device.
+STREAM_GN_ENCODE_SITES = (
+    (1, 262144, 128, True, 4), (1, 65536, 128, True, 1), (1, 65536, 256, True, 3),
+    (1, 16384, 256, True, 1), (1, 16384, 512, True, 3), (1, 4096, 512, True, 9),
+    (1, 4096, 512, False, 1),
+)
+STREAM_GN_DECODE_SITES = (
+    (16, 4096, 512, True, 10), (16, 4096, 512, False, 1), (16, 16384, 512, True, 6),
+    (16, 65536, 512, True, 1), (16, 65536, 256, True, 5), (16, 262144, 256, True, 1),
+    (16, 262144, 128, True, 6),
+)
+# Kernel 11's sites, as kernel 1's (FLASH_SITES in chip_smoke.py): the UNet's
+# spatial self-attention levels, (b, s, c, heads) of a CFG forward's 34
+# frames; no model path of the JAX package or the port calls kernel 11.
+LN_QKV_SITES = ((34, 4096, 320, 5), (34, 1024, 640, 10), (34, 256, 1280, 20))

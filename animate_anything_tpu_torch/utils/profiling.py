@@ -19,8 +19,7 @@ shares). The last line is one JSON object with those numbers.
 ``--opt-in`` (``profile_opt_in``) profiles instead one CFG UNet forward and
 one 16-frame VAE decode in the JAX package's opt-in GroupNorm and resnet-conv
 configuration (``ops/spatial_conv.opt_in_config``), each beside the same call
-in the default configuration. Kernel 7's sum pass is kernel 6's
-``channel_sums_kernel``, so it counts in kernel 6's group.
+in the default configuration.
 
 ``--attn-impl packed`` (or ``xla``; ``profile_attn_impl``) profiles one CFG
 UNet forward with the same weights under ``UNet3DConfig(attn_impl=IMPL)``,
@@ -46,7 +45,7 @@ KERNEL_GROUPS = (
     ("proj_residual (kernel 4)", ("proj_residual",)),
     ("temporal_block (kernel 5)", ("temporal_block",)),
     ("channel_sums (kernel 6)", ("channel_sums",)),
-    ("group_norm_stream (kernel 7)", ("group_fold", "gn_apply")),
+    ("group_norm_stream (kernel 7)", ("gn_stream",)),
     ("spatial_conv (kernel 8)", ("spatial_conv",)),
     ("temporal_attention (kernel 9)", ("temporal_attention",)),
     ("ln_qkv (kernel 11)", ("ln_qkv",)),
@@ -163,6 +162,7 @@ def _inference_setup(seed: int, gradient_checkpointing: bool):
         # checkpointing acts only while autograd records: the inference
         # profiles run under no_grad and are unaffected
         unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True,
+                                                 attn_impl="pallas",
                                                  gradient_checkpointing=gradient_checkpointing))
         vae = AutoencoderKL(VAEConfig())
     cast_module_(init_unet3d_(unet, gen)).eval()

@@ -27,8 +27,10 @@
    with kernel 2 at widths off 16, off 8 (zero-padded) and past 1280; the
    channel sums (kernel 6) at every statistics site of the opt-in forward,
    called twice (bit for bit) and summed over a CFG forward by the sites'
-   counts, and the streaming GroupNorm (+SiLU) at the opt-in configuration's
-   shapes; the fused GroupNorm-affine + SiLU -> 3x3 conv
+   counts, and the one-pass GroupNorm (+SiLU; kernel 7) at every GroupNorm
+   site of the VAE's 512 px image encode and 16-frame decode, called twice
+   (bit for bit), one launch a call, by events and by device time, summed
+   over an encode and a decode by the sites' counts; the fused GroupNorm-affine + SiLU -> 3x3 conv
    (kernel 8) at every resnet stage of the opt-in forward beside its bf16
    composite (affine + SiLU, cuDNN's conv2d, + bias (+ residual)), summed
    over a CFG forward by the stages' counts, at JAX's test shapes and at W >
@@ -81,8 +83,11 @@ Steps 3 and 4 also check kernel 9 against its plain version at the packed
 configuration's frame-attention shapes (summed over a packed CFG forward by
 the sites' counts), at JAX's ragged test shapes and at the edges of its
 reach (head dims 40 to 256, 48 and 128 frames, a ragged s), each called
-twice (bit for bit), the three entry points' kernels at full-width and JAX's test shapes, and a small
-UNet's forward under ``attn_impl="packed"`` on the card against the CPU.
+twice (bit for bit), the three entry points' kernels at full-width and JAX's test shapes
+(LayerNorm -> q/k/v -> attention called twice, bit for bit, its device time
+split between kernels 11 and 1 beside the LayerNorm + q|k|v matmul
+composite of kernel 11's half), and a small UNet's forward under
+``attn_impl="packed"`` on the card against the CPU.
 
 Exits non-zero without a CUDA device, or when any phase fails.
 """
@@ -913,37 +918,88 @@ def check_channel_sums(gen) -> dict:
     return tally.row
 
 
-def check_streaming_gn(gen) -> dict:
-    """Kernel 7 at the VAE decoder's four levels at 16 frames (GroupNorm +
-    SiLU) and at the 64x64x512 level without SiLU (the mid-block attention's
-    norm); F.group_norm as the library time there."""
-    from animate_anything_tpu_torch.ops import streaming_group_norm as sg
+def _launches_a_call(fn, group: str, iters: int = 4) -> float:
+    """Kernels of ``group`` the profiler saw a call of fn."""
+    from animate_anything_tpu_torch.utils.profiling import device_profile
 
+    prof = device_profile(lambda: [fn() for _ in range(iters)])
+    return prof["group_kernels"].get(group, 0) / iters
+
+
+def check_streaming_gn(gen) -> dict:
+    """Kernel 7 at every GroupNorm site of the VAE's 512 px image encode and
+    16-frame decode in the opt-in configuration (``utils/kernel_sites``;
+    GroupNorm + SiLU, and the mid-block attention's norm without), each
+    called twice (bit for bit: no atomics on the sums) and counted in
+    kernels a call by the profiler (one launch), timed by events and by the
+    profiler's device time and summed over an encode and a decode by the
+    sites' counts; its bound reads x once (the rows a block does not hold
+    and reads twice, ``launch_plan``'s ``rows_read_twice``, are logged beside
+    it and not counted). F.group_norm as the library time where there is no
+    SiLU."""
+    from animate_anything_tpu_torch.ops import streaming_group_norm as sg
+    from animate_anything_tpu_torch.utils.kernel_sites import (STREAM_GN_DECODE_SITES,
+                                                               STREAM_GN_ENCODE_SITES)
+
+    group = "group_norm_stream (kernel 7)"
     tally = Tally("group_norm_stream", "animate_anything_tpu_torch/csrc/group_norm.cu",
                   "animate_anything_tpu/ops/attic/streaming_group_norm.py:110")
-    for hw, c, silu in ((64, 512, True), (128, 512, True), (256, 256, True), (512, 128, True),
-                        (64, 512, False)):
-        n, s, groups = FRAMES, hw * hw, 32
-        x = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
-        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        with torch.no_grad():
-            got = sg.group_norm_stream(x, scale, bias, groups, 1e-6, silu)
-            want = sg.group_norm_stream_reference(x, scale, bias, groups, 1e-6, silu)
-            tag = f"group_norm_stream n={n} s={hw}x{hw} c={c} silu={silu}"
-            _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
-            ms = cuda_ms(lambda: sg.group_norm_stream(x, scale, bias, groups, 1e-6, silu))
-            plain = cuda_ms(lambda: sg.group_norm_stream_reference(x, scale, bias, groups, 1e-6,
-                                                                   silu), warmup=1, iters=3)
-            library = None
-            if not silu:   # one call of the same function (weights in x's dtype)
-                sb, bb = scale.to(x.dtype), bias.to(x.dtype)
-                library = cuda_ms(lambda: F.group_norm(x.transpose(1, 2), groups, sb, bb, 1e-6))
-        nbytes = 2 * n * s * c * 2 + 2 * c * 4
-        tally.add(tag, _err(got, want), ms, plain, (8 if silu else 3) * n * s * c, nbytes,
-                  library)
-        log(f"    bound with x read twice (the kernel's two passes): "
-            f"{3 * n * s * c * 2 / PEAK_HBM_BYTES * 1e3:.3f} ms")
+    totals = {}
+    for path, sites in (("decode", STREAM_GN_DECODE_SITES), ("encode", STREAM_GN_ENCODE_SITES)):
+        # bound_rereads_ms: the bound with the rows the design reads twice (a diagnostic)
+        t = dict(ms=0.0, device_ms=0.0, bound_ms=0.0, bound_rereads_ms=0.0, calls=0)
+        for n, s, c, silu, count in sites:
+            groups = 32
+            x = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+            scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+            bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+            hw = int(s ** 0.5)
+            tag = f"group_norm_stream {path} n={n} s={hw}x{hw} c={c} silu={silu}"
+            run = lambda: sg.group_norm_stream(x, scale, bias, groups, 1e-6, silu)  # noqa: E731
+            with torch.no_grad():
+                got, again = run(), run()
+                want = sg.group_norm_stream_reference(x, scale, bias, groups, 1e-6, silu)
+                _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: two calls differ")
+                del again
+                ms = cuda_ms(run)
+                device = _device_ms(run, group, iters=10)
+                per_call = _launches_a_call(run, group)
+                if per_call != 1:
+                    raise AssertionError(f"{tag}: {per_call} kernel-7 launches a call, not 1")
+                plain = cuda_ms(lambda: sg.group_norm_stream_reference(x, scale, bias, groups,
+                                                                       1e-6, silu),
+                                warmup=1, iters=3)
+                library = None
+                if not silu:   # one call of the same function (weights in x's dtype)
+                    sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+                    library = cuda_ms(lambda: F.group_norm(x.transpose(1, 2), groups, sb, bb,
+                                                           1e-6))
+            plan = sg.launch_plan(n, s, c, groups)
+            xbytes = n * s * c * 2
+            nbytes = 2 * xbytes + 2 * c * 4
+            tally.add(tag, _err(got, want), ms, plain, (8 if silu else 3) * n * s * c, nbytes,
+                      library)
+            held = "x read once" if plan["read_once"] else (
+                f"{1 - plan['rows_read_twice'] / (n * s):.1%} of the rows read once")
+            log(f"    device time {device:.4f} ms (profiler), 1 launch a call, {count} a {path}; "
+                f"{held}; bound {nbytes / PEAK_HBM_BYTES * 1e3:.3f} ms (x read once), "
+                f"{(nbytes + plan['rows_read_twice'] * c * 2) / PEAK_HBM_BYTES * 1e3:.3f} ms "
+                f"with the rows the design reads twice")
+            t["ms"] += count * ms
+            t["device_ms"] += count * device
+            t["bound_ms"] += count * nbytes / PEAK_HBM_BYTES * 1e3
+            t["bound_rereads_ms"] += (count * (nbytes + plan["rows_read_twice"] * c * 2)
+                                      / PEAK_HBM_BYTES * 1e3)
+            t["calls"] += count
+            del x, got, want
+            torch.cuda.empty_cache()
+        totals[path] = t
+        log(f"  kernel 7 a {path} ({t['calls']} calls): {t['ms']:.3f} ms by events, "
+            f"{t['device_ms']:.3f} ms of device time, against a bound of {t['bound_ms']:.3f} ms "
+            f"({t['bound_rereads_ms']:.3f} ms with the rows the design reads twice)")
+    tally.row.update({f"{path}_{k}": v for path, t in totals.items() for k, v in t.items()})
     return tally.row
 
 
@@ -1183,18 +1239,22 @@ def check_ln_qkv(gen) -> dict:
     """Kernels 11 and 1 (``ln_qkv_attention``) at the UNet's three spatial
     self-attention sites (norm1 -> to_q/k/v -> attention) and at JAX's test
     shapes, against the plain version on the first and the last two
-    samples. No single
-    PyTorch call computes it; the three-call composite (``F.layer_norm``, one
-    q|k|v matmul, SDPA) is a reference line."""
+    samples, each called twice (bit for bit). The profiler splits a call's
+    device time into kernel 11's (its statistics pass and GEMM: two launches)
+    and kernel 1's. No single PyTorch call computes it; the three-call
+    composite (``F.layer_norm``, one q|k|v matmul, SDPA) is a reference line,
+    and beside kernel 11's own time, its front half (``F.layer_norm`` and the
+    q|k|v matmul) and the bound of that half."""
     from animate_anything_tpu_torch.ops import ln_qkv_attention as lq
+    from animate_anything_tpu_torch.utils.kernel_sites import LN_QKV_SITES
+    from animate_anything_tpu_torch.utils.profiling import device_profile
 
     tally = Tally("ln_qkv_attention", "animate_anything_tpu_torch/csrc/ln_qkv.cu",
                   "animate_anything_tpu/ops/attic/ln_qkv_attention.py:130")
     tally.row["source_also"] = "animate_anything_tpu_torch/csrc/flash_attention.cu"
-    n = 2 * (FRAMES + 1)
     composite_ms = 0.0
-    for b, s, c, h in ((n, 4096, 320, 5), (n, 1024, 640, 10), (n, 256, 1280, 20),
-                       (2, 256, 128, 2), (1, 300, 192, 3)):
+    sites = dict(k11_device_ms=[], k1_device_ms=[], front_composite_ms=[], front_bound_ms=[])
+    for b, s, c, h in LN_QKV_SITES + ((2, 256, 128, 2), (1, 300, 192, 3)):
         hd = 64 * h
         x = torch.randn(b, s, c, generator=gen, device="cuda").to(torch.bfloat16)
         lns = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
@@ -1202,30 +1262,51 @@ def check_ln_qkv(gen) -> dict:
         ws = [_lecun(gen, c, hd, fan_in=c) for _ in range(3)]
         kw = dict(heads=h, head_dim=64, eps=1e-5)
         tag = f"ln_qkv_attention b={b} s={s} c={c} h={h}"
+        run = lambda: lq.ln_qkv_attention(x, lns, lnb, *ws, impl="pallas", **kw)  # noqa: E731
         with torch.no_grad():
-            got = lq.ln_qkv_attention(x, lns, lnb, *ws, impl="pallas", **kw)
+            got = run()
+            if not torch.equal(got, run()):
+                raise AssertionError(f"{tag}: two calls differ")
             err = max(_assert_attention(f"{tag} samples {sl.start}:{sl.stop}", got[sl],
                                         lq.ln_qkv_attention_reference(x[sl], lns, lnb, *ws, **kw))
                       for sl in _first_and_last(b))
-            ms = cuda_ms(lambda: lq.ln_qkv_attention(x, lns, lnb, *ws, impl="pallas", **kw))
+            ms = cuda_ms(run)
+            prof = device_profile(lambda: [run() for _ in range(5)])
+            k11 = prof["groups"].get("ln_qkv (kernel 11)", 0.0) / 5
+            k1 = prof["groups"].get("flash_attention (kernel 1)", 0.0) / 5
+            per_call = prof["group_kernels"].get("ln_qkv (kernel 11)", 0) / 5
+            if not k11 or not k1:
+                raise AssertionError(f"{tag}: the profiler saw no device time of kernel 11 or 1")
+            if per_call != 2:
+                raise AssertionError(f"{tag}: {per_call} kernel-11 launches a call, not 2")
             plain = cuda_ms(lambda: [lq.ln_qkv_attention_reference(x[i:i + 2], lns, lnb, *ws, **kw)
                                      for i in range(0, b, 2)], warmup=1, iters=2)
             wqkv = torch.cat(ws, 1)
             lnsb, lnbb = lns.to(x.dtype), lnb.to(x.dtype)
+            front = lambda: F.layer_norm(x, (c,), lnsb, lnbb, 1e-5) @ wqkv  # noqa: E731
 
             def composite():
-                qkv = F.layer_norm(x, (c,), lnsb, lnbb, 1e-5) @ wqkv
-                q, k, v = (t.reshape(b, s, h, 64) for t in qkv.split(hd, -1))
+                q, k, v = (t.reshape(b, s, h, 64) for t in front().split(hd, -1))
                 return _sdpa(q, k, v)
             comp = cuda_ms(composite)
+            front_ms = cuda_ms(front)
+        n = b * s
+        front_bound = max(6 * n * c * hd / PEAK_BF16_FLOPS,
+                          (n * (c + 3 * hd) * 2 + 3 * c * hd * 2) / PEAK_HBM_BYTES) * 1e3
         composite_ms += comp
-        log(f"    three-call composite (layer_norm, q|k|v matmul, SDPA; a reference line) "
-            f"{comp:.3f} ms")
+        log(f"    device time: kernel 11 {k11:.4f} ms ({per_call:g} launches a call: the "
+            f"statistics and the GEMM), kernel 1 {k1:.4f} ms; kernel 11's half: composite "
+            f"(layer_norm, q|k|v matmul; a reference line) {front_ms:.3f} ms, bound "
+            f"{front_bound:.4f} ms; three-call composite (+ SDPA) {comp:.3f} ms")
+        if (b, s, c, h) in LN_QKV_SITES:
+            for key, val in zip(sites, (k11, k1, front_ms, front_bound)):
+                sites[key].append(val)
         flop = 4 * b * h * s * s * 64 + 6 * b * s * c * hd
         nbytes = b * s * (c + hd) * 2 + 3 * c * hd * 2 + 2 * c * 4
         tally.add(tag, err, ms, plain, flop, nbytes)
         torch.cuda.empty_cache()
     tally.row["composite_ms"] = composite_ms
+    tally.row.update(sites)
     return tally.row
 
 
@@ -1479,7 +1560,7 @@ def check_small_unet_grads(seed: int = 1) -> float:
     from animate_anything_tpu_torch.core.dtypes import cast_module_
     from animate_anything_tpu_torch.train import make_loss_fn, mask_motion_finetune
 
-    ref, gen = _small_unet(seed, gradient_checkpointing=True)
+    ref, gen = _small_unet(seed, attn_impl="pallas", gradient_checkpointing=True)
     b, f, hw = 2, 3, 16
     batch = {"latents": torch.randn(b, f, hw, hw, 4, generator=gen),
              "mask": torch.zeros(b, 8 * hw, 8 * hw),
@@ -1553,6 +1634,7 @@ def build_models(seed: int = 0, gradient_checkpointing: bool = False):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("cuda"):
         unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True,
+                                                 attn_impl="pallas",
                                                  gradient_checkpointing=gradient_checkpointing))
         vae = AutoencoderKL(VAEConfig())
         text = CLIPTextModel()

@@ -150,7 +150,8 @@ def prompt_result(prompt_case):
 
     (uparams, vparams, tparams), image, mask_img, noise, _, _ = prompt_case
     unet = load_into(UNet3DConditionModel(UNet3DConfig.tiny(motion_mask=True,
-                                                            motion_strength=True)),
+                                                            motion_strength=True,
+                                                            attn_impl="pallas")),
                      unet3d_state_dict(uparams))
     vae = load_into(AutoencoderKL(VAEConfig.tiny()), vae_state_dict(vparams))
     text = load_into(CLIPTextModel(CLIPTextConfig.tiny()), clip_text_state_dict(tparams))

@@ -206,7 +206,8 @@ def test_init_matches_flax_initialisers():
     from animate_anything_tpu_torch.utils.convert import init_unet3d_
 
     m = init_unet3d_(UNet3DConditionModel(UNet3DConfig.tiny(motion_mask=True,
-                                                             motion_strength=True)),
+                                                             motion_strength=True,
+                                                             attn_impl="pallas")),
                      torch.Generator().manual_seed(0))
     params = {k: p.detach() for k, p in m.named_parameters()}
     conv4 = [k for k in params if ".conv4.3." in k]
@@ -229,7 +230,9 @@ def test_profiler_groups_kernels_and_times_a_call():
     assert kernel_group("void multi_tensor_apply_kernel<...>") == "optimizer (foreach)"
     assert kernel_group("void aat::(anonymous namespace)::channel_sums_kernel<false>(...)") \
         == "channel_sums (kernel 6)"
-    assert kernel_group("void gn_apply_kernel(...)") == "group_norm_stream (kernel 7)"
+    assert kernel_group("void aat::(anonymous namespace)::gn_stream_kernel<true>(...)") \
+        == "group_norm_stream (kernel 7)"
+    assert kernel_group("void aat::lnqkv::ln_qkv_gemm_kernel<320>(...)") == "ln_qkv (kernel 11)"
     assert kernel_group("void spatial_conv_kernel(...)") == "spatial_conv (kernel 8)"
     assert kernel_group("sm90_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"
     assert kernel_group("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul (cuBLAS)"

@@ -157,7 +157,7 @@ def test_gradient_checkpointing_gives_the_same_gradients():
 
     grads = []
     for remat in (False, True):
-        cfg = UNet3DConfig.tiny(motion_mask=True, motion_strength=True,
+        cfg = UNet3DConfig.tiny(motion_mask=True, motion_strength=True, attn_impl="pallas",
                                 gradient_checkpointing=remat)
         gen = torch.Generator().manual_seed(0)
         model = init_unet3d_(UNet3DConditionModel(cfg), gen)

@@ -89,7 +89,7 @@ def test_tiny_unet_forward_opt_in_matches_jax(monkeypatch):
     cfg = dict(motion_mask=True, motion_strength=True)
     params = jax_params(JaxUNet(JaxCfg.tiny(attn_impl="xla", **cfg)), *args)
     model = JaxUNet(JaxCfg.tiny(attn_impl="pallas", **cfg))
-    port = load_into(UNet3DConditionModel(UNet3DConfig.tiny(**cfg)),
+    port = load_into(UNet3DConditionModel(UNet3DConfig.tiny(attn_impl="pallas", **cfg)),
                      unet3d_state_dict(params))
     with opt_in_both(monkeypatch) as calls:
         # a fresh function, so no trace cached under the default switches is reused
@@ -158,7 +158,8 @@ def test_two_step_pipeline_opt_in_matches_jax(monkeypatch):
     jpipe = JaxPipeline(JaxUNet(JaxCfg.tiny(attn_impl="pallas", **cfg)), uparams, vae, vparams)
     jpipe.encode_prompt = lambda prompt, negative_prompt="": (jnp.asarray(pe), jnp.asarray(ne))
     pipe = LatentToVideoPipeline(
-        load_into(UNet3DConditionModel(UNet3DConfig.tiny(**cfg)), unet3d_state_dict(uparams)),
+        load_into(UNet3DConditionModel(UNet3DConfig.tiny(attn_impl="pallas", **cfg)),
+                  unet3d_state_dict(uparams)),
         load_into(AutoencoderKL(VAEConfig.tiny()), vae_state_dict(vparams)))
     pipe.encode_prompt = lambda prompt, negative_prompt="": (t(pe), t(ne))
     key = jax.random.PRNGKey(11)

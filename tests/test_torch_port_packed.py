@@ -239,7 +239,7 @@ def test_with_attn_impl_shares_the_weights():
     assert all(mine[k].data_ptr() == theirs[k].data_ptr() for k in mine)
 
 
-@pytest.mark.parametrize("impl", ["bogus", None, "PALLAS"])
+@pytest.mark.parametrize("impl", ["bogus", "", "PALLAS"])
 def test_unet_config_rejects_unknown_attn_impl(impl):
     from animate_anything_tpu_torch.models import UNet3DConfig
 

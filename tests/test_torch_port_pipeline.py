@@ -74,7 +74,8 @@ def port_result(case):
 
     uparams, vparams, req, noise, _, _ = case
     unet = load_into(UNet3DConditionModel(UNet3DConfig.tiny(motion_mask=True,
-                                                            motion_strength=True)),
+                                                            motion_strength=True,
+                                                            attn_impl="pallas")),
                      unet3d_state_dict(uparams))
     vae = load_into(AutoencoderKL(VAEConfig.tiny()), vae_state_dict(vparams))
     pipe = LatentToVideoPipeline(unet, vae)

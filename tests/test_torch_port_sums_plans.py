@@ -110,7 +110,8 @@ def test_kernel_sites_are_the_opt_in_forwards():
         mp.setattr(gn, "tickets", lambda device, count: torch.zeros(count, device=device))
         mp.setattr(gn, "_launch_channel_sums", record)
         with torch.device("meta"):
-            unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True))
+            unet = UNet3DConditionModel(UNet3DConfig(motion_mask=True, motion_strength=True,
+                                                         attn_impl="pallas"))
             unet = unet.to(torch.bfloat16)
             args = (torch.empty(2, 16, 64, 64, 4), 500, torch.empty(2, 77, 1024),
                     torch.empty(2, 1, 64, 64, 4, dtype=torch.bfloat16),

@@ -110,7 +110,8 @@ def test_freeze_labels_match_jax(tiny_unet_params, pattern):
     paths = {".".join(str(getattr(k, "key", k)) for k in path)
              for path, _ in jax.tree_util.tree_leaves_with_path(params)}
 
-    model = UNet3DConditionModel(UNet3DConfig.tiny(motion_mask=True, motion_strength=True))
+    model = UNet3DConditionModel(UNet3DConfig.tiny(motion_mask=True, motion_strength=True,
+                                                        attn_impl="pallas"))
     got = trainable_label_tree(model, (pattern,))
     assert set(got) == set(want)
     assert {k: lab == "train" for k, lab in got.items()} == want
@@ -337,7 +338,8 @@ def test_tiny_unet_loss_and_gradients_match_jax():
     want_grads = jax.tree_util.tree_map(lambda a, b: np.asarray(a) - np.asarray(b),
                                         new_state.params, params)
 
-    model = UNet3DConditionModel(UNet3DConfig.tiny(gradient_checkpointing=True, **kw))
+    model = UNet3DConditionModel(UNet3DConfig.tiny(gradient_checkpointing=True,
+                                                        attn_impl="pallas", **kw))
     model.load_state_dict(unet3d_state_dict(params), strict=True)
     noise, steps, drop = _jax_draws(key, batch["latents"].shape, jcfg, jsched)
     loss, metrics = make_loss_fn(schedule, config)(model, {k: t(v) for k, v in batch.items()},

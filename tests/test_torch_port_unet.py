@@ -69,7 +69,7 @@ def port_unet(case):
     from animate_anything_tpu_torch.utils.convert import unet3d_state_dict
 
     params, _, _ = case
-    cfg = UNet3DConfig.tiny(motion_mask=True, motion_strength=True)
+    cfg = UNet3DConfig.tiny(motion_mask=True, motion_strength=True, attn_impl="pallas")
     return load_into(UNet3DConditionModel(cfg), unet3d_state_dict(params))
 
 
@@ -128,3 +128,54 @@ def test_motion_strength_and_mask_change_the_output(case, port_unet):
         other_mask = port_unet(*args, 1.0 - t(x["mask"]), t(x["motion"]))
     assert float((base - other_motion).abs().max()) > 1e-3
     assert float((base - other_mask).abs().max()) > 1e-3
+
+
+def test_default_attn_impl_takes_the_jax_default_branches():
+    """``UNet3DConfig.tiny()`` with no ``attn_impl`` on both sides: JAX's
+    ``None`` means its process default ``"xla"``, and so does the port's.
+    Neither side enters a fused (kernel) branch, each equals its own
+    explicit ``"xla"`` forward, and the two agree at the composite path's
+    tolerance."""
+    from unittest import mock
+
+    from animate_anything_tpu.models import UNet3DConditionModel as JaxUNet
+    from animate_anything_tpu.models import UNet3DConfig as JaxCfg
+    from animate_anything_tpu.ops import geglu as jgeglu
+    from animate_anything_tpu.ops import proj_residual as jproj
+    from animate_anything_tpu.ops import temporal_block as jtb
+    from animate_anything_tpu_torch.models import UNet3DConditionModel, UNet3DConfig
+    from animate_anything_tpu_torch.models import attention as port_attention
+    from animate_anything_tpu_torch.utils.convert import unet3d_state_dict
+
+    r = np.random.default_rng(1)
+    b, f, hw = 2, 3, 16
+    x = dict(sample=r.standard_normal((b, f, hw, hw, 4)).astype(np.float32),
+             timestep=np.int32(321),
+             context=r.standard_normal((b, 77, 32)).astype(np.float32),
+             cond=r.standard_normal((b, 1, hw, hw, 4)).astype(np.float32),
+             mask=(r.random((b, 1, hw, hw, 1)) > 0.5).astype(np.float32),
+             motion=np.array([3.0, 6.0], np.float32))
+    args = tuple(x.values())
+    kw = dict(motion_mask=True, motion_strength=True)
+    jax_cfg, port_cfg = JaxCfg.tiny(**kw), UNet3DConfig.tiny(**kw)
+    assert jax_cfg.attn_impl is None and port_cfg.attn_impl is None
+    assert port_cfg.impl == "xla"
+    params = jax_params(JaxUNet(JaxCfg.tiny(attn_impl="xla", **kw)), *args)
+    fused = ("ln_geglu_ff", "proj_residual_stats", "temporal_block")
+    jax_fused = ((jgeglu, "ln_geglu_ff"), (jproj, "proj_residual_stats"),
+                 (jtb, "fused_temporal_attn_block"), (jtb, "fused_temporal_block_bfsc"))
+    with contextlib.ExitStack() as stack:
+        port_mocks = [stack.enter_context(mock.patch.object(
+            port_attention, name, wraps=getattr(port_attention, name))) for name in fused]
+        jax_mocks = [stack.enter_context(mock.patch.object(mod, name, wraps=getattr(mod, name)))
+                     for mod, name in jax_fused]
+        want = np.asarray(jax.jit(JaxUNet(jax_cfg).apply)(params, *args))
+        got = _forward(load_into(UNet3DConditionModel(port_cfg), unet3d_state_dict(params)), x)
+    assert [m.call_count for m in port_mocks + jax_mocks] == [0] * 7
+    want_xla = np.asarray(jax.jit(JaxUNet(JaxCfg.tiny(attn_impl="xla", **kw)).apply)(params, *args))
+    port_xla = UNet3DConditionModel(UNet3DConfig.tiny(attn_impl="xla", **kw))
+    got_xla = _forward(load_into(port_xla, unet3d_state_dict(params)), x)
+    np.testing.assert_array_equal(want, want_xla)
+    np.testing.assert_array_equal(n(got), n(got_xla))
+    assert got.shape == want.shape == x["sample"].shape
+    np.testing.assert_allclose(n(got), want, atol=ATOL)
