@@ -17,11 +17,29 @@ of the fp32 parameter to bf16 sits inside the differentiated function.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterable, Optional
 
 import torch
 
 COMPUTE_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """JAX's ``Policy`` (its parameters are fp32 in both): a module computes
+    in ``compute_dtype``, bf16 after ``cast_module_``."""
+    compute_dtype: torch.dtype = torch.float32
+
+
+def policy_from_string(name: Optional[str]) -> Policy:
+    """A config's ``mixed_precision`` ('no' / 'fp32' / 'fp16' / 'bf16', JAX's
+    names) → its policy; half precision is bf16 either way, as in JAX."""
+    if name in (None, "no", "fp32", "float32"):
+        return Policy(torch.float32)
+    if name in ("fp16", "bf16", "bfloat16", "float16"):
+        return Policy(COMPUTE_DTYPE)
+    raise ValueError(f"unknown mixed_precision: {name}")
 
 
 def cast_module_(module: torch.nn.Module) -> torch.nn.Module:

@@ -1,6 +1,7 @@
-"""DPM-Solver++ (2M multistep) — the port of the dpmpp half of
-``animate_anything_tpu/diffusion/samplers.py``: the same coefficient tables
-and step function, with the denoise loop as a plain Python loop.
+"""DDIM and DPM-Solver++ (2M multistep) — the port of
+``animate_anything_tpu/diffusion/samplers.py``: the same timestep grids,
+coefficient tables and step functions, with the denoise loop as a plain
+Python loop.
 """
 
 from __future__ import annotations
@@ -14,6 +15,23 @@ import torch
 from animate_anything_tpu_torch.diffusion.schedule import DiffusionSchedule, pred_x0
 
 
+def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int,
+                   spacing: str = "leading", steps_offset: int = 1) -> np.ndarray:
+    """Descending int timestep grid (diffusers ``DDIMScheduler.set_timesteps``):
+    ``leading``, ``linspace`` or ``trailing`` spacing."""
+    if spacing == "leading":
+        ratio = num_train_timesteps // num_inference_steps
+        ts = (np.arange(num_inference_steps) * ratio).round()[::-1].astype(np.int64)
+        return ts + steps_offset
+    if spacing == "linspace":
+        return (np.linspace(0, num_train_timesteps - 1, num_inference_steps)
+                .round()[::-1].astype(np.int64))
+    if spacing == "trailing":
+        ts = np.arange(num_train_timesteps, 0, -num_train_timesteps / num_inference_steps)
+        return (ts.round() - 1).astype(np.int64)
+    raise ValueError(spacing)
+
+
 def dpmpp_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
     """diffusers DPMSolverMultistep default ('linspace'):
     linspace(0, T-1, n+1).round()[::-1][:-1]."""
@@ -25,6 +43,22 @@ def dpmpp_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.nd
 class SamplerState:
     sample: torch.Tensor
     aux: torch.Tensor | None = None   # previous x0 estimate
+
+
+def ddim_step(schedule: DiffusionSchedule, sample: torch.Tensor, model_output: torch.Tensor,
+              t: int, t_prev: int) -> torch.Tensor:
+    """One deterministic DDIM update x_t → x_{t_prev} (η = 0), fp32 math,
+    the result in the sample's dtype. ``t_prev < 0`` is the final step: ᾱ_prev
+    is ᾱ_0 (diffusers' ``set_alpha_to_one=False``)."""
+    ac = schedule.alphas_cumprod
+    a_t = ac[int(t)]
+    a_prev = ac[int(t_prev)] if t_prev >= 0 else ac[0]
+    sample32 = sample.float()
+    x0 = pred_x0(schedule, model_output, sample32, int(t))
+    # ε re-derived from x0, as diffusers does
+    eps = (sample32 - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
+    prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+    return prev.to(sample.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +107,24 @@ def dpmpp_step(schedule: DiffusionSchedule, tables: DpmppTables, state: SamplerS
 
 
 def sample_loop(schedule: DiffusionSchedule, latents: torch.Tensor, timesteps: np.ndarray,
-                model_fn: Callable[[torch.Tensor, int], torch.Tensor]) -> torch.Tensor:
-    """Run the DPM-Solver++ denoise loop; model_fn(latents, t) → model output."""
+                model_fn: Callable[[torch.Tensor, int], torch.Tensor],
+                sampler: str = "dpmpp") -> torch.Tensor:
+    """Run the denoise loop; model_fn(latents, t) → model output. DDIM steps
+    from each t to t − T // len(timesteps), as JAX's loop does, also on a
+    truncated grid whose own spacing is wider (ROADMAP queue 3)."""
     ts = np.asarray(timesteps)
-    tables = dpmpp_init(schedule, ts)
-    state = SamplerState(sample=latents, aux=torch.zeros_like(latents))
-    for i in range(len(ts)):
-        out = model_fn(state.sample, int(ts[i]))
-        state = dpmpp_step(schedule, tables, state, out, i)
-    return state.sample
+    if sampler == "dpmpp":
+        tables = dpmpp_init(schedule, ts)
+        state = SamplerState(sample=latents, aux=torch.zeros_like(latents))
+        for i in range(len(ts)):
+            out = model_fn(state.sample, int(ts[i]))
+            state = dpmpp_step(schedule, tables, state, out, i)
+        return state.sample
+    if sampler == "ddim":
+        step_gap = schedule.num_train_timesteps // len(ts) if len(ts) else 0
+        sample = latents
+        for t in ts:
+            sample = ddim_step(schedule, sample, model_fn(sample, int(t)), int(t),
+                               int(t) - step_gap)
+        return sample
+    raise ValueError(f"unknown sampler {sampler}")

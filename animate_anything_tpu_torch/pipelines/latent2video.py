@@ -5,8 +5,8 @@ latents — the port of ``animate_anything_tpu/pipelines/latent2video.py``.
   the first timestep of the grid;
 - CFG doubles the batch: [negative, positive] prompt embeddings, the same
   condition latent, mask and motion for both halves;
-- the denoise loop is a plain Python loop over DPM-Solver++ steps, then the
-  VAE decodes every frame.
+- the denoise loop is a plain Python loop over DPM-Solver++ (default) or
+  DDIM steps (``sampler=``), then the VAE decodes every frame.
 
 ``animate_image(image, prompt)`` encodes its prompt (and the empty negative
 prompt) through the pipeline's tokenizer and CLIP text encoder
@@ -20,9 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from animate_anything_tpu_torch.diffusion import (ddpm_forward_mask,
-                                                  ddpm_forward_timesteps, dpmpp_timesteps,
-                                                  make_schedule, sample_loop)
+from animate_anything_tpu_torch.diffusion import (DiffusionSchedule, ddim_timesteps,
+                                                  ddpm_forward_mask, ddpm_forward_timesteps,
+                                                  dpmpp_timesteps, make_schedule, sample_loop)
 from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
 from animate_anything_tpu_torch.models.layers import resize_nearest
 from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
@@ -31,14 +31,19 @@ from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, e
 
 class LatentToVideoPipeline:
     def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL,
-                 text_encoder: Optional[CLIPTextModel] = None, tokenizer=None):
+                 text_encoder: Optional[CLIPTextModel] = None, tokenizer=None,
+                 schedule: Optional[DiffusionSchedule] = None, sampler: str = "dpmpp"):
         """tokenizer: ``models/tokenizers.py::HashTokenizer`` or
-        ``models/clip_tokenizer.py::CLIPBPETokenizer`` (called as HF's)."""
+        ``models/clip_tokenizer.py::CLIPBPETokenizer`` (called as HF's);
+        sampler: ``"dpmpp"`` or ``"ddim"``."""
+        if sampler not in ("dpmpp", "ddim"):
+            raise ValueError(f"unknown sampler {sampler}")
         self.unet = unet
         self.vae = vae
         self.text_encoder = text_encoder
         self.tokenizer = tokenizer
-        self.schedule = make_schedule()
+        self.schedule = schedule or make_schedule()
+        self.sampler = sampler
 
     @property
     def device(self) -> torch.device:
@@ -62,9 +67,10 @@ class LatentToVideoPipeline:
 
     def get_timesteps(self, num_inference_steps: int,
                       t_start_fraction: float = 0.0) -> np.ndarray:
-        """The DPM-Solver++ grid; ``t_start_fraction`` > 0 drops that share
-        of its noisiest steps (the truncated schedule)."""
-        ts = dpmpp_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
+        """The sampler's grid; ``t_start_fraction`` > 0 drops that share of
+        its noisiest steps (the truncated schedule)."""
+        grid = dpmpp_timesteps if self.sampler == "dpmpp" else ddim_timesteps
+        ts = grid(self.schedule.num_train_timesteps, num_inference_steps)
         return ts[int(len(ts) * t_start_fraction):]
 
     def prepare_init_latents(self, image_latent: torch.Tensor, num_frames: int,
@@ -100,7 +106,7 @@ class LatentToVideoPipeline:
             uncond, cond = out[:b], out[b:]
             return uncond.float() + gs * (cond - uncond).float()
 
-        latents = sample_loop(self.schedule, latents, timesteps, model_fn)
+        latents = sample_loop(self.schedule, latents, timesteps, model_fn, self.sampler)
         return decode_video(self.vae, latents), latents
 
     @torch.no_grad()

@@ -8,6 +8,12 @@ diffusers / HF key layout. They are a numpy-only copy of
 ``_unflatten_lists``, ``_export_tensor``, ``export_unet3d``, ``export_vae``,
 ``export_clip_text``), so this module needs no JAX.
 
+``load_state_dict`` reads a torch state dict from a weight file or a
+diffusers model directory, and ``checkpoint_state_dict`` fits one to the
+port's modules (the keys that no forward reads dropped, the conv_in →
+conv_in2 surgery of ``expand_conv_in_channels``), the keys otherwise kept
+as they are: the port's modules carry diffusers names.
+
 ``init_unet3d_`` / ``init_vae_`` / ``init_clip_text_`` draw fresh weights the
 way the flax modules initialise theirs (lecun-normal kernels, zero biases,
 unit norm scales, the zero-initialised last temporal conv, normal
@@ -18,11 +24,13 @@ has no JAX.
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from safetensors.torch import load_file
 
 _LIST_ATTRS = (
     "down_blocks|up_blocks|resnets|attentions|temp_attentions|temp_convs|"
@@ -136,6 +144,75 @@ def vae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         k = k.replace(".mid_attn.", ".mid_block.attentions.0.")
         k, w = _export_tensor(k, np.asarray(w), False)
         out[k] = _to_torch(w)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# diffusers-layout checkpoints
+# ---------------------------------------------------------------------------
+
+WEIGHT_NAMES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                "diffusion_pytorch_model.bin", "pytorch_model.bin")
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch state dict (CPU tensors, stored dtypes) from a weight file, or
+    from a diffusers model directory by the first of ``WEIGHT_NAMES`` in it:
+    ``.safetensors`` through ``safetensors.torch``, ``.bin`` through
+    ``torch.load(weights_only=True)``, a ``state_dict`` entry unwrapped."""
+    if os.path.isdir(path):
+        for name in WEIGHT_NAMES:
+            if os.path.exists(os.path.join(path, name)):
+                path = os.path.join(path, name)
+                break
+        else:
+            raise FileNotFoundError(f"no weight file found in {path}")
+    if path.endswith(".safetensors"):
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def expand_conv_in_channels(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The conv_in → conv_in2 surgery for a checkpoint without the mask
+    channel: ``conv_in2`` takes ``conv_in``'s kernel with a zero input
+    channel in front (the mask's, which the UNet concatenates first) and its
+    bias; ``conv_in`` goes, as the mask UNet has none."""
+    out = {k: v for k, v in sd.items() if not k.startswith("conv_in.")}
+    w = sd["conv_in.weight"]                                  # (O, I, kh, kw)
+    out["conv_in2.weight"] = torch.cat([torch.zeros_like(w[:, :1]), w], dim=1)
+    out["conv_in2.bias"] = sd["conv_in.bias"]
+    return out
+
+
+# Keys of diffusers / HF checkpoints that no forward reads (JAX's importer
+# drops the same): the reference's unused motion MLP, attention dropout, the
+# CLIP position ids and projection heads.
+_UNUSED = {
+    "unet": (r"^motion_embedding\.", r"^motion_proj\.", r"\.to_out\.1\."),
+    "vae": (),
+    "text_encoder": (r"^(text_model\.embeddings\.)?position_ids$",
+                     r"^(text_projection|logit_scale|visual_projection)"),
+}
+
+
+def checkpoint_state_dict(component: str, sd: Dict[str, torch.Tensor],
+                          motion_mask: bool = False) -> Dict[str, torch.Tensor]:
+    """A loaded ``unet`` / ``vae`` / ``text_encoder`` state dict → the keys of
+    the port's module: unused keys dropped; a mask UNet takes ``conv_in2``
+    (made by the conv_in surgery where the checkpoint lacks it) and a UNet
+    without the mask ``conv_in``, the other one left out as JAX's loader
+    ignores it."""
+    drop = [re.compile(p) for p in _UNUSED[component]]
+    out = {k: v for k, v in sd.items() if not any(p.search(k) for p in drop)}
+    if component == "unet" and motion_mask:
+        if "conv_in2.weight" not in out and "conv_in.weight" in out:
+            out = expand_conv_in_channels(out)
+        out = {k: v for k, v in out.items() if not k.startswith("conv_in.")}
+    elif component == "unet":
+        out = {k: v for k, v in out.items() if not k.startswith("conv_in2.")}
     return out
 
 

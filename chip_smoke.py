@@ -62,12 +62,23 @@
    9 for the frame attention), which must launch kernel 9 850 times (34 per
    forward) and no other kernel, then holds one CFG forward of that UNet
    against the same forward under ``attn_impl="xla"``;
-8. frees that pipeline and trains the same full-width UNet on one
+8. frees that pipeline and drives the ``train.py --eval`` entry point of
+   the port (``animate_anything_tpu_torch.cli.main_eval``) at
+   ``configs/train_mask_motion.yaml`` (random weights, the checkpoint
+   directory being absent): twice in memory (the two videos within
+   ``EVAL_RUN_TO_RUN``), then its weights through ``save_pipeline`` (fp32)
+   and back, the models built from that directory equal to the in-memory
+   ones bit for bit, ``main_eval`` on that directory, and one 4-step DDIM
+   request on the same weights; every request launches kernels 1-5 and no
+   other. Then one CFG forward of those weights twice on the same inputs,
+   and once with every kernel launched twice a call, to show which kernels
+   give another result on the same inputs;
+9. trains the same full-width UNet on one
    512x512 / 16-frame clip (the ``configs/train_mask_motion.yaml`` values):
    the VAE encode and CLIP text inside the step, per-sub-layer gradient
    checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps,
    which launch none of kernels 6-11;
-9. checks that every kernel was launched on each path that runs it, prints
+10. checks that every kernel was launched on each path that runs it, prints
    one JSON line with the kernels' numbers (``launches``: the count on the
    path of the slice that brought the kernel in, the requests for kernels
    1-5, the training steps for the flash backward, the opt-in request for
@@ -76,8 +87,8 @@
    1, the add with its sums, kernel 10, and LayerNorm -> q/k/v -> attention,
    kernels 11 and 1) the run of those entry points at full width;
    ``launches_requests``, ``launches_opt_in``, ``launches_packed``,
-   ``launches_entry_points`` and ``launches_train`` each path's), and last
-   the device line.
+   ``launches_entry_points``, ``launches_eval`` and ``launches_train`` each
+   path's), and last the device line.
 
 Steps 3 and 4 also check kernel 9 against its plain version at the packed
 configuration's frame-attention shapes (summed over a packed CFG forward by
@@ -94,6 +105,7 @@ Exits non-zero without a CUDA device, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -1201,13 +1213,17 @@ def check_add_stats(gen) -> dict:
     JAX's test shape: y must equal the plain add (the same fp32 add and one
     rounding), the sums those of the stored y in another fp32 order, and the
     same in a second run (no atomics). No single PyTorch call adds and sums;
-    the three-call composite (add, two reductions) is a reference line."""
+    the three-call composite (add, two reductions) is a reference line. Each
+    shape is also timed by the profiler's device time (``site_device_ms``:
+    the events of a short call time the host that launches it); kernel 10 is
+    ``channel_sums_kernel<true>``, so its group is kernel 6's."""
     from animate_anything_tpu_torch.ops import add_stats as ad
 
     tally = Tally("add_with_stats", "animate_anything_tpu_torch/csrc/group_norm.cu",
                   "animate_anything_tpu/ops/attic/add_stats.py:68")
     cfg = 2 * (FRAMES + 1)
     composite_ms = 0.0
+    site_device = []
     for n, s, c in ((cfg, 4096, 320), (cfg, 1024, 640), (cfg, 256, 1280), (cfg, 64, 1280),
                     (3, 32, 128)):
         x, r = (torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1228,10 +1244,14 @@ def check_add_stats(gen) -> dict:
                 yc = x + r
                 return yc.float().sum(1), yc.float().square().sum(1)
             comp = cuda_ms(composite)
+            device = _device_ms(lambda: ad.add_with_stats(x, r, impl="pallas"),
+                                "channel_sums (kernel 6)")
         composite_ms += comp
-        log(f"    three-call composite (add, Σ, Σ²; a reference line) {comp:.3f} ms")
+        site_device.append(device)
+        log(f"    device time {device:.4f} ms (profiler); three-call composite (add, Σ, Σ²; "
+            f"a reference line) {comp:.3f} ms")
         tally.add(tag, _err(y, wy), ms, plain, 3 * n * s * c, 3 * n * s * c * 2 + 2 * n * c * 4)
-    tally.row["composite_ms"] = composite_ms
+    tally.row.update(composite_ms=composite_ms, site_device_ms=site_device)
     return tally.row
 
 
@@ -1811,22 +1831,29 @@ def run_packed_request(pipe) -> dict:
     return launches
 
 
-def compare_packed_xla(packed_unet, seed: int = 3) -> float:
-    """One full-width CFG forward (2 x 16 frames, 64x64 latents) of the same
-    weights under "packed" and under "xla": they differ only in the
-    frame-attention core. The "xla" forward launches no kernel."""
-    xla_unet = packed_unet.with_attn_impl("xla")
+def cfg_forward_inputs(seed: int) -> tuple:
+    """A full-width CFG forward's inputs (2 x 16 frames, 64x64 latents, the
+    mask UNet's condition frame, mask and motion strength, t = 500)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(2, FRAMES, 64, 64, 4, generator=gen, device="cuda")
     cond = torch.randn(2, 1, 64, 64, 4, generator=gen, device="cuda")
     mask = (torch.rand(2, 1, 64, 64, 1, generator=gen, device="cuda") > 0.5).float()
     emb = torch.randn(2, 77, 1024, generator=gen, device="cuda")
     motion = torch.tensor([5.0, 5.0], device="cuda")
+    return x, 500, emb, cond, mask, motion
+
+
+def compare_packed_xla(packed_unet, seed: int = 3) -> float:
+    """One full-width CFG forward (2 x 16 frames, 64x64 latents) of the same
+    weights under "packed" and under "xla": they differ only in the
+    frame-attention core. The "xla" forward launches no kernel."""
+    xla_unet = packed_unet.with_attn_impl("xla")
+    inputs = cfg_forward_inputs(seed)
     with torch.no_grad():
-        packed = packed_unet(x, 500, emb, cond, mask, motion).float()
+        packed = packed_unet(*inputs).float()
         torch.cuda.synchronize()
         reset_counts()
-        xla = xla_unet(x, 500, emb, cond, mask, motion).float()
+        xla = xla_unet(*inputs).float()
         torch.cuda.synchronize()
     launches = read_counts()
     require_not_launched("xla forward", launches, list(launches))
@@ -1838,6 +1865,305 @@ def compare_packed_xla(packed_unet, seed: int = 3) -> float:
     if rel > PACKED_VS_XLA_REL_RMS:
         raise AssertionError(f"packed forward disagrees with the xla forward: {rel:.4g}")
     return rel
+
+EVAL_CONFIG_PATH = "configs/train_mask_motion.yaml"
+# Two identical in-memory eval requests (same weights, seeds and inputs)
+# differ: max |diff| 0.094 and 0.109 over [-1, 1] frames in two runs on an
+# H100 80GB HBM3 at 700 W. The two in-memory runs, and the run from the saved
+# directory against the first, must stay within this.
+EVAL_RUN_TO_RUN = 0.25
+EVAL_DDIM_STEPS = 4
+# The 4-step DDIM video must differ from the 25-step DPM-Solver++ one by more
+# than this (max |diff| over [-1, 1] frames): another sampler and grid, not
+# a rounding of the same result.
+DDIM_MIN_DIFF = 0.1
+
+
+@contextlib.contextmanager
+def _captured_requests():
+    """Record each ``LatentToVideoPipeline.animate_image`` call's (video,
+    latents) on the host and its seconds, and each model build's
+    (``cli.eval_models``) seconds under ``"build"``, each ended by a device
+    sync."""
+    from animate_anything_tpu_torch import cli
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+
+    seen = {"requests": [], "build": []}
+    orig, orig_build = LatentToVideoPipeline.animate_image, cli.eval_models
+
+    def recorded(self, *args, **kw):
+        t0 = time.perf_counter()
+        video, latents = orig(self, *args, **kw)
+        torch.cuda.synchronize()
+        seen["requests"].append((video.float().cpu(), latents.float().cpu(),
+                                 time.perf_counter() - t0))
+        return video, latents
+
+    def timed_build(*args, **kw):
+        t0 = time.perf_counter()
+        models = orig_build(*args, **kw)
+        torch.cuda.synchronize()
+        seen["build"].append(time.perf_counter() - t0)
+        return models
+
+    LatentToVideoPipeline.animate_image, cli.eval_models = recorded, timed_build
+    try:
+        yield seen
+    finally:
+        LatentToVideoPipeline.animate_image, cli.eval_models = orig, orig_build
+
+
+def _rel_rms(got, want) -> float:
+    return float((got.float() - want.float()).square().mean().sqrt()
+                 / want.float().square().mean().sqrt())
+
+
+def _check_sample(tag: str, metrics: dict, video) -> None:
+    import os
+
+    if tuple(video.shape) != (1, FRAMES, RES, RES, 3):
+        raise AssertionError(f"{tag}: video shape {tuple(video.shape)}")
+    if not torch.isfinite(video).all():
+        raise AssertionError(f"{tag}: non-finite video")
+    missing = [k for k in ("motion_precision", "latent_motion_score") if k not in metrics]
+    if missing:
+        raise AssertionError(f"{tag}: metrics {missing} missing from {metrics}")
+    if not os.path.isfile(metrics["sample_path"]):
+        raise AssertionError(f"{tag}: sample {metrics['sample_path']} not written")
+
+
+def _eval_run(tag: str, cfg: dict) -> tuple:
+    """``main_eval(**cfg)`` once on the card: → (video, launches)."""
+    from animate_anything_tpu_torch.cli import main_eval
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _captured_requests() as seen:
+        t0 = time.perf_counter()
+        metrics = main_eval(**cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (video, _, request), = seen["requests"]
+    build, = seen["build"]
+    _check_sample(tag, metrics, video)
+    log(f"  {tag}: main_eval {dt:.3f} s (the model build {build:.3f} s, the request "
+        f"{request:.3f} s, the sample's writes and metrics {dt - build - request:.3f} s), "
+        f"peak device memory {peak:.2f} GiB; motion_precision "
+        f"{metrics['motion_precision']:.4f}, latent_motion_score "
+        f"{metrics['latent_motion_score']:.4f}, sample {metrics['sample_path']}")
+    require_only(tag, launches, FORWARD_KERNELS)
+    return video, launches
+
+
+# Each default-path kernel's launcher (module under ops/, function): the
+# function that launches the kernel and allocates every output it writes.
+LAUNCHERS = {"flash_attention": ("flash_attention", "flash_forward_with_lse"),
+             "ln_geglu_ff": ("geglu", "_launch"), "tap_conv": ("temporal_conv", "_launch"),
+             "proj_residual_stats": ("proj_residual", "_launch"),
+             "temporal_block": ("temporal_block", "_launch")}
+
+
+def _flat_tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat_tensors(o)]
+    return []
+
+
+@contextlib.contextmanager
+def _launched_twice():
+    """Every default-path kernel launched twice a call on the same inputs,
+    the first result kept. Yields {kernel: {"calls", "differ", "max_abs",
+    "max_rel"}}: the calls whose two results were not bit-equal, and for
+    each output (y, then the sums where a kernel stores them) the largest
+    |difference| and that over the output's largest |value|."""
+    import importlib
+
+    seen = {}
+    saved = []
+    for name, (mod_name, fn_name) in LAUNCHERS.items():
+        mod = importlib.import_module(f"animate_anything_tpu_torch.ops.{mod_name}")
+        orig = getattr(mod, fn_name)
+        rec = seen[name] = {"calls": 0, "differ": 0, "max_abs": [], "max_rel": []}
+
+        def twice(*args, _orig=orig, _rec=rec, **kw):
+            first = _orig(*args, **kw)
+            second = _orig(*args, **kw)
+            a, b = _flat_tensors(first), _flat_tensors(second)
+            if len(_rec["max_abs"]) < len(a):
+                _rec["max_abs"] += [0.0] * (len(a) - len(_rec["max_abs"]))
+                _rec["max_rel"] += [0.0] * (len(a) - len(_rec["max_rel"]))
+            _rec["calls"] += 1
+            _rec["differ"] += int(not all(torch.equal(x, y) for x, y in zip(a, b)))
+            for i, (x, y) in enumerate(zip(a, b)):
+                d = _err(x, y)
+                _rec["max_abs"][i] = max(_rec["max_abs"][i], d)
+                _rec["max_rel"][i] = max(_rec["max_rel"][i],
+                                         d / max(float(y.float().abs().max()), 1e-30))
+            return first
+
+        saved.append((mod, fn_name, orig))
+        setattr(mod, fn_name, twice)
+    try:
+        yield seen
+    finally:
+        for mod, fn_name, orig in saved:
+            setattr(mod, fn_name, orig)
+
+
+def repeat_cfg_forward(unet, vae, seed: int = 11) -> dict:
+    """Where two identical requests part: one CFG forward of ``unet`` twice on
+    the same inputs, one 16-frame VAE decode twice, then the forward once
+    with every kernel launched twice a call (``_launched_twice``). Returns
+    the per-kernel record."""
+    from animate_anything_tpu_torch.models.vae import decode_video
+
+    inputs = cfg_forward_inputs(seed)
+    z = torch.randn(1, FRAMES, 64, 64, 4, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        a, b = (unet(*inputs).float() for _ in range(2))
+        da, db = (decode_video(vae, z).float() for _ in range(2))
+        with _launched_twice() as seen:
+            unet(*inputs)
+        torch.cuda.synchronize()
+    idle = [name for name, rec in seen.items() if rec["calls"] == 0]
+    if idle:
+        raise AssertionError(f"repeat_cfg_forward: no call reached the launchers of {idle}")
+    log(f"  one CFG forward twice on the same inputs: max |diff| {_err(a, b):.4g}, relative "
+        f"RMS {_rel_rms(a, b):.3g}; one 16-frame VAE decode twice: max |diff| "
+        f"{_err(da, db):.4g}")
+    for name, rec in seen.items():
+        log(f"  {name}: {rec['differ']} of {rec['calls']} calls gave another result on the "
+            f"same inputs; max |diff| by output {[f'{v:.3g}' for v in rec['max_abs']]}, over "
+            f"the output's max |value| {[f'{v:.3g}' for v in rec['max_rel']]}")
+    return seen
+
+
+def run_eval_entry() -> dict:
+    """The ``train.py --eval`` entry point of the port at
+    ``configs/train_mask_motion.yaml`` (full width, bf16, attn_impl pallas,
+    512 px, 16 frames, 25 DPM-Solver++ steps, CFG 9; random weights, since
+    its checkpoint directory is not in the repository):
+
+    (a) ``main_eval`` twice in memory: the video finite and of its shape,
+        the sample written, both metrics reported, kernels 1-5 launched and
+        no other; the two videos within ``EVAL_RUN_TO_RUN``;
+    (b) the same weights (``cli.eval_models``) written by ``save_pipeline``
+        (fp32) and read back bit for bit; the models ``eval_models`` builds
+        from that directory equal to the in-memory ones bit for bit; then
+        ``main_eval`` on that directory, its video within
+        ``EVAL_RUN_TO_RUN`` of (a)'s;
+    (c) one 4-step DDIM request on those weights: finite, kernels 1-5, and
+        unlike (a)'s DPM-Solver++ video;
+    (d) ``repeat_cfg_forward`` on those weights.
+
+    Returns each kernel's launch count during (a)'s first run."""
+    import os
+    import shutil
+    import tempfile
+
+    from animate_anything_tpu_torch.cli import eval_models, run_validation
+    from animate_anything_tpu_torch.core.config import Config, load_config
+    from animate_anything_tpu_torch.train.checkpoint import (load_pipeline_components,
+                                                             save_pipeline)
+
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="eval_entry_", dir="build")
+    try:
+        cfg = dict(load_config(EVAL_CONFIG_PATH).to_dict(), output_dir=os.path.join(work, "out"))
+        log(f"eval entry point: main_eval({EVAL_CONFIG_PATH}) with random weights "
+            f"({RES}x{RES}, {FRAMES} frames, {STEPS} DPM-Solver++ steps, CFG {GUIDANCE})")
+        video, launches = _eval_run("main_eval (a)", cfg)
+        video2, _ = _eval_run("main_eval (a), again", cfg)
+        spread = _err(video2, video)
+        log(f"  run to run: max |diff| {spread:.4g} (limit {EVAL_RUN_TO_RUN}), relative RMS "
+            f"{_rel_rms(video2, video):.3g} between the two in-memory runs")
+        if spread > EVAL_RUN_TO_RUN:
+            raise AssertionError(f"main_eval: two in-memory runs {spread:.4g} apart, above "
+                                 f"{EVAL_RUN_TO_RUN}")
+        del video2
+
+        ckpt = os.path.join(work, "pipeline")
+        models = eval_models(Config(cfg), "cuda")
+        need = 4 * sum(p.numel() for name in ("unet", "vae", "text")
+                       for p in models[name].parameters())
+        free = shutil.disk_usage(work).free
+        if free < 2 * need:
+            raise AssertionError(f"save_pipeline: {free / 1e9:.1f} GB free under {work}, "
+                                 f"{need / 1e9:.1f} GB to write")
+        t0 = time.perf_counter()
+        nbytes = save_pipeline(ckpt, models["unet"], models["unet_config"], models["vae"],
+                               models["vae_config"], models["text"], models["text_config"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        comp = load_pipeline_components(ckpt)
+        for name in ("unet", "vae", "text_encoder"):
+            comp[name] = {k: v.clone() for k, v in comp[name].items()}
+        read_s = time.perf_counter() - t0
+        log(f"  save_pipeline: {nbytes / 1e9:.3f} GB of fp32 weights written in {write_s:.3f} s "
+            f"({free / 1e9:.1f} GB free before), read back in {read_s:.3f} s "
+            f"(load_pipeline_components, its memory-mapped tensors copied out; the files just "
+            f"written)")
+        for name, module in (("unet", models["unet"]), ("vae", models["vae"]),
+                             ("text_encoder", models["text"])):
+            want = module.state_dict()
+            got = comp.pop(name)
+            if set(got) != set(want) or not all(
+                    torch.equal(got[k], want[k].float().cpu()) for k in want):
+                raise AssertionError(f"save_pipeline: {name} weights differ after the round "
+                                     f"trip")
+        del comp
+        loaded = eval_models(Config(dict(cfg, pretrained_model_path=ckpt)), "cuda")
+        for name in ("unet", "vae", "text"):
+            want, got = models[name].state_dict(), loaded[name].state_dict()
+            if set(got) != set(want) or not all(
+                    got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"build_models from the saved directory: {name} differs "
+                                     f"from the in-memory model")
+        del loaded
+        log("  the models built from the saved directory equal the in-memory ones bit for bit "
+            "(every parameter and buffer, dtypes included)")
+
+        vd = Config(cfg)["validation_data"]
+        vd["num_inference_steps"] = EVAL_DDIM_STEPS
+        torch.cuda.synchronize()
+        reset_counts()
+        with _captured_requests() as seen:
+            metrics = run_validation(models, vd, os.path.join(work, "ddim"), 0, True, True,
+                                     generator=torch.Generator("cuda").manual_seed(0),
+                                     sampler="ddim")
+        ddim_launches = read_counts()
+        (ddim, _, ddim_s), = seen["requests"]
+        _check_sample("DDIM request", metrics, ddim)
+        require_only("DDIM request", ddim_launches, FORWARD_KERNELS)
+        apart = _err(ddim, video)
+        log(f"  DDIM request ({EVAL_DDIM_STEPS} steps): {ddim_s:.3f} s, max |diff| {apart:.4g} "
+            f"from the DPM-Solver++ video (at least {DDIM_MIN_DIFF}); launches {ddim_launches}")
+        if apart <= DDIM_MIN_DIFF:
+            raise AssertionError(f"DDIM request: video within {apart:.4g} of DPM-Solver++'s")
+        repeat_cfg_forward(models["unet"], models["vae"])
+        del models
+
+        loaded, _ = _eval_run("main_eval from the saved directory",
+                              dict(cfg, pretrained_model_path=ckpt))
+        diff = _err(loaded, video)
+        log(f"  from the directory against (a): max |diff| {diff:.4g} (limit "
+            f"{EVAL_RUN_TO_RUN}), relative RMS {_rel_rms(loaded, video):.3g}")
+        if diff > EVAL_RUN_TO_RUN:
+            raise AssertionError(f"main_eval from the saved directory: max |diff| {diff:.4g} "
+                                 f"from the in-memory run, above {EVAL_RUN_TO_RUN}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  kernel launches during main_eval (a): {launches}")
+    return launches
+
 
 def make_train_batch(seed: int = 0) -> dict:
     """One 512x512 / 16-frame clip (a random image drifting 4 px a frame),
@@ -1940,6 +2266,9 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    evaluation = run_eval_entry()
+    gc.collect()
+    torch.cuda.empty_cache()
     train = run_train_steps()
     own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS},
                 **{n: packed for n in PACKED_KERNELS}, **{n: entry for n in ENTRY_KERNELS}}
@@ -1948,7 +2277,7 @@ def main() -> int:
         counter = ROW_COUNTER.get(name, name)
         row["launches"] = own_path.get(name, requests)[name]
         for label, counts in (("requests", requests), ("opt_in", opt_in), ("packed", packed),
-                              ("entry_points", entry), ("train", train)):
+                              ("entry_points", entry), ("eval", evaluation), ("train", train)):
             row[f"launches_{label}"] = counts.get(name, counts[counter])
 
     print(json.dumps({"kernels": rows}))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -72,6 +73,40 @@ def port_state_dict(params, prefix: str = ""):
     sd = unet3d_state_dict({prefix: tree})
     head = prefix.replace("_", ".") + "."
     return {k[len(head):]: v for k, v in sd.items()}
+
+
+def jax_tiny_models(motion_mask=True):
+    """The JAX package's tiny UNet (``attn_impl="xla"``), VAE and CLIP text
+    encoder with ``jax_params`` weights, as ``build_models`` returns them."""
+    from animate_anything_tpu.models import UNet3DConditionModel as JaxUNet
+    from animate_anything_tpu.models import UNet3DConfig as JaxCfg
+    from animate_anything_tpu.models.clip_text import CLIPTextConfig as JaxCLIPCfg
+    from animate_anything_tpu.models.clip_text import CLIPTextModel as JaxCLIP
+    from animate_anything_tpu.models.vae import AutoencoderKL as JaxVAE
+    from animate_anything_tpu.models.vae import VAEConfig as JaxVAECfg
+
+    ucfg = JaxCfg.tiny(motion_mask=motion_mask, motion_strength=True, attn_impl="xla")
+    z = np.zeros((1, 1, 4, 4, 4), np.float32)
+    args = (z, np.int32(1), np.zeros((1, 77, 32), np.float32), z)
+    args += (z[..., :1],) if motion_mask else (None,)
+    uparams = jax_params(JaxUNet(ucfg), *args, np.ones(1, np.float32))
+    vcfg, tcfg = JaxVAECfg.tiny(), JaxCLIPCfg.tiny(hidden_size=32)
+    vparams = jax_params(JaxVAE(vcfg), jnp.zeros((1, 32, 32, 3)), seed=1)
+    tparams = jax_params(JaxCLIP(tcfg), np.zeros((1, 16), np.int32), seed=2)
+    return dict(unet=JaxUNet(ucfg), unet_params=uparams, unet_config=ucfg, vae=JaxVAE(vcfg),
+                vae_params=vparams, vae_config=vcfg, text=JaxCLIP(tcfg), text_params=tparams,
+                text_config=tcfg)
+
+
+def save_jax_pipeline(models, path):
+    """``jax_tiny_models``' weights through JAX's ``save_pipeline`` → the
+    directory's path."""
+    from animate_anything_tpu.train.checkpoint import save_pipeline
+
+    save_pipeline(str(path), models["unet_params"], models["unet_config"],
+                  models["vae_params"], models["vae_config"], models["text_params"],
+                  models["text_config"])
+    return str(path)
 
 
 @contextlib.contextmanager
