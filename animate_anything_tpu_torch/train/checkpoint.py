@@ -1,13 +1,20 @@
-"""Diffusers-layout pipeline directories — the port of the pipeline half of
-``animate_anything_tpu/train/checkpoint.py``.
+"""Train-state checkpoints and diffusers-layout pipeline directories — the
+port of ``animate_anything_tpu/train/checkpoint.py``.
 
-A directory holds ``unet/``, ``vae/`` and ``text_encoder/``, each with a
+**Train state** (orbax in JAX, a torch state file here): ``save_checkpoint``
+writes ``{ckpt_dir}/step_{step:08d}/train_state.pt`` (the trainable fp32
+masters, or the adapter, the optimizer's moments and counts, the step) and
+keeps the newest ``keep`` = 3; ``restore_checkpoint`` copies one back into a
+freshly made state of the same run (restore-into-template, as orbax's), so a
+resumed run goes on at the saved step. The files are the port's own: orbax
+interop is not kept.
+
+**Pipelines.** A directory holds ``unet/``, ``vae/`` and ``text_encoder/``, each with a
 ``config.json`` (the config dataclass as a dict) and its weights in fp32
 safetensors under diffusers / HF key names, and ``model_index.json``;
 ``scheduler/scheduler_config.json`` is read where present. The JAX package
 writes and reads the same layout, so a directory written by either side
-loads into the other. The train-state resume (orbax in JAX) is not ported
-yet.
+loads into the other.
 """
 
 from __future__ import annotations
@@ -15,12 +22,66 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 from typing import Any, Optional
 
 import torch
 from safetensors.torch import save_file
 
 from animate_anything_tpu_torch.utils.convert import load_state_dict
+
+
+STATE_FILE = "train_state.pt"
+
+
+def _to_host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu")
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree
+
+
+def save_checkpoint(ckpt_dir: str, state, keep: int = 3) -> str:
+    """Write ``state`` (``train.TrainState``) under ``ckpt_dir/step_{step:08d}``
+    and prune to the newest ``keep`` steps; → the step's directory."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    path = os.path.join(ckpt_dir, f"step_{int(state.step):08d}")
+    os.makedirs(path, exist_ok=True)
+    torch.save({"masters": _to_host(state.masters),
+                "optimizer": _to_host(state.optimizer.state_dict()),
+                "step": int(state.step)}, os.path.join(path, STATE_FILE))
+    entries = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    for old in entries[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, old), ignore_errors=True)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    entries = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    return os.path.join(ckpt_dir, entries[-1]) if entries else None
+
+
+@torch.no_grad()
+def restore_checkpoint(path: str, state):
+    """Copy the checkpoint at ``path`` (a ``step_*`` directory) into
+    ``state``'s tensors, which must have its names and shapes; rounds
+    restored masters into the working module; → ``state``."""
+    from animate_anything_tpu_torch.core.dtypes import copy_masters_
+
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", mmap=True,
+                       weights_only=True)
+    if set(saved["masters"]) != set(state.masters):
+        raise ValueError(f"checkpoint {path}: its tensors are not this state's")
+    for name, t in state.masters.items():
+        t.copy_(saved["masters"][name])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    if state.model is not None:
+        copy_masters_(state.model, state.masters)
+    return state
 
 
 def _save_component(out_dir: str, sub: str, weights: str, module: torch.nn.Module,

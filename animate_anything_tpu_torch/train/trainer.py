@@ -1,6 +1,7 @@
 """Trainer core for the mask+motion video-diffusion workload — the port of
-``animate_anything_tpu/train/trainer.py`` (the full finetune; LoRA, 8-bit
-Adam, checkpoints and the YAML CLI are not ported yet).
+``animate_anything_tpu/train/trainer.py``: the full finetune
+(``make_train_step``) and LoRA (``make_lora_train_step``), AdamW or the
+blockwise 8-bit AdamW (``ops/adam8bit.py``).
 
 Step semantics as JAX's ``make_train_step``:
 
@@ -23,14 +24,24 @@ gets them back rounded after each update. Freezing follows JAX's flax-path
 patterns through ``utils/convert.flax_path``; the optimizer is optax's
 ``MultiSteps(multi_transform({"train": chain(clip_by_global_norm, adamw),
 "freeze": set_to_zero}))`` written out. The text encoder and the VAE run
-frozen under ``torch.no_grad()``; the UNet keeps ``eval()`` mode, as JAX's
-step applies it with ``deterministic=True``.
+frozen under ``torch.no_grad()`` (the text encoder under grad with text
+LoRA); the UNet keeps ``eval()`` mode, as JAX's step applies it with
+``deterministic=True``.
+
+LoRA (JAX's ``make_lora_train_step``): the state holds only the adapter
+tree(s) (fp32) and their optimizer, no masters of the base. Each step merges
+the adapter into fp32 copies of the adapted base kernels, casts the merged
+weights to the module's dtype and runs the UNet (and, with text LoRA, the
+CLIP encoder) with them in place of its parameters (``models/lora.substituted``)
+through the forward and the backward, so the kernels and the checkpointed
+recomputation read them and the gradients reach the adapter alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,6 +63,7 @@ class TrainConfig:
     adam_beta2: float = 0.999
     adam_eps: float = 1e-8
     adam_weight_decay: float = 1e-2
+    use_8bit_adam: bool = False
     max_grad_norm: float = 1.0
     gradient_accumulation_steps: int = 1
     trainable_modules: Tuple[str, ...] = ("all",)
@@ -62,6 +74,7 @@ class TrainConfig:
     use_offset_noise: bool = False
     offset_noise_strength: float = 0.1
     rescale_schedule: bool = False
+    cache_latents: bool = False
     motion_loss_weight: float = 0.001
 
 
@@ -89,6 +102,14 @@ def trainable_label_tree(model: nn.Module, trainable_modules: Tuple[str, ...],
     flax path: the deny-list first; 'all' trains everything; otherwise a
     parameter trains if a pattern is a substring of its path and the path
     holds no 'lora'."""
+    return label_paths({name: flax_path(name, p.ndim) for name, p in model.named_parameters()},
+                       trainable_modules, not_trainable_modules)
+
+
+def label_paths(paths: Dict[str, str], trainable_modules: Tuple[str, ...],
+                not_trainable_modules: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """{name: flax path} → {name: 'train' | 'freeze'} by ``trainable_label_tree``'s
+    rule."""
 
     def label(path: str) -> str:
         if any(tm in path for tm in not_trainable_modules):
@@ -98,13 +119,55 @@ def trainable_label_tree(model: nn.Module, trainable_modules: Tuple[str, ...],
                 return "train"
         return "freeze"
 
-    return {name: label(flax_path(name, p.ndim)) for name, p in model.named_parameters()}
+    return {name: label(path) for name, path in paths.items()}
 
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(Σ‖t‖²) over the tensors, in fp32 (optax.global_norm)."""
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
     return torch.stack(norms).square().sum().sqrt()
+
+
+def accumulate(opt, grads: Dict[str, Optional[torch.Tensor]],
+               masters: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+    """One micro-step's gradients for ``opt.names`` (None counts as zero), or
+    under ``MultiSteps`` (``opt.acc``) their running mean: None until the
+    k-th micro-step, then the mean."""
+    grads = {n: (torch.zeros_like(masters[n]) if grads.get(n) is None else grads[n])
+             for n in opt.names}
+    if opt.acc is None:
+        return grads
+    for chunk in _chunks(opt.names, masters):
+        acc = [opt.acc[n] for n in chunk]
+        g = [grads[n].float() for n in chunk]
+        torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(g, acc),
+                                                    float(opt.mini_step + 1)))
+    opt.mini_step += 1
+    if opt.mini_step < opt.k:
+        return None
+    opt.mini_step = 0
+    return opt.acc
+
+
+def clip_factor(grads: Dict[str, torch.Tensor], max_norm: float) -> float:
+    """optax's ``clip_by_global_norm`` as a factor on every gradient."""
+    norm = float(global_norm(grads.values())) if grads else 0.0
+    return 1.0 if norm < max_norm else max_norm / norm
+
+
+CHUNK = 1 << 26   # elements per foreach chunk
+
+
+def _chunks(names, tensors: Dict[str, torch.Tensor]):
+    chunk, size = [], 0
+    for n in names:
+        chunk.append(n)
+        size += tensors[n].numel()
+        if size >= CHUNK:
+            yield chunk
+            chunk, size = [], 0
+    if chunk:
+        yield chunk
 
 
 class AdamW:
@@ -119,29 +182,26 @@ class AdamW:
     ν ← b2·ν + (1 − b2)·g²; u = μ/(1 − b1ⁿ) / (sqrt(ν/(1 − b2ⁿ)) + eps);
     p ← p − lr·(u + wd·p). Frozen parameters are never touched."""
 
-    CHUNK = 1 << 26   # elements per foreach chunk
+    STATE = ("mu", "nu")
 
     def __init__(self, config: TrainConfig, masters: Dict[str, torch.Tensor]):
         self.config = config
         self.names = list(masters)
-        self.mu = {n: torch.zeros_like(p) for n, p in masters.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in masters.items()}
+        self._init_moments(masters)
         self.count = 0
         self.k = config.gradient_accumulation_steps
         self.mini_step = 0
         self.acc = ({n: torch.zeros_like(p) for n, p in masters.items()} if self.k > 1
                     else None)
 
-    def _chunks(self):
-        chunk, size = [], 0
-        for n in self.names:
-            chunk.append(n)
-            size += self.mu[n].numel()
-            if size >= self.CHUNK:
-                yield chunk
-                chunk, size = [], 0
-        if chunk:
-            yield chunk
+    def _init_moments(self, masters: Dict[str, torch.Tensor]) -> None:
+        self.mu = {n: torch.zeros_like(p) for n, p in masters.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in masters.items()}
+
+    def state_bytes(self) -> int:
+        """Bytes of the optimizer's moments (``STATE``)."""
+        return sum(t.numel() * t.element_size() for key in self.STATE
+                   for t in getattr(self, key).values())
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]],
@@ -149,25 +209,14 @@ class AdamW:
         """Take one micro-step's gradients of the trainable parameters (any
         dtype; None counts as zero). Returns whether the masters changed."""
         cfg = self.config
-        grads = {n: (torch.zeros_like(self.mu[n]) if grads.get(n) is None else grads[n])
-                 for n in self.names}
-        if self.acc is not None:
-            for chunk in self._chunks():
-                acc = [self.acc[n] for n in chunk]
-                g = [grads[n].float() for n in chunk]
-                torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(g, acc),
-                                                            float(self.mini_step + 1)))
-            self.mini_step += 1
-            if self.mini_step < self.k:
-                return False
-            self.mini_step = 0
-            grads = self.acc
-        norm = float(global_norm(grads.values())) if grads else 0.0
-        clip = 1.0 if norm < cfg.max_grad_norm else cfg.max_grad_norm / norm
+        grads = accumulate(self, grads, masters)
+        if grads is None:
+            return False
+        clip = clip_factor(grads, cfg.max_grad_norm)
         self.count += 1
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-        for chunk in self._chunks():
+        for chunk in _chunks(self.names, masters):
             g = [grads[n].float() for n in chunk]
             if clip != 1.0:
                 g = torch._foreach_mul(g, clip)
@@ -190,28 +239,84 @@ class AdamW:
                 t.zero_()
         return True
 
+    def state_dict(self) -> dict:
+        out = {key: getattr(self, key) for key in self.STATE}
+        out.update(count=self.count, mini_step=self.mini_step, acc=self.acc)
+        return out
 
-def make_optimizer(config: TrainConfig, masters: Dict[str, torch.Tensor]) -> AdamW:
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict`` into this optimizer's tensors (the same
+        names and shapes)."""
+        for key in self.STATE:
+            for n, t in getattr(self, key).items():
+                t.copy_(state[key][n])
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        if self.acc is not None:
+            for n, t in self.acc.items():
+                t.copy_(state["acc"][n])
+
+
+def make_optimizer(config: TrainConfig, masters: Dict[str, torch.Tensor]):
+    """AdamW, or the blockwise 8-bit AdamW under ``use_8bit_adam`` (JAX's
+    ``adamw_8bit``), on ``masters``."""
+    if config.use_8bit_adam:
+        from animate_anything_tpu_torch.ops.adam8bit import AdamW8bit
+
+        return AdamW8bit(config, masters)
     return AdamW(config, masters)
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The working module (compute dtypes, read by the kernels), the fp32
-    masters of its trainable parameters, and their optimizer."""
-    model: nn.Module
+    """The trained tensors and their optimizer. Full finetune: the working
+    module (compute dtypes, read by the kernels) and the fp32 masters of its
+    trainable parameters. LoRA: no module; ``params`` is {"unet_lora": …,
+    "text_lora": …}, a key for each adapter in use, and ``masters`` the same
+    tensors by flat name (``flatten_lora``)."""
+    model: Optional[nn.Module]
     masters: Dict[str, torch.Tensor]
-    optimizer: AdamW
+    optimizer: Any
     labels: Dict[str, str]
     step: int = 0
+    params: Any = None
 
 
 def create_train_state(model: nn.Module, config: TrainConfig) -> TrainState:
+    """fp32 masters of ``model``'s trainable parameters (exact where the
+    module is still fp32, as ``cli.main`` makes them before the cast)."""
     labels = trainable_label_tree(model, config.trainable_modules, config.not_trainable_modules)
     masters = master_params(model, [n for n, lab in labels.items() if lab == "train"])
     for p in model.parameters():        # frozen ones too: grad_norm counts every gradient
         p.requires_grad_(True)
     return TrainState(model, masters, make_optimizer(config, masters), labels)
+
+
+def flatten_lora(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """An adapter tree, or a dict of them, → {JAX path string: tensor}
+    (``unet_lora.<path>.down`` …, as JAX's tree paths read)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_lora(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def create_lora_train_state(tree: dict, config: TrainConfig) -> TrainState:
+    """A state that trains ``tree`` ({"unet_lora": …, "text_lora": …} of
+    fp32 adapter tensors, in place): labels by JAX's rule on JAX's paths,
+    the optimizer on the 'train' ones. JAX's state is the bare UNet adapter
+    when no text adapter is trained, and its rule reads those paths (with
+    ``unet_lora.`` in front, "lora" in a path leaves only 'all' to train)."""
+    masters = flatten_lora(tree)
+    for t in masters.values():
+        t.requires_grad_(True)
+    jax_paths = {n: n if "text_lora" in tree else n[len("unet_lora."):] for n in masters}
+    labels = label_paths(jax_paths, config.trainable_modules, config.not_trainable_modules)
+    train = {n: t for n, t in masters.items() if labels[n] == "train"}
+    return TrainState(None, masters, make_optimizer(config, train), labels, params=tree)
 
 
 def prepare_mask_for_latents(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -233,13 +338,16 @@ def batch_latents(batch: dict, vae: Optional[nn.Module] = None) -> torch.Tensor:
 
 def make_loss_fn(schedule: DiffusionSchedule, config: TrainConfig,
                  vae: Optional[nn.Module] = None,
-                 text_encoder: Optional[nn.Module] = None) -> Callable:
+                 text_encoder: Optional[nn.Module] = None,
+                 text_grad: bool = False) -> Callable:
     """``loss_fn(model, batch, noise, t, drop) → (loss, metrics)``, pure in its
     random draws: ``noise`` (b, f, h, w, c) fp32 with any offset added, ``t``
     (b,) int timesteps, ``drop`` the text-dropout flag. Batch keys: as JAX's
     (``latents`` or ``pixel_values``; ``mask`` (b, H, W) 0..255;
     ``encoder_hidden_states`` + ``uncond_hidden_states`` or ``prompt_ids`` +
-    ``uncond_ids``)."""
+    ``uncond_ids``). ``text_grad`` (text LoRA) runs the text encoder under
+    grad and refuses a batch without token ids, as JAX does: cached
+    embeddings would bypass the trained adapter."""
 
     def loss_fn(model, batch, noise, t, drop):
         latents = batch_latents(batch, vae)
@@ -251,10 +359,13 @@ def make_loss_fn(schedule: DiffusionSchedule, config: TrainConfig,
         latent_motion = latent_motion_score(latents)
         noisy = add_noise(schedule, latents, noise, t)
 
-        with torch.no_grad():
-            if "encoder_hidden_states" in batch:
-                embeds, uncond = batch["encoder_hidden_states"], batch["uncond_hidden_states"]
-            else:
+        if "encoder_hidden_states" in batch and not text_grad:
+            embeds, uncond = batch["encoder_hidden_states"], batch["uncond_hidden_states"]
+        else:
+            if text_grad and "prompt_ids" not in batch:
+                raise ValueError("text LoRA needs token ids in the batch; cached text "
+                                 "embeddings would bypass the trained adapter")
+            with torch.set_grad_enabled(text_grad and torch.is_grad_enabled()):
                 embeds = text_encoder(batch["prompt_ids"])
                 uncond = text_encoder(batch["uncond_ids"])
         embeds = uncond if bool(drop) else embeds
@@ -282,18 +393,49 @@ def make_loss_fn(schedule: DiffusionSchedule, config: TrainConfig,
 
 
 def apply_gradients(state: TrainState) -> float:
-    """Hand the working module's gradients to the optimizer, round updated
-    masters back into it, clear the gradients; return the global norm of
-    every gradient, frozen ones included (JAX's ``grad_norm``)."""
-    named = dict(state.model.named_parameters())
+    """Hand the gradients to the optimizer, clear them; return the global
+    norm of every gradient, frozen ones included (JAX's ``grad_norm``). Full
+    finetune: the working module's gradients, updated masters rounded back
+    into it. LoRA: the adapter tensors' own, updated in place."""
+    named = (dict(state.model.named_parameters()) if state.model is not None
+             else state.masters)
     grads = {n: p.grad for n, p in named.items()}
-    norm = global_norm([g for g in grads.values() if g is not None])
-    if state.optimizer.step({n: grads[n] for n in state.masters}, state.masters):
+    present = [g for g in grads.values() if g is not None]
+    norm = global_norm(present) if present else torch.zeros(())
+    changed = state.optimizer.step({n: grads.get(n) for n in state.optimizer.names},
+                                   state.masters)
+    if changed and state.model is not None:
         copy_masters_(state.model, state.masters)
     for p in named.values():
         p.grad = None
     state.step += 1
     return float(norm)
+
+
+def draw_inputs(schedule: DiffusionSchedule, config: TrainConfig, shape: tuple,
+                generator: torch.Generator, device) -> tuple:
+    """A step's draws from ``generator``: the noise (with the offset unless
+    the schedule is rescaled), the (b,) timesteps and the text-dropout flag."""
+    offset = config.offset_noise_strength if (config.use_offset_noise
+                                              and not config.rescale_schedule) else 0.0
+    noise = sample_noise(tuple(shape), offset, generator=generator, device=device)
+    t = torch.randint(0, schedule.num_train_timesteps, (shape[0],), generator=generator,
+                      device=device)
+    drop = torch.rand((), generator=generator, device=device) < config.text_dropout
+    return noise, t, drop
+
+
+def _on_device(batch: dict, device, vae) -> dict:
+    batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+    batch["latents"] = batch_latents(batch, vae)
+    return batch
+
+
+def _check_device(device, who: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device (pass device='cpu' for the CPU)")
+    return device
 
 
 def make_train_step(schedule: DiffusionSchedule, config: TrainConfig,
@@ -303,24 +445,58 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig,
     mse_loss, motion_loss, grad_norm). Draws noise, t and the text-dropout
     flag from ``generator`` (on ``device``), then runs ``loss_fn``, the
     backward and the optimizer. Runs on the card unless ``device="cpu"``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_train_step: no CUDA device (pass device='cpu' for the CPU)")
+    device = _check_device(device, "make_train_step")
     loss_fn = make_loss_fn(schedule, config, vae, text_encoder)
-    offset = config.offset_noise_strength if (config.use_offset_noise
-                                              and not config.rescale_schedule) else 0.0
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
-        batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
-        batch["latents"] = batch_latents(batch, vae)
-        b = batch["latents"].shape[0]
-        noise = sample_noise(tuple(batch["latents"].shape), offset, generator=generator,
-                             device=device)
-        t = torch.randint(0, schedule.num_train_timesteps, (b,), generator=generator,
-                          device=device)
-        drop = torch.rand((), generator=generator, device=device) < config.text_dropout
+        batch = _on_device(batch, device, vae)
+        noise, t, drop = draw_inputs(schedule, config, batch["latents"].shape, generator, device)
         _, metrics = loss_fn(state.model, batch, noise, t, drop)
         metrics["loss"].backward()
+        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out["grad_norm"] = apply_gradients(state)
+        return out
+
+    return train_step
+
+
+def make_lora_train_step(schedule: DiffusionSchedule, config: TrainConfig, unet: nn.Module,
+                         base: Optional[Dict[str, torch.Tensor]], lora_config,
+                         text_encoder: Optional[nn.Module] = None,
+                         text_base: Optional[Dict[str, torch.Tensor]] = None,
+                         text_lora_config=None, vae: Optional[nn.Module] = None,
+                         device="cuda") -> Callable:
+    """``train_step(state, batch, generator) → metrics`` for a LoRA state
+    (``create_lora_train_state``): the adapter(s) with rank dropout, merged
+    into ``base`` / ``text_base`` (flax path → the adapted kernels' base,
+    fp32 where JAX's parameters are), the merged weights in the modules'
+    dtypes substituted for their parameters through the forward and the
+    backward; then the optimizer on the adapter. Either model may be left
+    unadapted: its config None and no key for it in ``state.params``. Runs
+    on the card unless ``device="cpu"``."""
+    from animate_anything_tpu_torch.models import lora
+
+    device = _check_device(device, "make_lora_train_step")
+    text = text_lora_config is not None
+    loss_fn = make_loss_fn(schedule, config, vae, text_encoder, text_grad=text)
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
+        batch = _on_device(batch, device, vae)
+        weights, text_weights = {}, {}
+        if lora_config is not None:
+            unet_lora = lora.dropout_lora(state.params["unet_lora"], lora_config, generator)
+            weights = lora.merged_weights(unet, base, unet_lora, lora_config)
+        if text:
+            text_lora = lora.dropout_lora(state.params["text_lora"], text_lora_config, generator)
+            text_weights = lora.merged_weights(text_encoder, text_base, text_lora,
+                                               text_lora_config, naming="text")
+        noise, t, drop = draw_inputs(schedule, config, batch["latents"].shape, generator, device)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(lora.substituted(unet, weights))
+            if text:
+                stack.enter_context(lora.substituted(text_encoder, text_weights))
+            _, metrics = loss_fn(unet, batch, noise, t, drop)
+            metrics["loss"].backward()
         out = {k: float(v.detach()) for k, v in metrics.items()}
         out["grad_norm"] = apply_gradients(state)
         return out

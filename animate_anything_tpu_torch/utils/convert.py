@@ -131,6 +131,20 @@ def clip_text_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def clip_flax_path(name: str, ndim: int) -> str:
+    """The inverse of ``clip_text_state_dict``'s key map: a port CLIP text
+    parameter name (HF layout) and its rank → the dotted flax path, without
+    ``params.``, as JAX's ``models/lora.py`` names the text encoder's leaves."""
+    k = name[len("text_model."):] if name.startswith("text_model.") else name
+    k = k.replace("embeddings.", "").replace("encoder.layers.", "layers.")
+    k = k.replace(".self_attn.", ".").replace(".mlp.", ".")
+    if k.endswith("embedding.weight"):
+        k = k[: -len(".weight")] + ".embedding"
+    elif k.endswith(".weight"):
+        k = k[: -len(".weight")] + (".kernel" if ndim >= 2 else ".scale")
+    return re.sub(rf"\b({_LIST_ATTRS})\.(\d+)", r"\1_\2", k)
+
+
 def vae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``AutoencoderKL`` params → the port's state dict."""
     tree = params.get("params", params)

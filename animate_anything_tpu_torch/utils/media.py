@@ -1,6 +1,7 @@
 """Host-side media IO: images, gifs, mp4s, masks — a copy of the parts of
-``animate_anything_tpu/utils/media.py`` that the eval entry point uses.
-imageio is optional, as in JAX: without it the mp4 becomes a gif.
+``animate_anything_tpu/utils/media.py`` that the entry points and the data
+pipeline use. imageio is optional, as in JAX: without it the mp4 becomes a
+gif, and a video that PIL cannot read cannot be read.
 """
 
 from __future__ import annotations
@@ -69,6 +70,26 @@ def save_video(path: str, frames: np.ndarray, fps: int = 8) -> str:
                 # the caller already wrote the gif (mp4 was a sidecar)
                 return path
     return save_gif(path, frames, fps=fps)
+
+
+def load_video_frames(path: str, max_frames: int | None = None) -> np.ndarray:
+    """Read frames from gif/webp/mp4 (backend permitting) → (f, h, w, 3)."""
+    try:
+        import imageio.v3 as iio
+
+        frames = iio.imread(path, index=None)
+    except Exception as e:
+        raise RuntimeError(
+            f"no decoder available for {path}: imageio or its ffmpeg backend is missing; "
+            "use gif/webp/frame-directory datasets or precomputed latents") from e
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = frames[None]
+    if frames.shape[-1] == 4:
+        frames = frames[..., :3]
+    if max_frames is not None:
+        frames = frames[:max_frames]
+    return frames
 
 
 def read_labelme_mask(path: str, shape: tuple[int, int] | None = None) -> np.ndarray:

@@ -73,7 +73,10 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     "idle_share", "groups": {group: ms}, "group_kernels": {group: kernels
     run}, "kernels": [[ms, calls, name], ...], "host_ms", "host_ops": [[ms,
     calls, name], ...]}``, the kernels and the host operations (self time)
-    largest first."""
+    largest first. On the H100 machine (torch 2.11, CUDA 12.8) a process
+    that has run for some tens of seconds loses the device records of most
+    profiles, whole: there ``kernels`` can come back empty or short, and
+    ``idle_share`` too high."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

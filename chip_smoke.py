@@ -78,7 +78,16 @@
    the VAE encode and CLIP text inside the step, per-sub-layer gradient
    checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps,
    which launch none of kernels 6-11;
-10. checks that every kernel was launched on each path that runs it, prints
+10. drives the training entry points of the port (``run_train_entry``) on
+   synthetic clips (frame directories of PNGs written under ``build/``):
+   ``train_lora`` at ``configs/train_mask_motion_lora.yaml`` (batch 4, 6
+   steps, checkpoints at 3 and 6, the step-5 preview), resumed from its
+   ``ckpt/`` to step 8, ``main_eval`` on its step-6 adapter file, and
+   ``train.py`` at ``configs/train_mask_motion.yaml`` (batch ``FULL_BATCH``,
+   2 steps with the checkpoint and pipeline writes, then 1 step with the
+   8-bit AdamW), each launching kernels 1-5 and the flash backward and no
+   other (the eval: kernels 1-5);
+11. checks that every kernel was launched on each path that runs it, prints
    one JSON line with the kernels' numbers (``launches``: the count on the
    path of the slice that brought the kernel in, the requests for kernels
    1-5, the training steps for the flash backward, the opt-in request for
@@ -87,8 +96,10 @@
    1, the add with its sums, kernel 10, and LayerNorm -> q/k/v -> attention,
    kernels 11 and 1) the run of those entry points at full width;
    ``launches_requests``, ``launches_opt_in``, ``launches_packed``,
-   ``launches_entry_points``, ``launches_eval`` and ``launches_train`` each
-   path's), and last the device line.
+   ``launches_entry_points``, ``launches_eval``, ``launches_train``,
+   ``launches_train_entry`` (the LoRA run with its preview) and
+   ``launches_train_full`` (the full finetune at its YAML) each path's),
+   and last the device line.
 
 Steps 3 and 4 also check kernel 9 against its plain version at the packed
 configuration's frame-attention shapes (summed over a packed CFG forward by
@@ -112,6 +123,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -706,19 +718,31 @@ def _proj_case(gen, n, s, k, c):
     return tag, (h, w, bias, r), _err(y, wy)
 
 
-def _device_ms(fn, group: str, iters: int = 20) -> float:
-    """Device time of ``group``'s kernels a call of fn, from one profiled run
-    of ``iters`` calls (``utils/profiling.device_profile``): the kernel's
-    own time, where CUDA events around a loop of short calls also time the
-    host that issues them. Raises where the profiler saw no device time for
-    the group: fn launches its kernel, so the profile missed it, and no
-    other time may stand in for a device time."""
-    from animate_anything_tpu_torch.utils.profiling import device_profile
-
-    ms = device_profile(lambda: [fn() for _ in range(iters)])["groups"].get(group)
-    if not ms:
-        raise AssertionError(f"{group}: the profiler saw no device time")
-    return ms / iters
+def _device_ms(fn, iters: int = 20) -> float:
+    """Device ms a call of fn, on the card's own clock: a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host queues ``iters``
+    calls between two events, so the events time the calls' kernels back to
+    back, without the host gaps that CUDA events around a loop of short
+    calls also time. Where the spin ended before the host had queued every
+    call, the spin is made longer and the run repeated. (The profiler's
+    device records are not used here: on the H100 machine a process loses
+    whole profiles of them once it has run for some tens of seconds.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 23
+    for _ in range(6):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError(f"{iters} calls could not be queued ahead of the card")
 
 
 def _proj_width_device_ms(args, want) -> dict:
@@ -735,8 +759,7 @@ def _proj_width_device_ms(args, want) -> dict:
             with torch.no_grad():
                 _assert_close(f"proj_residual bn={bn}", pr.proj_residual_stats(*args)[0], want,
                               Y_ATOL, Y_RTOL)
-                out[bn] = _device_ms(lambda: pr.proj_residual_stats(*args),
-                                     "proj_residual (kernel 4)")
+                out[bn] = _device_ms(lambda: pr.proj_residual_stats(*args))
     finally:
         pr.TILE_WIDTHS = widths
     return out
@@ -744,7 +767,7 @@ def _proj_width_device_ms(args, want) -> dict:
 
 def check_proj_residual(gen) -> dict:
     """Kernel 4 at its five sites, each called twice, timed by CUDA events
-    and by the profiler's device time (``site_device_ms``) beside its bf16
+    and by its device time (``site_device_ms``, ``_device_ms``) beside its bf16
     composite (``composite_ms``) and summed over a CFG forward by the sites'
     counts (``forward_ms``, ``forward_device_ms``, ``forward_bound_ms``,
     ``forward_composite_ms``); at s = 64 also by tile width
@@ -762,8 +785,7 @@ def check_proj_residual(gen) -> dict:
         tag, args, err = _proj_case(gen, n, s, k, c)
         ms = cuda_ms(lambda: pr.proj_residual_stats(*args))
         with torch.no_grad():
-            device.append(_device_ms(lambda: pr.proj_residual_stats(*args),
-                                     "proj_residual (kernel 4)"))
+            device.append(_device_ms(lambda: pr.proj_residual_stats(*args)))
         plain = cuda_ms(lambda: pr.proj_residual_reference(*args), warmup=1, iters=3)
         with torch.no_grad():
             comp = cuda_ms(lambda: _proj_composite(*args))
@@ -773,7 +795,7 @@ def check_proj_residual(gen) -> dict:
         forward += count * ms
         forward_bound += count * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         forward_comp += count * comp
-        log(f"    device time (profiler) {device[-1]:.3f} ms; bf16 composite (Linear + bias, + residual, two "
+        log(f"    device time {device[-1]:.3f} ms; bf16 composite (Linear + bias, + residual, two "
             f"sums; a reference line) {comp:.3f} ms; {count} a CFG forward")
         tally.add(tag, err, ms, plain, flop, nbytes)
         if s == 64:
@@ -882,7 +904,7 @@ def check_channel_sums(gen) -> dict:
     (``utils/kernel_sites.CHANNEL_SUMS_SITES``: resnet inputs of 34 frames,
     temporal convs' first stages of 2 samples x 17 frames), each called
     twice (bit for bit: no atomics on the sums) and summed over a forward by
-    the sites' counts, by events and by the profiler's device time (the
+    the sites' counts, by events and by device time (``_device_ms``; the
     events of a call this short time the host that issues it:
     ``forward_ms``, ``forward_device_ms``, ``forward_bound_ms``); and each
     site's call with its rows knocked out (one row a sample), whose device
@@ -908,15 +930,15 @@ def check_channel_sums(gen) -> dict:
         ms = cuda_ms(lambda: gn.stream_channel_sums(x))
         plain = cuda_ms(lambda: gn.channel_sums(x))
         nbytes = n * s * c * 2 + 2 * n * c * 4
-        device = _device_ms(lambda: gn.stream_channel_sums(x), "channel_sums (kernel 6)")
+        device = _device_ms(lambda: gn.stream_channel_sums(x))
         # the rows knocked out: one row a sample, what a call costs beyond its bytes
         x1 = x[:, :1].contiguous()
-        fixed = _device_ms(lambda: gn.stream_channel_sums(x1), "channel_sums (kernel 6)")
+        fixed = _device_ms(lambda: gn.stream_channel_sums(x1))
         forward += count * ms
         forward_device += count * device
         forward_fixed += count * fixed
         forward_bound += count * nbytes / PEAK_HBM_BYTES * 1e3
-        log(f"    device time {device:.4f} ms (profiler), {fixed:.4f} ms with one row a sample; "
+        log(f"    device time {device:.4f} ms, {fixed:.4f} ms with one row a sample; "
             f"{count} a CFG forward")
         tally.add(tag, max(_err(got[0], want[0]), _err(got[1], want[1])), ms, plain,
                   3 * n * s * c, nbytes)
@@ -930,12 +952,13 @@ def check_channel_sums(gen) -> dict:
     return tally.row
 
 
-def _launches_a_call(fn, group: str, iters: int = 4) -> float:
-    """Kernels of ``group`` the profiler saw a call of fn."""
-    from animate_anything_tpu_torch.utils.profiling import device_profile
-
-    prof = device_profile(lambda: [fn() for _ in range(iters)])
-    return prof["group_kernels"].get(group, 0) / iters
+def _calls_a_call(fn, module, iters: int = 4) -> float:
+    """Calls of a kernel's C entry a call of fn: the rise of the wrapper's
+    ``module.launches`` counter, which it raises once after each call."""
+    before = module.launches
+    for _ in range(iters):
+        fn()
+    return (module.launches - before) / iters
 
 
 def check_streaming_gn(gen) -> dict:
@@ -943,8 +966,8 @@ def check_streaming_gn(gen) -> dict:
     16-frame decode in the opt-in configuration (``utils/kernel_sites``;
     GroupNorm + SiLU, and the mid-block attention's norm without), each
     called twice (bit for bit: no atomics on the sums) and counted in
-    kernels a call by the profiler (one launch), timed by events and by the
-    profiler's device time and summed over an encode and a decode by the
+    calls of its C entry a call (one launch), timed by events and by
+    device time (``_device_ms``) and summed over an encode and a decode by the
     sites' counts; its bound reads x once (the rows a block does not hold
     and reads twice, ``launch_plan``'s ``rows_read_twice``, are logged beside
     it and not counted). F.group_norm as the library time where there is no
@@ -953,7 +976,6 @@ def check_streaming_gn(gen) -> dict:
     from animate_anything_tpu_torch.utils.kernel_sites import (STREAM_GN_DECODE_SITES,
                                                                STREAM_GN_ENCODE_SITES)
 
-    group = "group_norm_stream (kernel 7)"
     tally = Tally("group_norm_stream", "animate_anything_tpu_torch/csrc/group_norm.cu",
                   "animate_anything_tpu/ops/attic/streaming_group_norm.py:110")
     totals = {}
@@ -976,8 +998,9 @@ def check_streaming_gn(gen) -> dict:
                     raise AssertionError(f"{tag}: two calls differ")
                 del again
                 ms = cuda_ms(run)
-                device = _device_ms(run, group, iters=10)
-                per_call = _launches_a_call(run, group)
+                device = _device_ms(run, iters=10)
+                # aat_group_norm launches kernel 7 once, whatever the plan
+                per_call = _calls_a_call(run, sg)
                 if per_call != 1:
                     raise AssertionError(f"{tag}: {per_call} kernel-7 launches a call, not 1")
                 plain = cuda_ms(lambda: sg.group_norm_stream_reference(x, scale, bias, groups,
@@ -995,7 +1018,7 @@ def check_streaming_gn(gen) -> dict:
                       library)
             held = "x read once" if plan["read_once"] else (
                 f"{1 - plan['rows_read_twice'] / (n * s):.1%} of the rows read once")
-            log(f"    device time {device:.4f} ms (profiler), 1 launch a call, {count} a {path}; "
+            log(f"    device time {device:.4f} ms, 1 launch a call, {count} a {path}; "
                 f"{held}; bound {nbytes / PEAK_HBM_BYTES * 1e3:.3f} ms (x read once), "
                 f"{(nbytes + plan['rows_read_twice'] * c * 2) / PEAK_HBM_BYTES * 1e3:.3f} ms "
                 f"with the rows the design reads twice")
@@ -1161,9 +1184,8 @@ def check_temporal_attention(gen) -> dict:
         count = counts.get((b, f, s, h, d), 0)
         if count:
             with torch.no_grad():
-                device = _device_ms(lambda: ta.packed_temporal_attention(q, k, v),
-                                    "temporal_attention (kernel 9)")
-            log(f"    device time {device} ms (profiler); {count} a packed CFG forward")
+                device = _device_ms(lambda: ta.packed_temporal_attention(q, k, v))
+            log(f"    device time {device} ms; {count} a packed CFG forward")
             forward_device += count * device
         forward += count * ms
         forward_bound += count * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
@@ -1214,9 +1236,9 @@ def check_add_stats(gen) -> dict:
     rounding), the sums those of the stored y in another fp32 order, and the
     same in a second run (no atomics). No single PyTorch call adds and sums;
     the three-call composite (add, two reductions) is a reference line. Each
-    shape is also timed by the profiler's device time (``site_device_ms``:
-    the events of a short call time the host that launches it); kernel 10 is
-    ``channel_sums_kernel<true>``, so its group is kernel 6's."""
+    shape is also timed by device time (``site_device_ms``, ``_device_ms``:
+    the events around a loop of short calls time the host that launches
+    them)."""
     from animate_anything_tpu_torch.ops import add_stats as ad
 
     tally = Tally("add_with_stats", "animate_anything_tpu_torch/csrc/group_norm.cu",
@@ -1244,11 +1266,10 @@ def check_add_stats(gen) -> dict:
                 yc = x + r
                 return yc.float().sum(1), yc.float().square().sum(1)
             comp = cuda_ms(composite)
-            device = _device_ms(lambda: ad.add_with_stats(x, r, impl="pallas"),
-                                "channel_sums (kernel 6)")
+            device = _device_ms(lambda: ad.add_with_stats(x, r, impl="pallas"))
         composite_ms += comp
         site_device.append(device)
-        log(f"    device time {device:.4f} ms (profiler); three-call composite (add, Σ, Σ²; "
+        log(f"    device time {device:.4f} ms; three-call composite (add, Σ, Σ²; "
             f"a reference line) {comp:.3f} ms")
         tally.add(tag, _err(y, wy), ms, plain, 3 * n * s * c, 3 * n * s * c * 2 + 2 * n * c * 4)
     tally.row.update(composite_ms=composite_ms, site_device_ms=site_device)
@@ -1259,15 +1280,15 @@ def check_ln_qkv(gen) -> dict:
     """Kernels 11 and 1 (``ln_qkv_attention``) at the UNet's three spatial
     self-attention sites (norm1 -> to_q/k/v -> attention) and at JAX's test
     shapes, against the plain version on the first and the last two
-    samples, each called twice (bit for bit). The profiler splits a call's
-    device time into kernel 11's (its statistics pass and GEMM: two launches)
-    and kernel 1's. No single PyTorch call computes it; the three-call
+    samples, each called twice (bit for bit). A call's device time less
+    kernel 1's alone at its shape is kernel 11's (its statistics pass and
+    GEMM: two launches). No single PyTorch call computes it; the three-call
     composite (``F.layer_norm``, one q|k|v matmul, SDPA) is a reference line,
     and beside kernel 11's own time, its front half (``F.layer_norm`` and the
     q|k|v matmul) and the bound of that half."""
+    from animate_anything_tpu_torch.ops import flash_attention as fa
     from animate_anything_tpu_torch.ops import ln_qkv_attention as lq
     from animate_anything_tpu_torch.utils.kernel_sites import LN_QKV_SITES
-    from animate_anything_tpu_torch.utils.profiling import device_profile
 
     tally = Tally("ln_qkv_attention", "animate_anything_tpu_torch/csrc/ln_qkv.cu",
                   "animate_anything_tpu/ops/attic/ln_qkv_attention.py:130")
@@ -1291,14 +1312,17 @@ def check_ln_qkv(gen) -> dict:
                                         lq.ln_qkv_attention_reference(x[sl], lns, lnb, *ws, **kw))
                       for sl in _first_and_last(b))
             ms = cuda_ms(run)
-            prof = device_profile(lambda: [run() for _ in range(5)])
-            k11 = prof["groups"].get("ln_qkv (kernel 11)", 0.0) / 5
-            k1 = prof["groups"].get("flash_attention (kernel 1)", 0.0) / 5
-            per_call = prof["group_kernels"].get("ln_qkv (kernel 11)", 0) / 5
-            if not k11 or not k1:
-                raise AssertionError(f"{tag}: the profiler saw no device time of kernel 11 or 1")
-            if per_call != 2:
-                raise AssertionError(f"{tag}: {per_call} kernel-11 launches a call, not 2")
+            # kernel 11's device time: the call's less kernel 1's alone on q, k, v of its shape
+            whole = _device_ms(run, iters=5)
+            qkv = [torch.randn(b, s, h, 64, device="cuda").to(torch.bfloat16) for _ in range(3)]
+            k1 = _device_ms(lambda: fa.flash_forward_with_lse(*qkv, with_lse=False,
+                                                              prescaled=True), iters=5)
+            k11 = whole - k1
+            del qkv
+            # aat_ln_qkv launches kernel 11's two passes, the statistics and the GEMM
+            per_call = _calls_a_call(run, lq)
+            if per_call != 1:
+                raise AssertionError(f"{tag}: {per_call} calls of aat_ln_qkv a call, not 1")
             plain = cuda_ms(lambda: [lq.ln_qkv_attention_reference(x[i:i + 2], lns, lnb, *ws, **kw)
                                      for i in range(0, b, 2)], warmup=1, iters=2)
             wqkv = torch.cat(ws, 1)
@@ -1314,8 +1338,8 @@ def check_ln_qkv(gen) -> dict:
         front_bound = max(6 * n * c * hd / PEAK_BF16_FLOPS,
                           (n * (c + 3 * hd) * 2 + 3 * c * hd * 2) / PEAK_HBM_BYTES) * 1e3
         composite_ms += comp
-        log(f"    device time: kernel 11 {k11:.4f} ms ({per_call:g} launches a call: the "
-            f"statistics and the GEMM), kernel 1 {k1:.4f} ms; kernel 11's half: composite "
+        log(f"    device time: kernel 11 {k11:.4f} ms (two launches a call: the statistics "
+            f"and the GEMM), kernel 1 {k1:.4f} ms; kernel 11's half: composite "
             f"(layer_norm, q|k|v matmul; a reference line) {front_ms:.3f} ms, bound "
             f"{front_bound:.4f} ms; three-call composite (+ SDPA) {comp:.3f} ms")
         if (b, s, c, h) in LN_QKV_SITES:
@@ -1880,11 +1904,11 @@ DDIM_MIN_DIFF = 0.1
 
 
 @contextlib.contextmanager
-def _captured_requests():
+def _captured_requests(keep_models: bool = False):
     """Record each ``LatentToVideoPipeline.animate_image`` call's (video,
     latents) on the host and its seconds, and each model build's
-    (``cli.eval_models``) seconds under ``"build"``, each ended by a device
-    sync."""
+    (``cli.eval_models``) seconds under ``"build"`` (the models themselves
+    under ``"models"`` when ``keep_models``), each ended by a device sync."""
     from animate_anything_tpu_torch import cli
     from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
 
@@ -1904,6 +1928,8 @@ def _captured_requests():
         models = orig_build(*args, **kw)
         torch.cuda.synchronize()
         seen["build"].append(time.perf_counter() - t0)
+        if keep_models:
+            seen["models"] = models
         return models
 
     LatentToVideoPipeline.animate_image, cli.eval_models = recorded, timed_build
@@ -1932,8 +1958,9 @@ def _check_sample(tag: str, metrics: dict, video) -> None:
         raise AssertionError(f"{tag}: sample {metrics['sample_path']} not written")
 
 
-def _eval_run(tag: str, cfg: dict) -> tuple:
-    """``main_eval(**cfg)`` once on the card: → (video, launches)."""
+def _eval_run(tag: str, cfg: dict, models_out: Optional[list] = None) -> tuple:
+    """``main_eval(**cfg)`` once on the card: → (video, launches); the models
+    it ran appended to ``models_out`` when given."""
     from animate_anything_tpu_torch.cli import main_eval
 
     gc.collect()
@@ -1941,7 +1968,7 @@ def _eval_run(tag: str, cfg: dict) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with _captured_requests() as seen:
+    with _captured_requests(keep_models=models_out is not None) as seen:
         t0 = time.perf_counter()
         metrics = main_eval(**cfg)
         torch.cuda.synchronize()
@@ -1950,6 +1977,8 @@ def _eval_run(tag: str, cfg: dict) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2**30
     (video, _, request), = seen["requests"]
     build, = seen["build"]
+    if models_out is not None:
+        models_out.append(seen["models"])
     _check_sample(tag, metrics, video)
     log(f"  {tag}: main_eval {dt:.3f} s (the model build {build:.3f} s, the request "
         f"{request:.3f} s, the sample's writes and metrics {dt - build - request:.3f} s), "
@@ -2232,6 +2261,432 @@ def run_train_steps() -> dict:
     return launches
 
 
+TRAIN_LORA_CONFIG_PATH = "configs/train_mask_motion_lora.yaml"
+TRAIN_FULL_CONFIG_PATH = "configs/train_mask_motion.yaml"
+# The LoRA YAML names no attn_impl, so JAX's default "xla" would run the
+# composite modules and no kernel; the phase passes attn_impl=pallas, which
+# the full finetune's YAML names itself, so both paths run kernels 1-5.
+TRAIN_ATTN_IMPL = "pallas"
+# Synthetic clips: the full finetune's batch of 8 needs 8 (the loader drops
+# a short last batch).
+TRAIN_CLIPS = 8
+LORA_STEPS, LORA_CKPT_STEPS, LORA_RESUME_STEPS = 6, 3, 8
+FULL_STEPS = 2
+# The full finetune's YAML asks for batch 8; on the 80 GB H100 that batch
+# runs out of memory in the step's VAE encode (all 128 frames at once, as in
+# JAX: "Tried to allocate 16.00 GiB ... 59.94 GiB is allocated by PyTorch"),
+# and batch 4 fits (48.1 GiB peak). Measured on the card; the phase sets it.
+FULL_BATCH = 4
+TRAIN_ENTRY_KERNELS = FORWARD_KERNELS + ("flash_attention_bwd",)
+
+
+def lora_entry_argv(json_path: str) -> list[str]:
+    """The LoRA runs' command line: the YAML, its dataset's JSON and the
+    kernels' ``attn_impl`` (the runs add their step counts and directories)."""
+    return ["--config", TRAIN_LORA_CONFIG_PATH, f"train_data.json_path={json_path}",
+            f"attn_impl={TRAIN_ATTN_IMPL}"]
+
+
+def full_entry_argv(json_path: str) -> list[str]:
+    """The full finetune's command line: the YAML, its dataset's JSON and
+    the batch that fits the card (``FULL_BATCH``)."""
+    return ["--config", TRAIN_FULL_CONFIG_PATH, f"train_data.json_path={json_path}",
+            f"train_batch_size={FULL_BATCH}"]
+
+
+def write_clips(root: str, n: int = TRAIN_CLIPS, seed: int = 0) -> list[str]:
+    """``n`` clips of ``FRAMES`` 512x512 PNG frames, each in its own
+    directory: a static colour gradient with a band of red and blue stripes
+    across the middle half that moves 16 px a frame (half the band's pixels
+    change hue each frame: a motion score near 100, above the YAML's
+    ``motion_threshold`` of 50)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:RES, 0:RES]
+    paths = []
+    for i in range(n):
+        tint = rng.integers(0, 160, 3)
+        base = np.stack([(x * 96) // RES + tint[0], (y * 96) // RES + tint[1],
+                         np.full_like(x, tint[2])], -1).astype(np.uint8)
+        d = os.path.join(root, f"clip_{i:02d}")
+        os.makedirs(d)
+        for t in range(FRAMES):
+            frame = base.copy()
+            band = slice(RES // 4, 3 * RES // 4)
+            red = ((x[band] + 16 * t + 8 * i) // 32) % 2 == 0
+            frame[band] = np.where(red[..., None], np.array([220, 40, 40], np.uint8),
+                                   np.array([40, 40, 220], np.uint8))
+            Image.fromarray(frame).save(os.path.join(d, f"{t:04d}.png"))
+        paths.append(d)
+    return paths
+
+
+def write_dataset_json(root: str, clips: list[str]) -> dict:
+    """The JSON each YAML's dataset type reads: ``video_json`` (a list of
+    {video, caption}) and ``video_blip`` ({data: [{video_path, data:
+    [{frame_index, prompt}]}]}); → {type: path}."""
+    import os
+
+    prompts = [f"stripes drift right, clip {i}" for i in range(len(clips))]
+    docs = {"video_json": [{"video": c, "caption": p} for c, p in zip(clips, prompts)],
+            "video_blip": {"data": [{"video_path": c, "data": [{"frame_index": 0, "prompt": p}]}
+                                    for c, p in zip(clips, prompts)]}}
+    out = {}
+    for kind, doc in docs.items():
+        out[kind] = os.path.join(root, f"{kind}.json")
+        with open(out[kind], "w") as f:
+            json.dump(doc, f)
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def _host(tensors: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+@contextlib.contextmanager
+def _captured_training(before_first=None, after_first=None):
+    """Around ``cli.main``: each train step's seconds (to a device sync) and
+    metrics, the t each step drew, the host's seconds blocked on the loader
+    for each batch, each checkpoint / adapter / pipeline write (seconds,
+    bytes) and preview (seconds), the arguments the step was made with and
+    the state it trains; ``before_first(state, args)``'s result, taken
+    before the first step, under ``"before"``, and ``after_first(state)``'s,
+    taken after it, under ``"after"``."""
+    import inspect
+
+    from animate_anything_tpu_torch import cli
+    from animate_anything_tpu_torch.train import trainer
+
+    seen = {"steps": [], "t": [], "waits": [], "writes": [], "previews": [], "state": None,
+            "args": None, "before": None, "after": None}
+    saved = []
+
+    def patch(mod, name, new):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, new)
+
+    def maker(orig):
+        def made(*args, **kw):
+            seen["args"] = inspect.signature(orig).bind(*args, **kw).arguments
+            step = orig(*args, **kw)
+
+            def timed(state, batch, generator):
+                if seen["state"] is None and before_first is not None:
+                    seen["before"] = before_first(state, seen["args"])
+                seen["state"] = state
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, batch, generator)
+                torch.cuda.synchronize()
+                seen["steps"].append((time.perf_counter() - t0, metrics))
+                if len(seen["steps"]) == 1 and after_first is not None:
+                    seen["after"] = after_first(state)
+                return metrics
+            return timed
+        return made
+
+    def drawn(*args, _orig=trainer.draw_inputs, **kw):
+        noise, t, drop = _orig(*args, **kw)
+        seen["t"].append(t.tolist())
+        return noise, t, drop
+
+    def prefetch(*args, _orig=cli.device_prefetch, **kw):
+        it = _orig(*args, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            seen["waits"].append(time.perf_counter() - t0)
+            yield batch
+
+    def writer(name):
+        orig = getattr(cli, name)
+
+        def timed(path, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(path, *args, **kw)
+            where = out if name == "save_checkpoint" else path
+            seen["writes"].append((name, where, time.perf_counter() - t0, _dir_bytes(where)))
+            return out
+        return timed
+
+    def preview(*args, _orig=cli.run_validation, **kw):
+        t0 = time.perf_counter()
+        out = _orig(*args, **kw)
+        torch.cuda.synchronize()
+        seen["previews"].append((time.perf_counter() - t0, out))
+        return out
+
+    patch(cli, "make_lora_train_step", maker(cli.make_lora_train_step))
+    patch(cli, "make_train_step", maker(cli.make_train_step))
+    patch(trainer, "draw_inputs", drawn)
+    patch(cli, "device_prefetch", prefetch)
+    for name in ("save_checkpoint", "save_lora", "save_pipeline"):
+        patch(cli, name, writer(name))
+    patch(cli, "run_validation", preview)
+    try:
+        yield seen
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+
+
+def _train_run(tag: str, entry, argv: list, out_dir: str, before_first=None,
+               after_first=None) -> tuple:
+    """One training run through ``entry(argv + [output_dir=out_dir])`` (the
+    port's ``train_lora`` or ``cli``) on the card, the launch counts reset
+    before it and the peak memory counted from it: → (seen, launches, run
+    directory, peak GiB)."""
+    import os
+
+    argv = argv + [f"output_dir={out_dir}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _captured_training(before_first, after_first) as seen:
+        t0 = time.perf_counter()
+        entry(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    run_dir, = [os.path.join(out_dir, d) for d in os.listdir(out_dir)]
+    times = [t for t, _ in seen["steps"]]
+    for i, (sec, metrics) in enumerate(seen["steps"]):
+        log(f"  {tag} step {i}: {sec:.3f} s, t {seen['t'][i]}  " + "  ".join(
+            f"{k} {v:.6g}" for k, v in metrics.items()))
+        bad = {k: v for k, v in metrics.items() if not v == v or abs(v) == float("inf")}
+        # ε on a zero-terminal-SNR schedule: x̂0 divides by 0 at t = 999, in
+        # JAX too (ROADMAP queue 3); anywhere else a non-finite value fails
+        if bad and not (set(bad) <= {"loss", "motion_loss", "grad_norm"}
+                        and 999 in seen["t"][i]):
+            raise AssertionError(f"{tag} step {i}: non-finite {bad}")
+    later = sorted(times[1:]) or times
+    waits = seen["waits"]
+    log(f"  {tag}: {len(times)} steps in {dt:.3f} s of run; s/step {later[len(later) // 2]:.3f} "
+        f"(median of the steps after the first; the first {times[0]:.3f} s); peak device "
+        f"memory {peak:.2f} GiB; the host blocked on the loader {sum(waits):.3f} s "
+        f"({waits[0]:.3f} s for the first batch, {sum(waits[1:]):.3f} s for the "
+        f"{len(waits) - 1} others)")
+    for name, where, sec, nbytes in seen["writes"]:
+        log(f"  {tag} {name}: {nbytes / 1e9:.4f} GB in {sec:.3f} s ({os.path.basename(where)})")
+    for sec, metrics in seen["previews"]:
+        log(f"  {tag} preview: {sec:.3f} s  {metrics}")
+    log(f"  {tag} kernel launches: {launches}")
+    return seen, launches, run_dir, peak
+
+
+def _lora_snapshot(state, args) -> dict:
+    """Host copies of the frozen weights a LoRA run must not change: the
+    fp32 base of the adapted kernels and every UNet parameter."""
+    return {"base": _host(args["base"]), "unet": _host(dict(args["unet"].named_parameters()))}
+
+
+def _zero_ups(state) -> tuple:
+    """(adapted kernels whose ``up`` is all zero, adapted kernels)."""
+    ups = [t for n, t in state.masters.items() if n.endswith(".up")]
+    return sum(int(not bool(t.any())) for t in ups), len(ups)
+
+
+def _state_snapshot(state, args) -> dict:
+    return {"masters": _host(state.masters), "optimizer": {
+        key: _host(getattr(state.optimizer, key)) for key in state.optimizer.STATE},
+        "step": state.step}
+
+
+def _equal(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def run_train_entry() -> dict:
+    """The training entry points of the port at full width (bf16, 512 px,
+    16 frames, random weights: the YAMLs' checkpoint directory and datasets
+    are not in the repository), on ``TRAIN_CLIPS`` synthetic clips (frame
+    directories of PNGs) written under ``build/``, each YAML's values but
+    ``train_data.json_path``, ``output_dir``, the step counts and
+    ``attn_impl`` (``TRAIN_ATTN_IMPL``): ``run_lora_entry``, then
+    ``run_full_entry``. Returns each kernel's launch count during the LoRA
+    run (a) and during the full finetune (d), as {"lora": …, "full": …}."""
+    import os
+    import shutil
+    import tempfile
+
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_entry_", dir="build")
+    try:
+        t0 = time.perf_counter()
+        clips = write_clips(os.path.join(work, "clips"))
+        json_paths = write_dataset_json(work, clips)
+        log(f"train entry points: {len(clips)} synthetic clips of {FRAMES} PNG frames at "
+            f"{RES}x{RES} written in {time.perf_counter() - t0:.3f} s")
+        lora = run_lora_entry(work, json_paths["video_json"])
+        full = run_full_entry(work, json_paths["video_blip"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"lora": lora, "full": full}
+
+
+def run_lora_entry(work: str, json_path: str) -> dict:
+    """(a) ``train_lora`` at ``configs/train_mask_motion_lora.yaml`` (batch 4,
+    rank 16 over every dense kernel of the UNet), ``LORA_STEPS`` steps with a
+    checkpoint every ``LORA_CKPT_STEPS`` and the step-5 preview: every loss
+    finite, every grad norm > 0, every ``up`` matrix non-zero after step 1,
+    the base weights bit-equal to theirs before step 1, adapter files and
+    ``ckpt/`` at steps 3 and 6, kernels 1-5 and the flash backward and no
+    other; (b) the same command resumed from (a)'s ``ckpt/`` to
+    ``LORA_RESUME_STEPS``: it starts at step 6 with (a)'s adapter and moments
+    bit for bit, takes 2 steps and launches the kernels (a) launches; (c) ``main_eval`` with (a)'s step-6
+    adapter file: the merged UNet equal to a merge of (a)'s in-memory
+    adapter bit for bit, the video finite, kernels 1-5 only. Under ``work``;
+    returns (a)'s launch counts."""
+    import os
+    import shutil
+
+    from animate_anything_tpu_torch import cli
+    from animate_anything_tpu_torch.core.config import Config
+    from animate_anything_tpu_torch.models.lora import collapse_lora_
+    from animate_anything_tpu_torch.train_lora import train_lora
+
+    lora_argv = lora_entry_argv(json_path)
+    (a, launches, run_a, peak_a) = _train_run(
+        "(a) train_lora", train_lora,
+        lora_argv + [f"max_train_steps={LORA_STEPS}",
+                     f"checkpointing_steps={LORA_CKPT_STEPS}"],
+        os.path.join(work, "lora"), _lora_snapshot, _zero_ups)
+    state = a["state"]
+    if len(a["steps"]) != LORA_STEPS or state.step != LORA_STEPS:
+        raise AssertionError(f"(a): {len(a['steps'])} steps, state at {state.step}")
+    if not all(m["grad_norm"] > 0 for _, m in a["steps"]):
+        raise AssertionError("(a): a step with grad_norm 0")
+    zero, kernels = a["after"]
+    log(f"  (a): {kernels} adapted kernels, {zero} up matrices still zero after step 1; "
+        f"adapter {sum(t.numel() for t in state.masters.values()) / 1e6:.2f} M params, "
+        f"optimizer state {state.optimizer.state_bytes() / 1e6:.1f} MB")
+    if zero:
+        raise AssertionError(f"(a): {zero} of {kernels} up matrices zero after step 1")
+    args = a["args"]
+    after = {"base": _host(args["base"]), "unet": _host(dict(args["unet"].named_parameters()))}
+    for key in ("base", "unet"):
+        if not _equal(after[key], a["before"][key]):
+            raise AssertionError(f"(a): the frozen {key} weights changed")
+    log("  (a): the fp32 base of the adapted kernels and every UNet parameter bit-equal to "
+        "their values before step 1")
+    want = {f"lora_step_{s}.safetensors" for s in (LORA_CKPT_STEPS, LORA_STEPS)}
+    ckpts = sorted(os.listdir(os.path.join(run_a, "ckpt")))
+    if not want <= set(os.listdir(run_a)) or ckpts != [
+            f"step_{s:08d}" for s in (LORA_CKPT_STEPS, LORA_STEPS)]:
+        raise AssertionError(f"(a): run directory {sorted(os.listdir(run_a))}, ckpt {ckpts}")
+    if len(a["previews"]) != 1:
+        raise AssertionError(f"(a): {len(a['previews'])} previews, the YAML asks for one")
+    require_only("(a) train_lora", launches, TRAIN_ENTRY_KERNELS)
+    saved_a = _state_snapshot(state, None)
+    adapter = state.params["unet_lora"]
+    del a, state, args, after
+
+    (b, launches_b, _, _) = _train_run(
+        "(b) train_lora resumed", train_lora,
+        lora_argv + [f"max_train_steps={LORA_RESUME_STEPS}",
+                     f"checkpointing_steps={LORA_CKPT_STEPS}",
+                     f"resume_from_checkpoint={os.path.join(run_a, 'ckpt')}"],
+        os.path.join(work, "lora_resumed"), _state_snapshot)
+    restored = b["before"]
+    if restored["step"] != LORA_STEPS or len(b["steps"]) != LORA_RESUME_STEPS - LORA_STEPS:
+        raise AssertionError(f"(b): resumed at {restored['step']}, {len(b['steps'])} steps")
+    if not _equal(restored["masters"], saved_a["masters"]) or not all(
+            _equal(restored["optimizer"][k], saved_a["optimizer"][k])
+            for k in saved_a["optimizer"]):
+        raise AssertionError("(b): the restored adapter or moments differ from (a)'s")
+    require_only("(b) train_lora resumed", launches_b, TRAIN_ENTRY_KERNELS)
+    log(f"  (b): resumed at step {restored['step']} with (a)'s adapter and moments bit for "
+        f"bit; {len(b['steps'])} steps")
+    del b, restored
+
+    lora_file = os.path.join(run_a, f"lora_step_{LORA_STEPS}.safetensors")
+    eval_cfg = dict(cli.load_config(TRAIN_LORA_CONFIG_PATH).to_dict(),
+                    output_dir=os.path.join(work, "eval"), attn_impl=TRAIN_ATTN_IMPL,
+                    lora_path=lora_file)
+    models_out = []
+    _eval_run("(c) main_eval with lora_path", eval_cfg, models_out)
+    got = models_out.pop()["unet"].state_dict()
+    ref = cli.build_models(eval_cfg["pretrained_model_path"], motion_mask=True,
+                           motion_strength=True, compute_dtype=torch.float32,
+                           attn_impl=TRAIN_ATTN_IMPL)
+    collapse_lora_(ref["unet"], adapter, cli.lora_configs(Config(eval_cfg))[0])
+    want_sd = cli._cast(ref, cli.policy_from_string("bf16"))["unet"].state_dict()
+    if set(got) != set(want_sd) or not all(
+            got[k].dtype == want_sd[k].dtype and torch.equal(got[k], want_sd[k])
+            for k in want_sd):
+        raise AssertionError("(c): main_eval's merged UNet differs from a merge of (a)'s "
+                             "in-memory adapter")
+    log("  (c): main_eval's merged UNet equals a merge of (a)'s in-memory adapter bit for "
+        "bit")
+    del got, ref, want_sd, adapter
+    shutil.rmtree(os.path.join(work, "lora_resumed"), ignore_errors=True)
+    return launches
+
+
+def run_full_entry(work: str, json_path: str) -> dict:
+    """(d) ``cli`` (``train.py``) at ``configs/train_mask_motion.yaml``, batch
+    ``FULL_BATCH``, ``FULL_STEPS`` steps with the end-of-run checkpoint and
+    pipeline directory, each write's bytes and seconds, both removed after;
+    (e) one step of (d) with ``use_8bit_adam=true``: its peak memory and
+    optimizer-state bytes beside (d)'s. Each run launches kernels 1-5 and
+    the flash backward and no other; returns (d)'s launch counts."""
+    import os
+    import shutil
+
+    from animate_anything_tpu_torch import cli
+
+    full_argv = full_entry_argv(json_path)
+    need = 17e9 + 7.4e9
+    free = shutil.disk_usage(work).free
+    log(f"  (d): {free / 1e9:.1f} GB free under {work}, about {need / 1e9:.1f} GB to write")
+    if free < 1.5 * need:
+        raise AssertionError(f"(d): {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB to write")
+    (d, launches_d, _, peak_d) = _train_run(
+        f"(d) train.py batch {FULL_BATCH}", cli.cli,
+        full_argv + [f"max_train_steps={FULL_STEPS}"], os.path.join(work, "full"))
+    if len(d["steps"]) != FULL_STEPS or not any(
+            name == "save_pipeline" for name, *_ in d["writes"]):
+        raise AssertionError(f"(d): {len(d['steps'])} steps, writes {d['writes']}")
+    require_only("(d) train.py", launches_d, TRAIN_ENTRY_KERNELS)
+    bytes_d = d["state"].optimizer.state_bytes()
+    del d
+    shutil.rmtree(os.path.join(work, "full"), ignore_errors=True)
+
+    (e, launches_e, _, peak_e) = _train_run(
+        f"(e) train.py batch {FULL_BATCH}, 8-bit AdamW", cli.cli,
+        full_argv + ["max_train_steps=1", "use_8bit_adam=true",
+                     "save_pretrained_model=false"], os.path.join(work, "full_8bit"))
+    require_only("(e) train.py, 8-bit AdamW", launches_e, TRAIN_ENTRY_KERNELS)
+    n_params = sum(t.numel() for t in e["state"].masters.values())
+    bytes_e = e["state"].optimizer.state_bytes()
+    log(f"  (e) against (d): peak device memory {peak_e:.2f} against {peak_d:.2f} GiB; "
+        f"optimizer state {bytes_e / 1e9:.3f} GB ({bytes_e / n_params:.3f} bytes a "
+        f"parameter) against {bytes_d / 1e9:.3f} GB ({bytes_d / n_params:.3f}), "
+        f"{n_params / 1e9:.4f} B trained parameters")
+    del e
+    return launches_d
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2270,6 +2725,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train_steps()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_entry = run_train_entry()
     own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS},
                 **{n: packed for n in PACKED_KERNELS}, **{n: entry for n in ENTRY_KERNELS}}
     for row in rows:
@@ -2277,7 +2735,9 @@ def main() -> int:
         counter = ROW_COUNTER.get(name, name)
         row["launches"] = own_path.get(name, requests)[name]
         for label, counts in (("requests", requests), ("opt_in", opt_in), ("packed", packed),
-                              ("entry_points", entry), ("eval", evaluation), ("train", train)):
+                              ("entry_points", entry), ("eval", evaluation), ("train", train),
+                              ("train_entry", train_entry["lora"]),
+                              ("train_full", train_entry["full"])):
             row[f"launches_{label}"] = counts.get(name, counts[counter])
 
     print(json.dumps({"kernels": rows}))

@@ -12,8 +12,8 @@ against the JAX package's, on the CPU in fp32:
 - ``calculate_motion_precision`` / ``get_moved_area_mask`` on seeded frames
   equal to JAX's, with and without JAX's native helper;
 - the sample, its sidecar and the mask written under JAX's names;
-- LoRA, PAB and the training loop (no ``--eval``) raise, and so does a run
-  asked for on a card that is absent.
+- PAB raises, and so does a run (eval or training) asked for on a card
+  that is absent.
 """
 
 import functools
@@ -134,14 +134,15 @@ def test_moved_area_mask_and_motion_precision_match_jax_numpy_path(seed, monkeyp
 
     frames, mask = _moving_frames(seed), _precision_mask(_moving_frames(seed))
     for move_th, th in ((5.0, -1.0), (20, 0), (20, 30)):
-        got = motion.get_moved_area_mask(frames, move_th=move_th, th=th)
+        got = motion.get_moved_area_mask(frames, move_th=move_th, th=th, use_native=False)
         want = jax_motion.get_moved_area_mask(frames, move_th=move_th, th=th, use_native=False)
         assert got.dtype == np.uint8
         np.testing.assert_array_equal(got, want)
+    for module in (motion, jax_motion):
+        monkeypatch.setattr(module, "get_moved_area_mask", functools.partial(
+            module.get_moved_area_mask, use_native=False))
     precision = motion.calculate_motion_precision(frames, mask)
     assert 0.0 < precision < 1.0
-    monkeypatch.setattr(jax_motion, "get_moved_area_mask", functools.partial(
-        jax_motion.get_moved_area_mask, use_native=False))
     assert precision == jax_motion.calculate_motion_precision(frames, mask)
     still = np.repeat(frames[:1], 4, axis=0)
     assert motion.calculate_motion_precision(still, mask) == 1.0
@@ -169,22 +170,27 @@ def test_moved_area_mask_and_motion_precision_match_jax_native_path(seed):
 
 def test_moved_area_mask_at_a_threshold_tie_follows_jax_numpy_path():
     """A gray step of exactly 5 from sums 100 → 85: fp64 reads 5.000000000000004
-    (moved), fp32 4.999998 (not moved). JAX's numpy path and the port say
-    moved; JAX's native helper, where built, says not (ROADMAP queue 3)."""
+    (moved), fp32 4.999998 (not moved). JAX's numpy path and the port's say
+    moved; JAX's native helper and the port's copy of it, where built, say
+    not (ROADMAP queue 3)."""
     from animate_anything_tpu.data import native
     from animate_anything_tpu.metrics import motion as jax_motion
+    from animate_anything_tpu_torch.data import native as port_native
     from animate_anything_tpu_torch.metrics import motion
 
     frames = np.zeros((2, 5, 5, 3), np.uint8)
     frames[0, 2, 2] = (34, 33, 33)
     frames[1, 2, 2] = (29, 28, 28)
-    got = motion.get_moved_area_mask(frames, move_th=5.0, th=0)
+    got = motion.get_moved_area_mask(frames, move_th=5.0, th=0, use_native=False)
     np.testing.assert_array_equal(
         got, jax_motion.get_moved_area_mask(frames, move_th=5.0, th=0, use_native=False))
     assert (got == 255).all()
     helper = native.moved_area_mask(frames, 5.0, 0)
     if helper is not None:
         assert (helper == 0).all()
+    assert port_native.available()
+    np.testing.assert_array_equal(motion.get_moved_area_mask(frames, move_th=5.0, th=0),
+                                  np.zeros((5, 5), np.uint8))
 
 
 def test_main_eval_writes_the_files_jax_writes(jax_eval, port_eval):
@@ -205,9 +211,7 @@ def test_main_eval_writes_the_files_jax_writes(jax_eval, port_eval):
             np.testing.assert_array_equal(np.asarray(mask), np.asarray(want_mask))
 
 
-@pytest.mark.parametrize("key,value,item", [("lora_path", "adapter.safetensors", "B, item 6"),
-                                            ("lora_text_path", "t.safetensors", "B, item 6"),
-                                            ("pab", {"spatial_rate": 2}, "E, item 17")])
+@pytest.mark.parametrize("key,value,item", [("pab", {"spatial_rate": 2}, "E, item 17")])
 def test_main_eval_refuses_what_is_not_ported(tmp_path, key, value, item):
     from animate_anything_tpu_torch.cli import main_eval
     from animate_anything_tpu_torch.core.config import load_config
@@ -224,8 +228,11 @@ def test_cli_eval_runs_and_training_raises(tmp_path, capsys):
          "validation_data.num_inference_steps=2"])
     assert "latent_motion_score" in capsys.readouterr().out
     assert os.path.isfile(tmp_path / "samples" / "step_0.gif")
-    with pytest.raises(ValueError, match="B, item 10"):
-        cli(["--config", CONFIG, f"output_dir={tmp_path}"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli(["--config", CONFIG, f"output_dir={tmp_path / 'train'}"])
+    assert not os.path.exists(tmp_path / "train")
 
 
 def test_main_eval_needs_the_card_unless_asked_for_the_cpu(tmp_path):
