@@ -53,10 +53,13 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """Self-attention, causal in the text tower (``models/clip_vision.py``
+    builds it with ``causal=False``)."""
+
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         h = cfg.hidden_size
-        self.heads = cfg.num_heads
+        self.heads, self.causal = cfg.num_heads, causal
         self.q_proj, self.k_proj, self.v_proj = Linear(h, h), Linear(h, h), Linear(h, h)
         self.out_proj = Linear(h, h)
 
@@ -64,7 +67,8 @@ class CLIPAttention(nn.Module):
         b, s, hid = x.shape
         shape = (b, s, self.heads, hid // self.heads)
         q, k, v = (p(x).reshape(shape) for p in (self.q_proj, self.k_proj, self.v_proj))
-        return self.out_proj(attention(q, k, v, impl="xla", is_causal=True).reshape(b, s, hid))
+        o = attention(q, k, v, impl="xla", is_causal=self.causal)
+        return self.out_proj(o.reshape(b, s, hid))
 
 
 class CLIPMLP(nn.Module):
@@ -79,10 +83,10 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.self_attn = CLIPAttention(cfg)
+        self.self_attn = CLIPAttention(cfg, causal)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.mlp = CLIPMLP(cfg)
 

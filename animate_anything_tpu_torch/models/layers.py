@@ -107,13 +107,15 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
 
 class TimestepEmbedding(nn.Module):
     """MLP over the sinusoidal embedding, with the optional condition
-    projection that carries motion strength."""
+    projection that carries motion strength; ``out_dim`` (default
+    ``time_embed_dim``) is linear_2's width, as diffusers' ``out_dim``."""
 
-    def __init__(self, in_dim: int, time_embed_dim: int, cond_proj_dim: Optional[int] = None):
+    def __init__(self, in_dim: int, time_embed_dim: int, cond_proj_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None):
         super().__init__()
         self.cond_proj = Linear(cond_proj_dim, in_dim, bias=False) if cond_proj_dim else None
         self.linear_1 = Linear(in_dim, time_embed_dim)
-        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor, condition: Optional[torch.Tensor] = None):
         if condition is not None:

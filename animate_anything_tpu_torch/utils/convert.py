@@ -1,12 +1,14 @@
 """Weight carry-over from the JAX package, and the flax initialisers in torch.
 
-``unet3d_state_dict`` / ``vae_state_dict`` / ``clip_text_state_dict`` take
-the JAX package's param trees (nested dicts of numpy-convertible arrays,
-optionally under ``"params"``) and return the port's state dicts in the
-diffusers / HF key layout. They are a numpy-only copy of
+``unet3d_state_dict`` / ``vae_state_dict`` / ``clip_text_state_dict`` /
+``svd_unet_state_dict`` / ``clip_vision_state_dict`` take the JAX package's
+param trees (nested dicts of numpy-convertible arrays, optionally under
+``"params"``) and return the port's state dicts in the diffusers / HF key
+layout. They are a numpy-only copy of
 ``animate_anything_tpu/utils/import_torch.py`` (``_flatten_tree``,
 ``_unflatten_lists``, ``_export_tensor``, ``export_unet3d``, ``export_vae``,
-``export_clip_text``), so this module needs no JAX.
+``export_clip_text``, ``export_svd_unet``; CLIP vision is the inverse of its
+``_rename_clip_vision``), so this module needs no JAX.
 
 ``load_state_dict`` reads a torch state dict from a weight file or a
 diffusers model directory, and ``checkpoint_state_dict`` fits one to the
@@ -14,11 +16,12 @@ port's modules (the keys that no forward reads dropped, the conv_in →
 conv_in2 surgery of ``expand_conv_in_channels``), the keys otherwise kept
 as they are: the port's modules carry diffusers names.
 
-``init_unet3d_`` / ``init_vae_`` / ``init_clip_text_`` draw fresh weights the
-way the flax modules initialise theirs (lecun-normal kernels, zero biases,
-unit norm scales, the zero-initialised last temporal conv, normal
-embeddings), from an explicit ``torch.Generator``; the machine with the card
-has no JAX.
+``init_unet3d_`` / ``init_vae_`` / ``init_clip_text_`` / ``init_svd_unet_`` /
+``init_clip_vision_`` draw fresh weights the way the flax modules initialise
+theirs (lecun-normal kernels, zero biases, unit norm scales, the
+zero-initialised last temporal conv, normal embeddings, the SVD mixers'
+0.5), from an explicit ``torch.Generator``; the machine with the card has no
+JAX.
 """
 
 from __future__ import annotations
@@ -143,6 +146,49 @@ def clip_flax_path(name: str, ndim: int) -> str:
     elif k.endswith(".weight"):
         k = k[: -len(".weight")] + (".kernel" if ndim >= 2 else ".scale")
     return re.sub(rf"\b({_LIST_ATTRS})\.(\d+)", r"\1_\2", k)
+
+
+def svd_unet_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetSpatioTemporalConditionModel`` params → the port's state
+    dict (JAX's ``export_svd_unet``): the temporal resnets' (3, 1, I, O)
+    kernels become (O, I, 3, 1, 1), ``time_mixer_N`` collapses to
+    ``time_mixer``, ``ff_in`` and ``ff`` take diffusers' ``net.N`` names."""
+    tree = params.get("params", params)
+    out = {}
+    for key, w in _flatten_tree(tree).items():
+        k = re.sub(r"^(down|up)_blocks_(\d+)_(resnets|attentions)_(\d+)\.",
+                   r"\1_blocks.\2.\3.\4.", key)
+        k = re.sub(r"^down_blocks_(\d+)_downsample\.conv\.",
+                   r"down_blocks.\1.downsamplers.0.conv.", k)
+        k = re.sub(r"^up_blocks_(\d+)_upsample\.conv\.", r"up_blocks.\1.upsamplers.0.conv.", k)
+        k = re.sub(r"^mid_resnets_(\d+)\.", r"mid_block.resnets.\1.", k)
+        k = re.sub(r"^mid_attentions_(\d+)\.", r"mid_block.attentions.\1.", k)
+        k = re.sub(r"\b(temporal_)?transformer_blocks_(\d+)\b", r"\1transformer_blocks.\2", k)
+        k = re.sub(r"\btime_mixer_(\d+)\b", r"time_mixer", k)
+        k = k.replace(".to_out_0.", ".to_out.0.")
+        k = re.sub(r"\.(ff|ff_in)\.net_0_proj\.", r".\1.net.0.proj.", k)
+        k = re.sub(r"\.(ff|ff_in)\.net_2\.", r".\1.net.2.", k)
+        k, w = _export_tensor(k, np.asarray(w), ".temporal_res_block." in "." + key)
+        out[k] = _to_torch(w)
+    return out
+
+
+def clip_vision_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPVisionModelWithProjection`` params → the port's state dict
+    (HF ``CLIPVisionModelWithProjection`` keys; the inverse of JAX's
+    ``_rename_clip_vision``)."""
+    tree = params.get("params", params)
+    out = {}
+    for key, w in _flatten_tree(tree).items():
+        k = _unflatten_lists(key)
+        k = re.sub(r"^layers\.", "encoder.layers.", k)
+        k = re.sub(r"\.([qkv]_proj|out_proj)\.", r".self_attn.\1.", k)
+        k = k.replace(".fc1.", ".mlp.fc1.").replace(".fc2.", ".mlp.fc2.")
+        if k.startswith(("class_embedding", "patch_embedding.", "position_embedding.")):
+            k = "embeddings." + k
+        k, w = _export_tensor(k, np.asarray(w), False)
+        out[k if k.startswith("visual_projection.") else "vision_model." + k] = _to_torch(w)
+    return out
 
 
 def vae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -274,6 +320,38 @@ def init_unet3d_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
 
 def init_vae_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     _init_flax_(module, generator)
+    return module
+
+
+@torch.no_grad()
+def init_svd_unet_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw the SVD UNet's weights as the flax modules do; every
+    ``AlphaBlender.mix_factor`` starts at 0.5 (an even mix)."""
+    _init_flax_(module, generator)
+    for name, p in module.named_parameters():
+        if name.endswith("mix_factor"):
+            p.fill_(0.5)
+    return module
+
+
+@torch.no_grad()
+def init_clip_vision_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw the CLIP vision tower's weights as the flax modules do: the
+    class embedding N(0, 0.02²), the position table by ``nn.Embed``'s
+    default N(0, 1/hidden), lecun-normal kernels (the patch conv's fan-in
+    p·p·3), zero biases, unit LayerNorm scales."""
+    for name, p in module.named_parameters():
+        if name.endswith("class_embedding"):
+            p.copy_(0.02 * torch.randn(p.shape, generator=generator, device=p.device))
+        elif name.endswith("position_embedding.weight"):
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
+                    / math.sqrt(p.shape[1]))
+        elif name.endswith(".bias"):
+            p.zero_()
+        elif p.ndim == 1:
+            p.fill_(1.0)
+        else:
+            _lecun_normal_(p, p[0].numel(), generator)
     return module
 
 

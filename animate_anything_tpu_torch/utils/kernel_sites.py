@@ -1,9 +1,10 @@
 """The sites of kernels 8, 4 and 6 in one CFG forward of the full-width
 UNet in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents),
-and of kernel 7 in the SD VAE's 512 px image encode and 16-frame decode,
-with their launch counts. ``chip_smoke.py`` checks and times the kernels at
-these sites and sums them by the counts; the plan tests hold the launch
-plans to them.
+of kernel 7 in the SD VAE's 512 px image encode and 16-frame decode, and of
+kernels 1, 2, 3 and 5 in one CFG forward of the full-width SVD UNet under
+``attn_impl="pallas"``, with their launch counts. ``chip_smoke.py`` checks
+and times the kernels at these sites and sums them by the counts; the plan
+tests hold the launch plans to them.
 """
 
 from __future__ import annotations
@@ -65,3 +66,25 @@ STREAM_GN_DECODE_SITES = (
 # spatial self-attention levels, (b, s, c, heads) of a CFG forward's 34
 # frames; no model path of the JAX package or the port calls kernel 11.
 LN_QKV_SITES = ((34, 4096, 320, 5), (34, 1024, 640, 10), (34, 256, 1280, 20))
+
+# The SVD UNet (``models/svd_unet.py``), one CFG forward under "pallas":
+# b = 2, 14 frames at 64×64 latents, so b·f = 28; head dim 64 everywhere.
+# Transformers: 5 at each of the levels s = 4096 / 1024 / 256 (two down,
+# three up) and 1 in the mid block (s = 64); resnets: 5 at each of those
+# three levels and 7 at s = 64 (two down, two mid, three up).
+SVD_BF = 28
+SVD_FRAMES = 14
+# Kernel 1: (s, heads, calls): the spatial self-attention where s ≥ 128
+# (the mid block's s = 64 runs the plain path, as in JAX); 15 a forward.
+SVD_FLASH_SITES = ((4096, 5, 5), (1024, 10, 5), (256, 20, 5))
+# Kernel 2: (n rows, c, calls): the spatial block's tail and the temporal
+# block's ff_in and ff, 3 a transformer; 48 a forward.
+SVD_GEGLU_SITES = ((SVD_BF * 4096, 320, 15), (SVD_BF * 1024, 640, 15),
+                   (SVD_BF * 256, 1280, 15), (SVD_BF * 64, 1280, 3))
+# Kernel 3: (s, c, calls) at (b, f) = (2, 14), stage 1 and stage 2 (with
+# the residual) of every temporal resnet, GroupNorm eps 1e-6; 44 a forward.
+SVD_TAP_SITES = ((4096, 320, 10), (1024, 640, 10), (256, 1280, 10), (64, 1280, 14))
+# Kernel 5: (s, c, heads, calls) at (b, f) = (2, 14), the temporal block's
+# norm1 + attn1; 16 a forward.
+SVD_BLOCK_SITES = ((4096, 320, 5, 5), (1024, 640, 10, 5), (256, 1280, 20, 5),
+                   (64, 1280, 20, 1))

@@ -1,6 +1,6 @@
 """Device-time profile of the port's main path on one CUDA device.
 
-    python -m animate_anything_tpu_torch.utils.profiling [--opt-in | --attn-impl IMPL]
+    python -m animate_anything_tpu_torch.utils.profiling [--opt-in | --attn-impl IMPL | --svd]
 
 Builds the full-width mask+motion UNet, the SD VAE and the CLIP text encoder
 in bf16 from a seeded generator, as ``chip_smoke.py`` does, then profiles
@@ -14,7 +14,8 @@ median of three calls), the device kernel time, the device idle share (1 −
 kernel time / wall time; one stream, so kernels do not overlap), the kernel
 time by group, the largest kernels, and the host's self time in the
 profiled call by operation (inflated by the profiler's own cost; read it as
-shares). The last line is one JSON object with those numbers.
+shares). The first line is the card's name and power limit, the last one
+JSON object with those numbers.
 
 ``--opt-in`` (``profile_opt_in``) profiles instead one CFG UNet forward and
 one 16-frame VAE decode in the JAX package's opt-in GroupNorm and resnet-conv
@@ -24,6 +25,13 @@ in the default configuration.
 ``--attn-impl packed`` (or ``xla``; ``profile_attn_impl``) profiles one CFG
 UNet forward with the same weights under ``UNet3DConfig(attn_impl=IMPL)``,
 beside the same forward in the default ``"pallas"`` configuration.
+
+``--svd`` (``profile_svd``) profiles the SVD serving path instead, as
+``cli_svd.build_svd_models`` builds it for ``configs/train_svd_mask.yaml``
+(9 channels, ``attn_impl="pallas"``, bf16, seeded random weights): one CFG
+forward of the spatio-temporal UNet (batch 2 × 14 frames at 64×64 latents,
+the first profile of the process), one 14-frame VAE decode in chunks of 7
+and one CLIP vision encode.
 """
 
 from __future__ import annotations
@@ -137,7 +145,13 @@ def _report(name: str, prof: Dict) -> None:
 
 
 def _report_all(profiles) -> None:
-    """Print each ``(name, fn)``'s profile, then all of them as one JSON line."""
+    """Print the card's name and power limit, each ``(name, fn)``'s profile,
+    then all of them as one JSON line."""
+    import subprocess
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0], flush=True)
     out = {}
     for name, fn in profiles:
         out[name] = device_profile(fn)
@@ -240,6 +254,44 @@ def profile_attn_impl(impl: str, seed: int = 0) -> int:
     return 0
 
 
+def profile_svd(seed: int = 0) -> int:
+    """One SVD CFG UNet forward, one 14-frame VAE decode (chunks of 7) and
+    one CLIP vision encode at the full-width SVD configuration."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
+    from animate_anything_tpu_torch.cli_svd import build_svd_models
+    from animate_anything_tpu_torch.models.vae import decode_video
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = build_svd_models(motion_mask=True, compute_dtype=torch.bfloat16, seed=seed,
+                         attn_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, 14, 64, 64, 9, generator=gen, device="cuda")
+    emb = torch.randn(2, 1, 1024, generator=gen, device="cuda")
+    emb[0] = 0.0
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device="cuda")
+    t = torch.tensor(0.25 * 2.302585, device="cuda")
+    z = torch.randn(1, 14, 64, 64, 4, generator=gen, device="cuda")
+    px = torch.randn(1, 224, 224, 3, generator=gen, device="cuda")
+
+    @torch.no_grad()
+    def unet_forward():
+        return m["unet"](x, t, emb, ids)
+
+    @torch.no_grad()
+    def vae_decode():
+        return decode_video(m["vae"], z, chunk_size=7)
+
+    @torch.no_grad()
+    def clip_encode():
+        return m["image_encoder"](px)
+
+    _report_all((("svd_unet_cfg_forward_14f", unet_forward), ("vae_decode_14f_chunk7", vae_decode),
+                 ("clip_vision_encode_1x224", clip_encode)))
+    return 0
+
+
 def main(seed: int = 0) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
@@ -274,4 +326,6 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     if "--attn-impl" in argv:
         raise SystemExit(profile_attn_impl(argv[argv.index("--attn-impl") + 1]))
+    if "--svd" in argv:
+        raise SystemExit(profile_svd())
     raise SystemExit(profile_opt_in() if "--opt-in" in argv else main())

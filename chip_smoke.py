@@ -37,13 +37,19 @@
    64, called twice (bit for bit, the channels_last weight read in place);
    the projection + residual + sums (kernel 4) at its five sites beside its
    bf16 composite and its profiled device time, summed likewise, and at
-   ragged s, called twice; times one temporal
+   ragged s, called twice; then kernels 1, 2, 3 and 5 at the SVD UNet's
+   sites (``check_svd_sites``: b·f = 28, 14 frames; kernel 3 on the
+   GroupNorm fold at eps 1e-6, with and without the residual), each called
+   twice and timed beside its bound, summed over an SVD CFG forward by the
+   sites' counts; times one temporal
    transformer per width on its fused path (kernel 5 + kernel 2) against
    the composite path;
 4. runs a small UNet on the card through the kernels (every temporal site on
    the fused path) and holds it against the same weights through the plain
    versions on the CPU: its forward, then one training loss and its
-   backward with gradient checkpointing (every parameter's gradient);
+   backward with gradient checkpointing (every parameter's gradient); and a
+   small SVD UNet (14 frames, 9 channels) likewise, its forward through
+   kernels 1, 2, 3 and 5;
 5. builds the full-width mask+motion UNet, the SD VAE and the CLIP text
    encoder in bf16 from a seeded generator and answers two 512x512 /
    16-frame image-to-video requests, each an image and a prompt string
@@ -73,12 +79,21 @@
    other. Then one CFG forward of those weights twice on the same inputs,
    and once with every kernel launched twice a call, to show which kernels
    give another result on the same inputs;
-9. trains the same full-width UNet on one
+9. drives the SVD serving path (``run_svd_entry``): ``cli_svd.main_eval``
+   at ``configs/train_svd_mask.yaml`` (9 channels, ``attn_impl: pallas``,
+   512 px, 14 frames, 25 Euler steps, decode chunk 7, bf16, seeded random
+   weights) twice, each launching kernels 1, 2, 3 and 5 exactly 375, 1200,
+   1100 and 400 times and no other, with its build seconds, request seconds
+   and peak memory; one v2v request (``TextStableVideoDiffusionPipeline`` on
+   a synthetic 14-frame video's condition latents) with the same counts; one
+   full-width CFG forward under "pallas" against "xla" on the same weights;
+   then frees those models;
+10. trains the same full-width UNet on one
    512x512 / 16-frame clip (the ``configs/train_mask_motion.yaml`` values):
    the VAE encode and CLIP text inside the step, per-sub-layer gradient
    checkpointing, AdamW on fp32 masters; 1 warm-up step and 3 timed steps,
    which launch none of kernels 6-11;
-10. drives the training entry points of the port (``run_train_entry``) on
+11. drives the training entry points of the port (``run_train_entry``) on
    synthetic clips (frame directories of PNGs written under ``build/``):
    ``train_lora`` at ``configs/train_mask_motion_lora.yaml`` (batch 4, 6
    steps, checkpoints at 3 and 6, the step-5 preview), resumed from its
@@ -87,7 +102,7 @@
    2 steps with the checkpoint and pipeline writes, then 1 step with the
    8-bit AdamW), each launching kernels 1-5 and the flash backward and no
    other (the eval: kernels 1-5);
-11. checks that every kernel was launched on each path that runs it, prints
+12. checks that every kernel was launched on each path that runs it, prints
    one JSON line with the kernels' numbers (``launches``: the count on the
    path of the slice that brought the kernel in, the requests for kernels
    1-5, the training steps for the flash backward, the opt-in request for
@@ -96,10 +111,13 @@
    1, the add with its sums, kernel 10, and LayerNorm -> q/k/v -> attention,
    kernels 11 and 1) the run of those entry points at full width;
    ``launches_requests``, ``launches_opt_in``, ``launches_packed``,
-   ``launches_entry_points``, ``launches_eval``, ``launches_train``,
+   ``launches_entry_points``, ``launches_eval``, ``launches_svd`` (the
+   first SVD ``main_eval``), ``launches_train``,
    ``launches_train_entry`` (the LoRA run with its preview) and
-   ``launches_train_full`` (the full finetune at its YAML) each path's),
-   and last the device line.
+   ``launches_train_full`` (the full finetune at its YAML) each path's;
+   for kernels 1, 2, 3 and 5 their SVD sites' ``svd_ms``, ``svd_plain_ms``,
+   ``svd_bound_ms``, ``svd_forward_ms`` and ``svd_forward_bound_ms``), and
+   last the device line.
 
 Steps 3 and 4 also check kernel 9 against its plain version at the packed
 configuration's frame-attention shapes (summed over a packed CFG forward by
@@ -1369,6 +1387,122 @@ def check_kernels(seed: int = 0) -> list[dict]:
     return rows
 
 
+def _svd_site(tally, tag, err, ms, plain, flop, nbytes, calls, forward, library=None):
+    """One SVD site's numbers into ``tally`` and, times its calls in a CFG
+    forward, into ``forward`` (kernel ms and bound ms)."""
+    tally.add(tag, err, ms, plain, flop, nbytes, library)
+    forward["ms"] += calls * ms
+    forward["bound_ms"] += calls * max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+
+
+def check_svd_sites(gen, rows: list[dict]) -> None:
+    """Kernels 1, 2, 3 and 5 at the SVD UNet's sites (``utils/kernel_sites.
+    SVD_*_SITES``: b·f = 28, 14 frames), each against its plain version,
+    called twice (kernels 1, 2, 5 and kernel 3's y bit for bit, kernel 3's
+    sums within ``ATOMIC_SUM_RTOL``), timed by CUDA events beside its bound;
+    kernel 3 on the GroupNorm fold at eps 1e-6, with and without the
+    residual. Adds to each kernel's row ``svd_ms``, ``svd_plain_ms``,
+    ``svd_bound_ms`` (summed over the sites) and ``svd_forward_ms``,
+    ``svd_forward_bound_ms`` (summed over a CFG forward by the sites'
+    counts); ``svd_library_ms`` for kernel 1 (SDPA)."""
+    from animate_anything_tpu_torch.ops import flash_attention as fa
+    from animate_anything_tpu_torch.ops import geglu
+    from animate_anything_tpu_torch.ops import temporal_block as tb
+    from animate_anything_tpu_torch.ops import temporal_conv as tc
+    from animate_anything_tpu_torch.ops.group_norm import group_affine
+    from animate_anything_tpu_torch.utils.kernel_sites import (SVD_BF, SVD_BLOCK_SITES,
+                                                               SVD_FLASH_SITES, SVD_FRAMES,
+                                                               SVD_GEGLU_SITES, SVD_TAP_SITES)
+
+    by_name = {row["name"]: row for row in rows}
+    log("SVD sites (b·f = 28, 14 frames; kernel vs plain version, bf16 inputs):")
+
+    def finish(name, tally, forward):
+        row, t = by_name[name], tally.row
+        row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+        row.update(svd_ms=t["ms"], svd_plain_ms=t["plain_ms"], svd_bound_ms=t["bound_ms"],
+                   svd_forward_ms=forward["ms"], svd_forward_bound_ms=forward["bound_ms"])
+        if t["library_ms"] is not None:
+            row["svd_library_ms"] = t["library_ms"]
+        log(f"  {name}: a CFG forward's SVD sites {forward['ms']:.3f} ms, bound "
+            f"{forward['bound_ms']:.3f} ms")
+
+    tally, fwd = Tally("flash_attention", "", ""), {"ms": 0.0, "bound_ms": 0.0}
+    for s, h, calls in SVD_FLASH_SITES:
+        q, k, v = (torch.randn(SVD_BF, s, h, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        tag = f"flash_attention b={SVD_BF} s={s} h={h} d=64 (SVD)"
+        got, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        err = max(_assert_attention(f"{tag} samples {sl.start}-{sl.stop - 1}", got[sl],
+                                    fa.attention_reference(q[sl], k[sl], v[sl]))
+                  for sl in _first_and_last(SVD_BF))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+        plain = cuda_ms(lambda: [fa.attention_reference(q[i:i + 2], k[i:i + 2], v[i:i + 2])
+                                 for i in range(0, SVD_BF, 2)], warmup=1, iters=2)
+        library = cuda_ms(lambda: _sdpa(q, k, v))
+        _svd_site(tally, tag, err, ms, plain, 4 * SVD_BF * h * s * s * 64,
+                  4 * SVD_BF * s * h * 64 * 2, calls, fwd, library)
+        del q, k, v, got, again
+        torch.cuda.empty_cache()
+    finish("flash_attention", tally, fwd)
+
+    tally, fwd = Tally("ln_geglu_ff", "", ""), {"ms": 0.0, "bound_ms": 0.0}
+    for n, c, calls in SVD_GEGLU_SITES:
+        args = _geglu_args(gen, n, c)
+        tag = f"ln_geglu_ff n={n} c={c} (SVD)"
+        got, again = geglu.ln_geglu_ff(*args), geglu.ln_geglu_ff(*args)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        want = geglu.ln_geglu_reference(*args, 1e-5)
+        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        ms = cuda_ms(lambda: geglu.ln_geglu_ff(*args))
+        plain = cuda_ms(lambda: geglu.ln_geglu_reference(*args, 1e-5), warmup=1, iters=3)
+        nbytes = 2 * n * c * 2 + 12 * c * c * 2 + (8 * c + 3 * c) * 4
+        _svd_site(tally, tag, _err(got, want), ms, plain, 24 * n * c * c, nbytes, calls, fwd)
+        del args, got, again, want
+        torch.cuda.empty_cache()
+    finish("ln_geglu_ff", tally, fwd)
+
+    tally, fwd = Tally("tap_conv", "", ""), {"ms": 0.0, "bound_ms": 0.0}
+    bsz, f = 2, SVD_FRAMES
+    for s, c, calls in SVD_TAP_SITES:
+        x, _, _, w, bias, res = _tap_conv_args(gen, bsz, f, s, c, c)
+        gn_s = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        gn_b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        a, b = group_affine(x.reshape(bsz, f * s, c), gn_s, gn_b, 32, 1e-6)
+        tag = f"tap_conv bsz={bsz} f={f} s={s} c={c} eps=1e-6 (SVD)"
+        err = max(_tap_conv_case(f"{tag} residual={r is not None}", x, a, b, w, bias, r)
+                  for r in (None, res))
+        # a CFG forward runs half its calls with the residual, half without
+        ms = sum(cuda_ms(lambda r=r: tc.tap_conv(x, a, b, w, bias, r)) for r in (None, res)) / 2
+        plain = cuda_ms(lambda: tc.tap_conv_reference(x, a, b, w, bias, res), warmup=1, iters=3)
+        rows_ = bsz * f * s
+        nbytes = 2.5 * rows_ * c * 2 + 3 * c * c * 2 + 2 * bsz * f * c * 4
+        _svd_site(tally, tag, err, ms, plain, 2 * bsz * s * (3 * f - 2) * c * c, nbytes, calls,
+                  fwd)
+        del x, res
+        torch.cuda.empty_cache()
+    finish("tap_conv", tally, fwd)
+
+    tally, fwd = Tally("temporal_block", "", ""), {"ms": 0.0, "bound_ms": 0.0}
+    for s, c, heads, calls in SVD_BLOCK_SITES:
+        args = _temporal_block_args(gen, 2, SVD_FRAMES, s, c)
+        tag = f"temporal_block b=2 f={SVD_FRAMES} s={s} c={c} heads={heads} (SVD)"
+        err = _temporal_block_case(tag, args, heads)
+        ms = cuda_ms(lambda: tb.temporal_block(*args, heads=heads))
+        plain = cuda_ms(lambda: tb.temporal_block_reference(*args, heads=heads), warmup=1,
+                        iters=3)
+        rows_ = 2 * SVD_FRAMES * s
+        flop = 8 * rows_ * c * c + 4 * 2 * s * heads * SVD_FRAMES * SVD_FRAMES * 64
+        nbytes = 2 * rows_ * c * 2 + 4 * c * c * 2 + 3 * c * 4
+        _svd_site(tally, tag, err, ms, plain, flop, nbytes, calls, fwd)
+        del args
+        torch.cuda.empty_cache()
+    finish("temporal_block", tally, fwd)
+
+
 def kernel_counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
     from animate_anything_tpu_torch.ops import (add_stats, flash_attention, geglu, group_norm,
@@ -2194,6 +2328,256 @@ def run_eval_entry() -> dict:
     return launches
 
 
+SVD_KERNELS = ("flash_attention", "ln_geglu_ff", "tap_conv", "temporal_block")
+SVD_CONFIG_PATH = "configs/train_svd_mask.yaml"
+# One full-width SVD CFG forward under "pallas" against "xla" on the same
+# weights and inputs: they differ in the feed-forwards' GELU (tanh in kernel
+# 2, exact erf in the composite) and in where bf16 rounds (the kernels' fp32
+# epilogues against the composite's bf16 steps), carried through ~150
+# layers; held as a relative RMS, as the packed forward against "xla".
+SVD_PALLAS_VS_XLA_REL_RMS = 5e-2
+
+
+def _svd_counts_per_request(steps: int) -> dict:
+    """Each SVD kernel's launches in a request of ``steps`` CFG forwards."""
+    from animate_anything_tpu_torch.utils.kernel_sites import (SVD_BLOCK_SITES,
+                                                               SVD_FLASH_SITES,
+                                                               SVD_GEGLU_SITES, SVD_TAP_SITES)
+
+    per = {"flash_attention": sum(k for *_, k in SVD_FLASH_SITES),
+           "ln_geglu_ff": sum(k for *_, k in SVD_GEGLU_SITES),
+           "tap_conv": sum(k for *_, k in SVD_TAP_SITES),
+           "temporal_block": sum(k for *_, k in SVD_BLOCK_SITES)}
+    return {name: steps * k for name, k in per.items()}
+
+
+def require_svd_counts(path: str, counts: dict, steps: int) -> None:
+    """``path`` launched kernels 1, 2, 3 and 5 exactly ``steps`` CFG
+    forwards' worth (15, 48, 44 and 16 a forward) and no other."""
+    require_only(path, counts, SVD_KERNELS)
+    want = _svd_counts_per_request(steps)
+    got = {name: counts[name] for name in SVD_KERNELS}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def check_small_svd_unet(seed: int = 0) -> float:
+    """A small SVD UNet (head dim 32, 16×16 latents so the spatial
+    self-attention runs flash at s = 256, 14 frames, 9 channels, CFG's two
+    contexts) in bf16 on the card through kernels 1, 2, 3 and 5, held
+    against the same weights in fp32 on the CPU through the plain versions
+    (``SMALL_REL_RMS``)."""
+    from animate_anything_tpu_torch.core.dtypes import cast_module_
+    from animate_anything_tpu_torch.models.svd_unet import (SVDUNetConfig,
+                                                            UNetSpatioTemporalConditionModel)
+    from animate_anything_tpu_torch.utils.convert import init_svd_unet_
+
+    cfg = SVDUNetConfig.tiny(in_channels=9, num_attention_heads=(1, 2, 2, 2), attn_impl="pallas")
+    ref = UNetSpatioTemporalConditionModel(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    init_svd_unet_(ref, gen)
+    ref.eval()
+    b, f, hw = 2, 14, 16
+    sample = torch.randn(b, f, hw, hw, 9, generator=gen)
+    ctx = torch.randn(b, 1, cfg.cross_attention_dim, generator=gen)
+    ctx[0] = 0.0
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * b)
+    t = torch.tensor(0.25 * 2.3)
+    with torch.no_grad():
+        want = ref(sample, t, ctx, ids)
+        gpu = cast_module_(ref.to("cuda"))
+        reset_counts()
+        got = gpu(sample.cuda(), t.cuda(), ctx.cuda(), ids.cuda()).float().cpu()
+        torch.cuda.synchronize()
+    launches = read_counts()
+    path = "small SVD UNet forward (attn_impl='pallas', 14 frames)"
+    require_only(path, launches, SVD_KERNELS)
+    if not torch.isfinite(got).all():
+        raise AssertionError("small SVD UNet: non-finite output on the card")
+    rel = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
+    log(f"{path}, card (kernels, bf16) vs CPU (plain, fp32): relative RMS {rel:.4g} (limit "
+        f"{SMALL_REL_RMS}); launches {launches}")
+    if rel > SMALL_REL_RMS:
+        raise AssertionError(f"small SVD UNet disagrees with its CPU reference: {rel:.4g}")
+    return rel
+
+
+@contextlib.contextmanager
+def _captured_svd():
+    """Record each SVD pipeline call's (video, latents) on the host and its
+    seconds, and each ``cli_svd.build_svd_models`` call's seconds and
+    models, each ended by a device sync."""
+    from animate_anything_tpu_torch import cli_svd
+    from animate_anything_tpu_torch.pipelines.svd import MaskStableVideoDiffusionPipeline
+
+    seen = {"requests": [], "build": [], "models": []}
+    orig, orig_build = MaskStableVideoDiffusionPipeline.__call__, cli_svd.build_svd_models
+
+    def recorded(self, *args, **kw):
+        t0 = time.perf_counter()
+        video, latents = orig(self, *args, **kw)
+        torch.cuda.synchronize()
+        seen["requests"].append((video.float().cpu(), latents.float().cpu(),
+                                 time.perf_counter() - t0))
+        return video, latents
+
+    def timed_build(*args, **kw):
+        t0 = time.perf_counter()
+        models = orig_build(*args, **kw)
+        torch.cuda.synchronize()
+        seen["build"].append(time.perf_counter() - t0)
+        seen["models"].append(models)
+        return models
+
+    MaskStableVideoDiffusionPipeline.__call__, cli_svd.build_svd_models = recorded, timed_build
+    try:
+        yield seen
+    finally:
+        MaskStableVideoDiffusionPipeline.__call__, cli_svd.build_svd_models = orig, orig_build
+
+
+def _svd_run(tag: str, cfg: dict, frames: int, res: int, steps: int,
+             keep_models: bool = False) -> tuple:
+    """``cli_svd.main_eval(**cfg)`` once on the card → (video, launches,
+    the models it built when ``keep_models``, else None)."""
+    import os
+
+    from animate_anything_tpu_torch.cli_svd import main_eval
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _captured_svd() as seen:
+        t0 = time.perf_counter()
+        out = main_eval(**cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (video, latents, request), = seen["requests"]
+    build, = seen["build"]
+    if tuple(video.shape) != (1, frames, res, res, 3):
+        raise AssertionError(f"{tag}: video shape {tuple(video.shape)}")
+    if not torch.isfinite(video).all() or not torch.isfinite(latents).all():
+        raise AssertionError(f"{tag}: non-finite output")
+    if not os.path.isfile(out["sample_path"]):
+        raise AssertionError(f"{tag}: sample {out['sample_path']} not written")
+    log(f"  {tag}: main_eval {dt:.3f} s (the model build {build:.3f} s, the request "
+        f"{request:.3f} s, the gif's write {dt - build - request:.3f} s), peak device memory "
+        f"{peak:.2f} GiB; latents range [{float(latents.min()):.3f}, "
+        f"{float(latents.max()):.3f}], sample {out['sample_path']}")
+    require_svd_counts(tag, launches, steps)
+    return video, launches, seen["models"][0] if keep_models else None
+
+
+def run_svd_entry() -> dict:
+    """The SVD serving path of the port at ``configs/train_svd_mask.yaml``
+    (full width, bf16, attn_impl pallas, 9 channels, 512 px, 14 frames, 25
+    Euler steps, decode chunk 7; random weights from the seed, as JAX's
+    ``build_svd_models`` draws them):
+
+    (a) ``cli_svd.main_eval`` twice: the video finite and of its shape, the
+        gif written, kernels 1, 2, 3 and 5 launched 375, 1200, 1100 and 400
+        times each run and no other; the two videos within ``EVAL_RUN_TO_RUN``;
+    (b) one v2v request on (a)'s weights: ``TextStableVideoDiffusionPipeline``
+        on a synthetic 14-frame video's condition latents, the same counts;
+    (c) one full-width CFG forward of those weights under "pallas" against
+        "xla" (which launches no kernel), within ``SVD_PALLAS_VS_XLA_REL_RMS``.
+
+    Returns each kernel's launch count during (a)'s first run."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from animate_anything_tpu_torch.core.config import load_config
+    from animate_anything_tpu_torch.pipelines.svd import TextStableVideoDiffusionPipeline
+
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="svd_entry_", dir="build")
+    try:
+        cfg = dict(load_config(SVD_CONFIG_PATH).to_dict(), output_dir=os.path.join(work, "out"))
+        vd = cfg["validation_data"]
+        frames, res, steps = int(vd["num_frames"]), int(vd["width"]), int(vd["num_inference_steps"])
+        log(f"SVD entry point: cli_svd.main_eval({SVD_CONFIG_PATH}) with random weights "
+            f"({res}x{res}, {frames} frames, {steps} Euler steps, decode chunk "
+            f"{vd['decode_chunk_size']}, attn_impl {cfg['attn_impl']})")
+        video, launches, _ = _svd_run("main_eval (a)", cfg, frames, res, steps)
+        video2, _, models = _svd_run("main_eval (a), again", cfg, frames, res, steps,
+                                     keep_models=True)
+        # no value of the SVD path reads an atomic sum (kernel 3's Σy, Σy²
+        # go unused there), so the two are expected equal; held to the eval
+        # entry point's bound all the same
+        spread = _err(video2, video)
+        log(f"  run to run: max |diff| {spread:.4g} (limit {EVAL_RUN_TO_RUN}), relative RMS "
+            f"{_rel_rms(video2, video):.3g}")
+        if spread > EVAL_RUN_TO_RUN:
+            raise AssertionError(f"SVD main_eval: two runs {spread:.4g} apart")
+        del video, video2
+
+        pipe = TextStableVideoDiffusionPipeline(models["unet"], models["vae"],
+                                                image_encoder=models["image_encoder"])
+        rng = np.random.default_rng(3)
+        base = rng.integers(0, 256, (res, res, 3)).astype(np.int16)
+        clip = np.stack([np.roll(base, 6 * i, axis=1) for i in range(frames)]).astype(np.uint8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        cond = pipe.video_to_condition_latent(clip)
+        video, latents = pipe(clip[0], condition_latent=cond,
+                              mask=torch.ones(1, 1, res // 8, res // 8, 1, device="cuda"),
+                              num_frames=frames, num_inference_steps=steps,
+                              decode_chunk_size=int(vd["decode_chunk_size"]),
+                              generator=torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        v2v = read_counts()
+        if tuple(video.shape) != (1, frames, res, res, 3) or not torch.isfinite(video).all():
+            raise AssertionError(f"v2v request: video {tuple(video.shape)}, finite "
+                                 f"{bool(torch.isfinite(video).all())}")
+        log(f"  v2v request ({frames}-frame video's condition latents {tuple(cond.shape)}): "
+            f"{dt:.3f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        require_svd_counts("v2v request", v2v, steps)
+        del pipe, video, latents, cond
+
+        # a CFG forward's inputs: 2 × 14 frames at 64×64 latents, a zero and
+        # a random image embedding, the continuous timestep of σ = 10
+        unet = models["unet"]
+        xla = unet.with_attn_impl("xla")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        emb = torch.randn(2, 1, unet.config.cross_attention_dim, generator=gen, device="cuda")
+        emb[0] = 0.0
+        inputs = (torch.randn(2, frames, res // 8, res // 8, unet.config.in_channels,
+                              generator=gen, device="cuda"),
+                  torch.tensor(0.25 * 2.302585, device="cuda"), emb,
+                  torch.tensor([[6.0, 127.0, 0.02]] * 2, device="cuda"))
+        with torch.no_grad():
+            pallas_out = unet(*inputs).float()
+            torch.cuda.synchronize()
+            reset_counts()
+            xla_out = xla(*inputs).float()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        require_not_launched("SVD xla forward", counts, list(counts))
+        if not torch.isfinite(pallas_out).all() or not torch.isfinite(xla_out).all():
+            raise AssertionError("SVD pallas vs xla forward: non-finite output")
+        rel = _rel_rms(pallas_out, xla_out)
+        log(f"  one full-width CFG forward, attn_impl='pallas' vs 'xla' (same weights and "
+            f"inputs): relative RMS {rel:.4g} (limit {SVD_PALLAS_VS_XLA_REL_RMS}), max |diff| "
+            f"{_err(pallas_out, xla_out):.4g}")
+        if rel > SVD_PALLAS_VS_XLA_REL_RMS:
+            raise AssertionError(f"SVD pallas forward disagrees with the xla forward: {rel:.4g}")
+        del unet, xla, models, pallas_out, xla_out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  kernel launches during main_eval (a): {launches}")
+    return launches
+
+
 def make_train_batch(seed: int = 0) -> dict:
     """One 512x512 / 16-frame clip (a random image drifting 4 px a frame),
     a motion mask over half of it, the prompt's ids (hash tokenizer) and the
@@ -2706,6 +3090,7 @@ def main() -> int:
 
     log("kernel checks (kernel vs plain version, bf16 inputs):")
     rows = check_kernels()
+    check_svd_sites(torch.Generator(device="cuda").manual_seed(4), rows)
     check_attention_gates(torch.Generator(device="cuda").manual_seed(5))
     entry = run_entry_points()
     log("temporal transformers, fused vs composite path (bf16, b=2, f=17):")
@@ -2713,6 +3098,7 @@ def main() -> int:
     check_small_unet()
     check_small_unet(attn_impl="packed")
     check_small_unet_grads()
+    check_small_svd_unet()
 
     pipe = build_pipeline()
     requests = run_requests(pipe)
@@ -2722,6 +3108,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     evaluation = run_eval_entry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    svd = run_svd_entry()
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train_steps()
@@ -2735,7 +3124,8 @@ def main() -> int:
         counter = ROW_COUNTER.get(name, name)
         row["launches"] = own_path.get(name, requests)[name]
         for label, counts in (("requests", requests), ("opt_in", opt_in), ("packed", packed),
-                              ("entry_points", entry), ("eval", evaluation), ("train", train),
+                              ("entry_points", entry), ("eval", evaluation), ("svd", svd),
+                              ("train", train),
                               ("train_entry", train_entry["lora"]),
                               ("train_full", train_entry["full"])):
             row[f"launches_{label}"] = counts.get(name, counts[counter])

@@ -45,6 +45,17 @@ def jax_params(module, *args, seed: int = 0):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many tiny CPU ops of a port test: beside
+    the other test workers, a thread pool per op costs more than it
+    computes. Autouse in every module that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x) -> torch.Tensor:
     """numpy / jax array → torch tensor (CPU)."""
     return torch.from_numpy(np.array(x))

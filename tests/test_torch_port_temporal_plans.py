@@ -43,6 +43,9 @@ SMEM = 232448
 TAP_SHAPES = [(2, 17, 4096, 320, 320), (2, 17, 1024, 640, 640), (2, 17, 256, 1280, 1280),
               (2, 17, 64, 1280, 1280), (2, 5, 24, 128, 128), (2, 4, 16, 64, 64),
               (1, 3, 512, 32, 32), (1, 3, 100, 96, 40), (1, 1, 70, 64, 64)]
+# The SVD UNet's four temporal-resnet sites: b = 2 for CFG, 14 frames.
+SVD_TAP_SHAPES = [(2, 14, 4096, 320, 320), (2, 14, 1024, 640, 640), (2, 14, 256, 1280, 1280),
+                  (2, 14, 64, 1280, 1280)]
 
 # (b, f, s, c, heads): the UNet's five temporal-attention sites, JAX's test
 # shapes (tests/test_torch_port_temporal_block.py, tests/test_ops.py) and
@@ -52,11 +55,14 @@ BLOCK_SHAPES = [(2, 17, 4096, 512, 8), (2, 17, 4096, 320, 5), (2, 17, 1024, 640,
                 (2, 17, 120, 64, 8), (2, 4, 9, 64, 2), (2, 5, 12, 256, 4), (2, 48, 51, 80, 2),
                 (1, 33, 20, 144, 2), (1, 128, 5, 256, 2), (1, 20, 33, 512, 2),
                 (1, 8, 16, 2048, 8)]
+# The SVD UNet's four temporal-attention sites (14 frames, head dim 64).
+SVD_BLOCK_SHAPES = [(2, 14, 4096, 320, 5), (2, 14, 1024, 640, 10), (2, 14, 256, 1280, 20),
+                    (2, 14, 64, 1280, 20)]
 
 
 # ---- kernel 3 --------------------------------------------------------------------
 
-@pytest.mark.parametrize("bsz,f,s,cin,cout", TAP_SHAPES)
+@pytest.mark.parametrize("bsz,f,s,cin,cout", TAP_SHAPES + SVD_TAP_SHAPES)
 def test_tap_conv_plan_fits_the_card_and_the_kernel(bsz, f, s, cin, cout):
     from animate_anything_tpu_torch.ops import temporal_conv as tc
 
@@ -84,6 +90,19 @@ def test_tap_conv_plan_at_the_unet_sites():
 
     widths = [tc.launch_plan(*shape, sms=132)["bn"] for shape in TAP_SHAPES[:4]]
     assert widths == [320, 320, 320, 256]
+
+
+def test_tap_conv_plan_at_the_svd_sites():
+    """At 14 frames the same widths as at 17: 320 columns where the tiles
+    fill the card, 256 at s = 64 (56 tiles of 320 or 70 of 256 against 132
+    SMs); every
+    (batch, frame) slab of 4096 rows is 64 whole sub-tiles."""
+    from animate_anything_tpu_torch.ops import temporal_conv as tc
+
+    plans = [tc.launch_plan(*shape, sms=132) for shape in SVD_TAP_SHAPES]
+    assert [p["bn"] for p in plans] == [320, 320, 320, 256]
+    assert [p["subs"] for p in plans] == [28 * 64, 28 * 16, 28 * 4, 28]
+    assert [p["grid"] for p in plans] == [132, 132, 132, 70]
 
 
 @pytest.mark.parametrize("cin,cout", [(16, 64), (48, 64), (0, 64), (64, 4), (64, 12)])
@@ -114,7 +133,7 @@ def test_tap_conv_plan_matches_the_kernel_instantiations():
 
 # ---- kernel 5 --------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,f,s,c,heads", BLOCK_SHAPES)
+@pytest.mark.parametrize("b,f,s,c,heads", BLOCK_SHAPES + SVD_BLOCK_SHAPES)
 def test_temporal_block_plan_fits_the_card_and_the_kernel(b, f, s, c, heads):
     from animate_anything_tpu_torch.ops import geglu
     from animate_anything_tpu_torch.ops import temporal_block as tb
@@ -136,6 +155,21 @@ def test_temporal_block_plan_fits_the_card_and_the_kernel(b, f, s, c, heads):
     assert (plan["bn_out"], plan["stages_out"], plan["grid_out"], plan["smem_out"]) == (
         out["bn"], out["stages"], out["grid"], out["smem"])
     assert plan["smem_out"] <= SMEM and plan["bn_out"] in geglu.OUT_BN
+
+
+def test_temporal_block_plan_at_the_svd_sites():
+    """At 14 frames a row tile holds 9 locations (126 of its 128 rows);
+    no SVD site's s is a multiple of 9, so every site ends on a ragged tile
+    of s mod 9 locations, which the kernel's edge handles as at 17 frames
+    (7 locations a tile there)."""
+    from animate_anything_tpu_torch.ops import temporal_block as tb
+
+    for b, f, s, c, heads in SVD_BLOCK_SHAPES:
+        plan = tb.launch_plan(b, f, s, c, heads, sms=132)
+        assert plan["L"] == 9 and plan["chunks"] == 1
+        assert s % 9 and plan["loc_tiles"] == s // 9 + 1
+        assert plan["items"] == b * plan["loc_tiles"] * heads
+        assert tb.kernel_ok(f, c, heads) and tb.fused_ok(f, c, heads, c // heads)
 
 
 def test_temporal_block_plan_matches_the_kernel():
