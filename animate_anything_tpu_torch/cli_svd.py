@@ -1,8 +1,17 @@
-"""The SVD eval entry point — the port of ``animate_anything_tpu/cli_svd.py``
-(``train_svd.py --eval``):
+"""The SVD entry points — the port of ``animate_anything_tpu/cli_svd.py``
+(``train_svd.py``):
 
     python -m animate_anything_tpu_torch.cli_svd --config configs/train_svd_mask.yaml \
-        --eval [key.subkey=value ...] [--device cpu]
+        [--eval] [key.subkey=value ...] [--device cpu]
+
+``main(**cfg)`` trains the SVD UNet as JAX's ``main`` does: the models with
+``gradient_checkpointing``, the datasets (``extra_train_data``,
+``extend_dataset``) and the loader, the host-side CLIP preprocessing of each
+sample's frame 0, the EDM step of ``train/svd_trainer.py`` on fp32 masters,
+and every ``checkpointing_steps`` steps and at the end the train state
+(``train/checkpoint.save_checkpoint``) and the UNet in the diffusers layout
+(``_save_svd_pipeline``). JAX's ``mesh`` has no counterpart yet: a mesh that
+asks for more than one device raises (ROADMAP queue F).
 
 ``main_eval(**cfg)`` builds the SVD UNet, the VAE and the CLIP vision tower
 with random weights from ``seed`` (JAX's ``build_svd_models`` always draws
@@ -10,15 +19,17 @@ them: the SVD weight import waits for weights in the repository), then
 animates the validation image, or each image of ``eval_file`` ``iters``
 times, through ``MaskStableVideoDiffusionPipeline`` and writes the gifs. A
 missing image is replaced by a seeded random one, a missing ``_label.jpg``
-mask by all ones, as in JAX. It runs on the card unless ``device="cpu"`` is
-passed. Training (``cli_svd.main``) is the next slice of the port.
+mask by all ones, as in JAX. Both run on the card unless ``device="cpu"`` is
+passed.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -26,29 +37,40 @@ import torch
 
 from animate_anything_tpu_torch.core.config import Config, load_config
 from animate_anything_tpu_torch.core.dtypes import COMPUTE_DTYPE, cast_module_, policy_from_string
+from animate_anything_tpu_torch.data import DataLoader, device_prefetch
+from animate_anything_tpu_torch.data.loader import check_mesh
 from animate_anything_tpu_torch.models.clip_vision import (CLIPVisionConfig,
-                                                           CLIPVisionModelWithProjection)
+                                                           CLIPVisionModelWithProjection,
+                                                           preprocess_clip_image)
 from animate_anything_tpu_torch.models.factory import resolve_device
+from animate_anything_tpu_torch.models.lora import substituted
 from animate_anything_tpu_torch.models.svd_unet import (SVDUNetConfig,
                                                         UNetSpatioTemporalConditionModel)
 from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from animate_anything_tpu_torch.pipelines.svd import MaskStableVideoDiffusionPipeline
+from animate_anything_tpu_torch.train import create_train_state
+from animate_anything_tpu_torch.train.checkpoint import save_checkpoint, save_component
+from animate_anything_tpu_torch.train.svd_trainer import SVDTrainConfig, make_svd_train_step
 from animate_anything_tpu_torch.utils import media
 from animate_anything_tpu_torch.utils.convert import (init_clip_vision_, init_svd_unet_,
-                                                      init_vae_)
+                                                      init_vae_, svd_flax_path)
+from animate_anything_tpu_torch.utils.logging_util import MetricLogger
 
 
 def build_svd_models(motion_mask: bool = False, model_size: str = "full",
                      compute_dtype: torch.dtype = torch.float32, seed: int = 0,
-                     attn_impl: Optional[str] = None, device="cuda") -> dict:
+                     attn_impl: Optional[str] = None, gradient_checkpointing: bool = False,
+                     device="cuda") -> dict:
     """→ dict(unet, unet_config, vae, vae_config, image_encoder,
     image_config), on ``device`` in eval mode, the weights drawn as the flax
     initialisers do from generators seeded ``seed``, ``seed + 1`` and
-    ``seed + 2``; bf16 ``compute_dtype`` casts them to the half policy."""
+    ``seed + 2``; bf16 ``compute_dtype`` casts them to the half policy;
+    ``gradient_checkpointing`` recomputes the UNet's blocks in the backward."""
     dev = resolve_device(device)
     if compute_dtype not in (torch.float32, COMPUTE_DTYPE):
         raise ValueError(f"compute_dtype must be float32 or {COMPUTE_DTYPE}, got {compute_dtype}")
-    ukw = dict(in_channels=9 if motion_mask else 8, attn_impl=attn_impl)
+    ukw = dict(in_channels=9 if motion_mask else 8, attn_impl=attn_impl,
+               gradient_checkpointing=gradient_checkpointing)
     if model_size == "tiny":
         ucfg = SVDUNetConfig.tiny(**ukw)
         vcfg = VAEConfig.tiny()
@@ -67,6 +89,92 @@ def build_svd_models(motion_mask: bool = False, model_size: str = "full",
         module.eval()
     return dict(unet=unet, unet_config=ucfg, vae=vae, vae_config=vcfg, image_encoder=ienc,
                 image_config=icfg)
+
+
+def main(*, device="cuda", **cfg_kw) -> str:
+    """Train as JAX's ``main`` does; → the run directory
+    ``{output_dir}/svd_{time}`` (``config.yaml``, ``train_log.jsonl``,
+    ``ckpt/``, ``pipeline_step_N/unet/``). The fp32 masters of the trainable
+    UNet parameters and AdamW on the card, the modules in the policy's
+    dtypes; the draws from one generator seeded ``seed``."""
+    from animate_anything_tpu_torch.cli import train_dataset
+
+    cfg = Config(cfg_kw)
+    dev = resolve_device(device)
+    check_mesh(cfg.get("mesh"))
+    run_dir = os.path.join(cfg.get("output_dir", "./output"),
+                           time.strftime("svd_%Y-%m-%dT%H-%M-%S"))
+    os.makedirs(run_dir, exist_ok=True)
+    Config(cfg).save(os.path.join(run_dir, "config.yaml"))
+    logger = MetricLogger(run_dir)
+    seed = int(cfg.get("seed") or 0)
+    generator = torch.Generator(dev).manual_seed(seed)
+    policy = policy_from_string(cfg.get("mixed_precision", "bf16"))
+    motion_mask = bool(cfg.get("motion_mask", False))
+
+    models = build_svd_models(
+        motion_mask=motion_mask, model_size=cfg.get("model_size", "full"),
+        compute_dtype=torch.float32, seed=seed, attn_impl=cfg.get("attn_impl"),
+        gradient_checkpointing=bool(cfg.get("gradient_checkpointing", False)), device=dev)
+    unet = models["unet"]
+    tconf = SVDTrainConfig(
+        learning_rate=float(cfg.get("learning_rate", 5e-6)),
+        adam_weight_decay=float(cfg.get("adam_weight_decay", 1e-2)),
+        gradient_accumulation_steps=int(cfg.get("gradient_accumulation_steps", 1)),
+        trainable_modules=tuple(cfg.get("trainable_modules", ["all"])),
+        motion_mask=motion_mask)
+    for name in ("unet", "vae", "image_encoder"):
+        models[name].requires_grad_(False)
+    state = create_train_state(unet, tconf, svd_flax_path)
+    save_pretrained = bool(cfg.get("save_pretrained_model", True))
+    # what the cast rounds and the masters do not hold
+    fp32 = ({n: p.detach().to("cpu", copy=True) for n, p in unet.named_parameters()
+             if n not in state.masters} if save_pretrained else {})
+    if policy.compute_dtype != torch.float32:
+        for name in ("unet", "vae", "image_encoder"):
+            cast_module_(models[name])
+
+    loader = DataLoader(train_dataset(cfg, None),
+                        batch_size=int(cfg.get("train_batch_size", 1)), shuffle=True, seed=seed)
+    step_fn = make_svd_train_step(tconf, models["vae"], models["image_encoder"], device=dev)
+    size = models["image_config"].image_size
+    max_steps = int(cfg.get("max_train_steps", 100))
+    ckpt_steps = int(cfg.get("checkpointing_steps", max_steps))
+    global_step = state.step
+    while global_step < max_steps:
+        for batch in device_prefetch(iter(loader), device=dev, mesh=cfg.get("mesh")):
+            if global_step >= max_steps:
+                break
+            pixels = batch["pixel_values"]
+            # the image encoder's input: each sample's frame 0, on the host
+            frames = pixels[:, 0].float().cpu().numpy()
+            clip_px = np.concatenate([preprocess_clip_image(media.to_uint8(fr), size)
+                                      for fr in frames])
+            step_batch = {"pixel_values": pixels, "mask": batch["mask"].float(),
+                          "clip_pixel_values": torch.as_tensor(clip_px, device=dev)}
+            metrics = step_fn(state, step_batch, generator)
+            global_step = state.step
+            logger.log(global_step, metrics,
+                       echo=global_step % int(cfg.get("log_every", 10)) == 0)
+            if global_step % ckpt_steps == 0 or global_step >= max_steps:
+                save_checkpoint(os.path.join(run_dir, "ckpt"), state)
+                if save_pretrained:
+                    with substituted(unet, {**fp32, **state.masters}):
+                        _save_svd_pipeline(os.path.join(run_dir, f"pipeline_step_{global_step}"),
+                                           unet, models["unet_config"])
+    logger.close()
+    return run_dir
+
+
+def _save_svd_pipeline(out_dir: str, unet: torch.nn.Module, unet_config: SVDUNetConfig) -> str:
+    """The UNet in the diffusers layout, as JAX's ``_save_svd_pipeline``:
+    ``unet/config.json`` (the config with ``_class_name``) and
+    ``unet/diffusion_pytorch_model.safetensors`` in fp32 under diffusers
+    keys (the port's names); → ``out_dir``."""
+    cfg = dataclasses.asdict(unet_config)
+    cfg["_class_name"] = "UNetSpatioTemporalConditionModel"
+    save_component(out_dir, "unet", "diffusion_pytorch_model.safetensors", unet, cfg)
+    return out_dir
 
 
 def _mask(img_path: Optional[str], image: np.ndarray, out_stem: Optional[str],
@@ -152,11 +260,7 @@ def cli(argv=None) -> None:
     parser.add_argument("--device", type=str, default="cuda")
     args, unknown = parser.parse_known_args(argv)
     cfg = load_config(args.config, overrides=[u for u in unknown if "=" in u])
-    if not args.eval:
-        raise NotImplementedError("SVD training (cli_svd.main, train/svd_trainer.py) is not "
-                                  "ported yet: it is the next slice of the port (ROADMAP queue "
-                                  "C); pass --eval")
-    main_eval(device=args.device, **cfg.to_dict())
+    (main_eval if args.eval else main)(device=args.device, **cfg.to_dict())
 
 
 if __name__ == "__main__":

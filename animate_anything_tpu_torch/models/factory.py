@@ -28,12 +28,7 @@ from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 def unet_config_from_json(cfg: dict, **overrides) -> UNet3DConfig:
     """A ``unet/config.json`` (diffusers', or either package's dataclass dump)
-    → ``UNet3DConfig``; keys it has no field for are ignored. The port has
-    only the frame-concat condition (ROADMAP queue D)."""
-    mode = cfg.get("condition_mode", "frame_concat")
-    if mode != "frame_concat":
-        raise ValueError(f"unet config: condition_mode {mode!r} is not ported "
-                         "(only 'frame_concat')")
+    → ``UNet3DConfig``; keys it has no field for are ignored."""
     keys = {f.name for f in fields(UNet3DConfig)}
     kw = {k: v for k, v in cfg.items() if k in keys}
     for k in ("down_block_types", "up_block_types", "block_out_channels"):

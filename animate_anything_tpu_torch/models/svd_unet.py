@@ -32,8 +32,10 @@ attention, kernel 9 for the frame attention under ``"packed"``.
 
 Parameter names are the diffusers keys that JAX's ``export_svd_unet``
 writes (``utils/convert.py::svd_unet_state_dict``), so they load with
-``strict=True``. Not ported: gradient checkpointing (the training slice)
-and PAB step caching (ROADMAP queue E, item 17).
+``strict=True``. ``gradient_checkpointing`` recomputes each
+``SpatioTemporalResBlock`` and ``TransformerSpatioTemporalModel`` in the
+backward while autograd records (JAX's per-sub-layer ``nn.remat``). Not
+ported: PAB step caching (ROADMAP queue E, item 17).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from animate_anything_tpu_torch.models.layers import (Conv2d, Downsample2D, Line
                                                       TimestepEmbedding, Upsample2D, layer_norm,
                                                       timestep_embedding)
 from animate_anything_tpu_torch.models.unet3d import ATTN_IMPLS
+from animate_anything_tpu_torch.models.unet3d_blocks import run_layer
 from animate_anything_tpu_torch.ops.group_norm import group_norm_silu
 from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, temporal_block
 from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv
@@ -76,10 +79,6 @@ class SVDUNetConfig:
         if self.attn_impl is not None and self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"SVDUNetConfig.attn_impl must be None or one of {ATTN_IMPLS}, "
                              f"got {self.attn_impl!r}")
-        if self.gradient_checkpointing:
-            raise NotImplementedError("SVDUNetConfig.gradient_checkpointing: the SVD UNet's "
-                                      "checkpointing comes with the SVD training slice "
-                                      "(ROADMAP queue C)")
 
     @property
     def impl(self) -> str:
@@ -284,7 +283,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         return self.proj_out(h).reshape(bf, hh, ww, c) + x
 
 
-class _Block(nn.Module):
+class BlockContainers(nn.Module):
     """A diffusers block's containers: ``resnets``, ``attentions`` (empty
     where the block has none) and its down- or upsampler."""
 
@@ -331,9 +330,10 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             down = Downsample2D(prev) if i < n - 1 else None
             if down is not None:
                 skip_ch.append(prev)
-            self.down_blocks.append(_Block(resnets, attentions, downsample=down))
+            self.down_blocks.append(BlockContainers(resnets, attentions, downsample=down))
 
-        self.mid_block = _Block([res(ch[-1], ch[-1]), res(ch[-1], ch[-1])], [attn(n - 1)])
+        self.mid_block = BlockContainers([res(ch[-1], ch[-1]), res(ch[-1], ch[-1])],
+                                         [attn(n - 1)])
 
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(ch))
@@ -345,7 +345,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
                     attentions.append(attn(n - 1 - i))
                 prev = rev[i]
             up = Upsample2D(prev) if i < n - 1 else None
-            self.up_blocks.append(_Block(resnets, attentions, upsample=up))
+            self.up_blocks.append(BlockContainers(resnets, attentions, upsample=up))
 
         self.conv_norm_out = nn.GroupNorm(32, ch0, eps=eps)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
@@ -377,27 +377,28 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         ctx = encoder_hidden_states
 
         x = self.conv_in(sample.reshape(b * f, hh, ww, cfg.in_channels))
+        remat = cfg.gradient_checkpointing
         skips = [x]
         for blk in self.down_blocks:
             for j, resnet in enumerate(blk.resnets):
-                x = resnet(x, emb, f)
+                x = run_layer(remat, resnet, x, emb, f)
                 if len(blk.attentions):
-                    x = blk.attentions[j](x, ctx, f)
+                    x = run_layer(remat, blk.attentions[j], x, ctx, f)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, emb, f)
-        x = mid.attentions[0](x, ctx, f)
-        x = mid.resnets[1](x, emb, f)
+        x = run_layer(remat, mid.resnets[0], x, emb, f)
+        x = run_layer(remat, mid.attentions[0], x, ctx, f)
+        x = run_layer(remat, mid.resnets[1], x, emb, f)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=-1), emb, f)
+                x = run_layer(remat, resnet, torch.cat([x, skips.pop()], dim=-1), emb, f)
                 if len(blk.attentions):
-                    x = blk.attentions[j](x, ctx, f)
+                    x = run_layer(remat, blk.attentions[j], x, ctx, f)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x, tuple(skips[-1].shape[1:3]))
 

@@ -3,7 +3,10 @@
 
 Conditioning as in the reference:
 - the first-frame latent joins along the FRAME axis and the output strips
-  frame 0;
+  frame 0 (``condition_mode="frame_concat"``, the default); under
+  ``"channel_concat"`` (the stage-2 9-channel model) it is broadcast over
+  the frames and joins along the CHANNEL axis, and the output keeps every
+  frame;
 - the motion mask joins along the CHANNEL axis (mask first) into a 5-channel
   input consumed by ``conv_in2``;
 - scalar motion strength is embedded by the sinusoidal projector and fed as
@@ -38,6 +41,7 @@ from animate_anything_tpu_torch.models.unet3d_blocks import (CrossAttnDownBlock3
 
 
 ATTN_IMPLS = ("pallas", "xla", "packed")
+CONDITION_MODES = ("frame_concat", "channel_concat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,16 +60,21 @@ class UNet3DConfig:
     attention_head_dim: int = 64
     motion_mask: bool = False
     motion_strength: bool = False
+    # "frame_concat" | "channel_concat" (module docstring)
+    condition_mode: str = "frame_concat"
     # "pallas" | "xla" | "packed" | None, which means "xla" (module docstring)
     attn_impl: Optional[str] = None
     # per-sub-layer activation checkpointing while autograd records
-    # (unet3d_blocks._run); JAX's per-sub-layer nn.remat
+    # (unet3d_blocks.run_layer); JAX's per-sub-layer nn.remat
     gradient_checkpointing: bool = False
 
     def __post_init__(self):
         if self.attn_impl is not None and self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"UNet3DConfig.attn_impl must be None or one of {ATTN_IMPLS}, "
                              f"got {self.attn_impl!r}")
+        if self.condition_mode not in CONDITION_MODES:
+            raise ValueError(f"UNet3DConfig.condition_mode must be one of {CONDITION_MODES}, "
+                             f"got {self.condition_mode!r}")
 
     @property
     def impl(self) -> str:
@@ -92,10 +101,12 @@ class UNet3DConditionModel(nn.Module):
         remat, impl = cfg.gradient_checkpointing, cfg.impl
 
         self.time_embedding = TimestepEmbedding(ch0, temb, ch0 if cfg.motion_strength else None)
+        # the channel concat doubles the latent channels; the mask comes first
+        cin = cfg.in_channels * (2 if cfg.condition_mode == "channel_concat" else 1)
         if cfg.motion_mask:
-            self.conv_in2 = Conv2d(cfg.in_channels + 1, ch0, 3, padding=1)
+            self.conv_in2 = Conv2d(cin + 1, ch0, 3, padding=1)
         else:
-            self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
+            self.conv_in = Conv2d(cin, ch0, 3, padding=1)
         self.transformer_in = TemporalTransformer(ch0, 8, hd, attn_impl=impl)
 
         self.down_blocks = nn.ModuleList()
@@ -156,8 +167,15 @@ class UNet3DConditionModel(nn.Module):
         dt = self.time_embedding.linear_1.weight.dtype
         dev = sample.device
 
-        # 1. frame-axis condition concat: f → f+1; the output strips frame 0
-        sample = torch.cat([condition_latent.to(sample.dtype), sample], dim=1)
+        # 1. frame-axis condition concat: f → f+1, the output strips frame 0;
+        # or the condition broadcast over the frames, channels first
+        frame_concat = cfg.condition_mode == "frame_concat"
+        if frame_concat:
+            sample = torch.cat([condition_latent.to(sample.dtype), sample], dim=1)
+        elif condition_latent is not None:
+            cond = condition_latent.to(sample.dtype).expand(*sample.shape[:-1],
+                                                            condition_latent.shape[-1])
+            sample = torch.cat([cond, sample], dim=-1)
         b, nf, hh, ww, _ = sample.shape
 
         # 2. time (+ motion-strength) embedding, fp32 sinusoids
@@ -212,4 +230,4 @@ class UNet3DConditionModel(nn.Module):
         # 7. out
         x = self.conv_out(self.conv_norm_out(x, cur_sums))
         x = x.reshape(b, nf, x.shape[1], x.shape[2], cfg.out_channels)
-        return x[:, 1:]
+        return x[:, 1:] if frame_concat else x

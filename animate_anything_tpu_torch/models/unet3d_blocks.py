@@ -52,7 +52,7 @@ def _concat_sums(a, b):
     return torch.cat([a[0], b[0]], dim=1), torch.cat([a[1], b[1]], dim=1)
 
 
-def _run(remat: bool, layer: nn.Module, *args):
+def run_layer(remat: bool, layer: nn.Module, *args):
     """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
     autograd records."""
     if remat and torch.is_grad_enabled():
@@ -96,14 +96,14 @@ class CrossAttnDownBlock3D(_Layered):
         outputs, out_sums, cur = [], [], in_sums
         for resnet, tconv, attn, tattn in zip(self.resnets, self.temp_convs, self.attentions,
                                               self.temp_attentions):
-            x = _run(self.remat, resnet, x, temb, cur)
+            x = run_layer(self.remat, resnet, x, temb, cur)
             entry = None
             if num_frames > 1:
-                x, entry = _run(self.remat, tconv, x, num_frames)
-            x, sp = _run(self.remat, attn, x, context, entry)
+                x, entry = run_layer(self.remat, tconv, x, num_frames)
+            x, sp = run_layer(self.remat, attn, x, context, entry)
             cur = sp
             if num_frames > 1:
-                x, cur = _run(self.remat, tattn, x, num_frames,
+                x, cur = run_layer(self.remat, tattn, x, num_frames,
                               _fold_frames(sp, num_frames))
             outputs.append(x)
             out_sums.append(cur)
@@ -128,10 +128,10 @@ class DownBlock3D(_Layered):
     def forward(self, x, temb, num_frames: int, in_sums=None):
         outputs, out_sums, cur = [], [], in_sums
         for resnet, tconv in zip(self.resnets, self.temp_convs):
-            x = _run(self.remat, resnet, x, temb, cur)
+            x = run_layer(self.remat, resnet, x, temb, cur)
             cur = None
             if num_frames > 1:
-                x, cur = _run(self.remat, tconv, x, num_frames)
+                x, cur = run_layer(self.remat, tconv, x, num_frames)
             outputs.append(x)
             out_sums.append(cur)
         if self.downsamplers is not None:
@@ -163,21 +163,21 @@ class UNetMidBlock3DCrossAttn(nn.Module):
              for _ in range(num_layers)])
 
     def forward(self, x, temb, context, num_frames: int, in_sums=None):
-        x = _run(self.remat, self.resnets[0], x, temb, in_sums)
+        x = run_layer(self.remat, self.resnets[0], x, temb, in_sums)
         entry = None
         if num_frames > 1:
-            x, entry = _run(self.remat, self.temp_convs[0], x, num_frames)
+            x, entry = run_layer(self.remat, self.temp_convs[0], x, num_frames)
         cur = entry
         for i, (attn, tattn) in enumerate(zip(self.attentions, self.temp_attentions)):
-            x, sp = _run(self.remat, attn, x, context, entry)
+            x, sp = run_layer(self.remat, attn, x, context, entry)
             cur = sp
             if num_frames > 1:
-                x, cur = _run(self.remat, tattn, x, num_frames,
+                x, cur = run_layer(self.remat, tattn, x, num_frames,
                               _fold_frames(sp, num_frames))
-            x = _run(self.remat, self.resnets[i + 1], x, temb, cur)
+            x = run_layer(self.remat, self.resnets[i + 1], x, temb, cur)
             entry = None
             if num_frames > 1:
-                x, entry = _run(self.remat, self.temp_convs[i + 1], x, num_frames)
+                x, entry = run_layer(self.remat, self.temp_convs[i + 1], x, num_frames)
             cur = entry
         return x, cur
 
@@ -203,14 +203,14 @@ class CrossAttnUpBlock3D(_Layered):
                                               self.temp_attentions):
             sk_sums = skip_sums.pop() if skip_sums else None
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = _run(self.remat, resnet, x, temb, _concat_sums(cur, sk_sums))
+            x = run_layer(self.remat, resnet, x, temb, _concat_sums(cur, sk_sums))
             entry = None
             if num_frames > 1:
-                x, entry = _run(self.remat, tconv, x, num_frames)
-            x, sp = _run(self.remat, attn, x, context, entry)
+                x, entry = run_layer(self.remat, tconv, x, num_frames)
+            x, sp = run_layer(self.remat, attn, x, context, entry)
             cur = sp
             if num_frames > 1:
-                x, cur = _run(self.remat, tattn, x, num_frames,
+                x, cur = run_layer(self.remat, tattn, x, num_frames,
                               _fold_frames(sp, num_frames))
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, output_size)
@@ -236,10 +236,10 @@ class UpBlock3D(_Layered):
         for resnet, tconv in zip(self.resnets, self.temp_convs):
             sk_sums = skip_sums.pop() if skip_sums else None
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = _run(self.remat, resnet, x, temb, _concat_sums(cur, sk_sums))
+            x = run_layer(self.remat, resnet, x, temb, _concat_sums(cur, sk_sums))
             cur = None
             if num_frames > 1:
-                x, cur = _run(self.remat, tconv, x, num_frames)
+                x, cur = run_layer(self.remat, tconv, x, num_frames)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, output_size)
             cur = None

@@ -58,11 +58,16 @@ class VAEResnetBlock(nn.Module):
 
 
 class VAEAttentionBlock(nn.Module):
-    """Single-head self-attention over h·w with a GroupNorm in front and a
-    residual (the SD VAE mid-block)."""
+    """Self-attention over h·w with a GroupNorm in front and a residual.
+    ``head_dim=None``: one head over all channels (the SD VAE mid-block);
+    ``head_dim=d``: c/d heads of width d (``UNet384`` passes 8), which
+    changes both the scores' shape and the softmax scale, as diffusers'
+    ``attention_head_dim`` does. SDPA either way (JAX's ``impl="xla"``)."""
 
-    def __init__(self, channels: int, groups: int, eps: float = 1e-6):
+    def __init__(self, channels: int, groups: int, eps: float = 1e-6,
+                 head_dim: Optional[int] = None):
         super().__init__()
+        self.heads = 1 if head_dim is None else channels // head_dim
         self.group_norm = FusedGroupNorm(channels, groups, eps=eps)
         self.to_q = Linear(channels, channels)
         self.to_k = Linear(channels, channels)
@@ -71,8 +76,10 @@ class VAEAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
-        h = self.group_norm(x).reshape(b, hh * ww, 1, c)
-        out = attention(self.to_q(h), self.to_k(h), self.to_v(h), impl="xla")
+        shape = (b, hh * ww, self.heads, c // self.heads)
+        h = self.group_norm(x).reshape(b, hh * ww, c)
+        out = attention(self.to_q(h).reshape(shape), self.to_k(h).reshape(shape),
+                        self.to_v(h).reshape(shape), impl="xla")
         return x + self.to_out[0](out.reshape(b, hh * ww, c)).reshape(b, hh, ww, c)
 
 

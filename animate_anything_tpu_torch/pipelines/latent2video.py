@@ -86,19 +86,28 @@ class LatentToVideoPipeline:
                                       generator, noise)
 
     @torch.no_grad()
-    def __call__(self, *, prompt_embeds: torch.Tensor, negative_prompt_embeds: torch.Tensor,
+    def __call__(self, prompt=None, *, prompt_embeds: Optional[torch.Tensor] = None,
+                 negative_prompt_embeds: Optional[torch.Tensor] = None,
                  latents: torch.Tensor, condition_latent: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None, motion: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None, motion=None,
                  timesteps: Optional[np.ndarray] = None, num_inference_steps: int = 25,
                  guidance_scale: float = 9.0):
-        """Returns (video, latents); video is (b, f, 8h, 8w, 3) in [-1, 1]."""
+        """Returns (video, latents); video is (b, f, 8h, 8w, 3) in [-1, 1].
+        Without ``prompt_embeds`` the ``prompt`` is encoded (``encode_prompt``,
+        the empty negative prompt); ``motion`` is (b,) strengths, a tensor or
+        a list."""
+        if prompt_embeds is None:
+            prompt_embeds, negative_prompt_embeds = self.encode_prompt(prompt)
         if timesteps is None:
             timesteps = self.get_timesteps(num_inference_steps)
         b = latents.shape[0]
-        embeds = torch.cat([negative_prompt_embeds, prompt_embeds])
+        dev = latents.device
+        embeds = torch.cat([negative_prompt_embeds, prompt_embeds]).to(dev)
         cond2 = torch.cat([condition_latent, condition_latent])
         mask2 = None if mask is None else torch.cat([mask, mask])
-        motion2 = None if motion is None else torch.cat([motion, motion]).float()
+        if motion is not None:
+            motion = torch.as_tensor(motion, dtype=torch.float32, device=dev)
+        motion2 = None if motion is None else torch.cat([motion, motion])
         gs = float(guidance_scale)
 
         def model_fn(x: torch.Tensor, t: int) -> torch.Tensor:

@@ -84,7 +84,7 @@ def restore_checkpoint(path: str, state):
     return state
 
 
-def _save_component(out_dir: str, sub: str, weights: str, module: torch.nn.Module,
+def save_component(out_dir: str, sub: str, weights: str, module: torch.nn.Module,
                     config: dict) -> int:
     """Write ``module``'s config and its weights as fp32 (the whole state
     dict copied to the host first); → the weight file's bytes."""
@@ -105,15 +105,15 @@ def save_pipeline(out_dir: str, unet: torch.nn.Module, unet_config,
     os.makedirs(out_dir, exist_ok=True)
     ucfg = dataclasses.asdict(unet_config)
     ucfg["_class_name"] = "UNet3DConditionModel"
-    total = _save_component(out_dir, "unet", "diffusion_pytorch_model.safetensors", unet, ucfg)
+    total = save_component(out_dir, "unet", "diffusion_pytorch_model.safetensors", unet, ucfg)
     if vae is not None:
         vcfg = dataclasses.asdict(vae_config) if vae_config else {}
         vcfg["_class_name"] = "AutoencoderKL"
-        total += _save_component(out_dir, "vae", "diffusion_pytorch_model.safetensors", vae,
+        total += save_component(out_dir, "vae", "diffusion_pytorch_model.safetensors", vae,
                                  vcfg)
     if text_encoder is not None:
         tcfg = dataclasses.asdict(text_config) if text_config else {}
-        total += _save_component(out_dir, "text_encoder", "model.safetensors", text_encoder,
+        total += save_component(out_dir, "text_encoder", "model.safetensors", text_encoder,
                                  tcfg)
     with open(os.path.join(out_dir, "model_index.json"), "w") as f:
         json.dump({"_class_name": "LatentToVideoPipeline",

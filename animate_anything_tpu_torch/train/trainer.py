@@ -97,12 +97,14 @@ def mask_motion_finetune() -> Tuple[TrainConfig, DiffusionSchedule]:
 
 
 def trainable_label_tree(model: nn.Module, trainable_modules: Tuple[str, ...],
-                         not_trainable_modules: Tuple[str, ...] = ()) -> Dict[str, str]:
+                         not_trainable_modules: Tuple[str, ...] = (),
+                         path: Callable[[str, int], str] = flax_path) -> Dict[str, str]:
     """'train' / 'freeze' per parameter name, by JAX's rule on the parameter's
-    flax path: the deny-list first; 'all' trains everything; otherwise a
-    parameter trains if a pattern is a substring of its path and the path
-    holds no 'lora'."""
-    return label_paths({name: flax_path(name, p.ndim) for name, p in model.named_parameters()},
+    flax path (``path(name, ndim)``: the UNet3D's by default,
+    ``utils/convert.svd_flax_path`` for the SVD UNet): the deny-list first;
+    'all' trains everything; otherwise a parameter trains if a pattern is a
+    substring of its path and the path holds no 'lora'."""
+    return label_paths({name: path(name, p.ndim) for name, p in model.named_parameters()},
                        trainable_modules, not_trainable_modules)
 
 
@@ -282,10 +284,13 @@ class TrainState:
     params: Any = None
 
 
-def create_train_state(model: nn.Module, config: TrainConfig) -> TrainState:
+def create_train_state(model: nn.Module, config: TrainConfig,
+                       path: Callable[[str, int], str] = flax_path) -> TrainState:
     """fp32 masters of ``model``'s trainable parameters (exact where the
-    module is still fp32, as ``cli.main`` makes them before the cast)."""
-    labels = trainable_label_tree(model, config.trainable_modules, config.not_trainable_modules)
+    module is still fp32, as ``cli.main`` makes them before the cast);
+    ``path`` names the parameters' flax paths for the labels."""
+    labels = trainable_label_tree(model, config.trainable_modules, config.not_trainable_modules,
+                                  path)
     masters = master_params(model, [n for n, lab in labels.items() if lab == "train"])
     for p in model.parameters():        # frozen ones too: grad_norm counts every gradient
         p.requires_grad_(True)

@@ -1,7 +1,8 @@
 """Weight carry-over from the JAX package, and the flax initialisers in torch.
 
 ``unet3d_state_dict`` / ``vae_state_dict`` / ``clip_text_state_dict`` /
-``svd_unet_state_dict`` / ``clip_vision_state_dict`` take the JAX package's
+``svd_unet_state_dict`` / ``clip_vision_state_dict`` / ``unet384_state_dict`` /
+``offset_encoder_state_dict`` take the JAX package's
 param trees (nested dicts of numpy-convertible arrays, optionally under
 ``"params"``) and return the port's state dicts in the diffusers / HF key
 layout. They are a numpy-only copy of
@@ -17,11 +18,11 @@ conv_in2 surgery of ``expand_conv_in_channels``), the keys otherwise kept
 as they are: the port's modules carry diffusers names.
 
 ``init_unet3d_`` / ``init_vae_`` / ``init_clip_text_`` / ``init_svd_unet_`` /
-``init_clip_vision_`` draw fresh weights the way the flax modules initialise
-theirs (lecun-normal kernels, zero biases, unit norm scales, the
-zero-initialised last temporal conv, normal embeddings, the SVD mixers'
-0.5), from an explicit ``torch.Generator``; the machine with the card has no
-JAX.
+``init_clip_vision_`` / ``init_unet384_`` / ``init_offset_encoder_`` draw
+fresh weights the way the flax modules initialise theirs (lecun-normal
+kernels, zero biases, unit norm scales, the zero-initialised last temporal
+conv and LayerDiffuse convs, normal embeddings, the SVD mixers' 0.5), from
+an explicit ``torch.Generator``; the machine with the card has no JAX.
 """
 
 from __future__ import annotations
@@ -173,6 +174,28 @@ def svd_unet_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def svd_flax_path(name: str, ndim: int) -> str:
+    """The inverse of ``svd_unet_state_dict``'s key map: a port SVD UNet
+    parameter name and its rank → the dotted flax path, ``params.`` prefix
+    included, as JAX's trainer matches it (``trainable_label_tree``)."""
+    k = name
+    if k.endswith(".weight"):
+        k = k[: -len(".weight")] + (".kernel" if ndim >= 2 else ".scale")
+    k = re.sub(r"^(down|up)_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\.",
+               r"\1_blocks_\2_\3_\4.", k)
+    k = re.sub(r"^down_blocks\.(\d+)\.downsamplers\.0\.conv\.",
+               r"down_blocks_\1_downsample.conv.", k)
+    k = re.sub(r"^up_blocks\.(\d+)\.upsamplers\.0\.conv\.", r"up_blocks_\1_upsample.conv.", k)
+    k = re.sub(r"^mid_block\.(resnets|attentions)\.(\d+)\.", r"mid_\1_\2.", k)
+    k = re.sub(r"\b(temporal_)?transformer_blocks\.(\d+)\b", r"\1transformer_blocks_\2", k)
+    if re.match(r"^(down_blocks_\d+_attentions_|up_blocks_\d+_attentions_|mid_attentions_)", k):
+        k = k.replace(".time_mixer.", ".time_mixer_0.")
+    k = k.replace(".to_out.0.", ".to_out_0.")
+    k = re.sub(r"\.(ff|ff_in)\.net\.0\.proj\.", r".\1.net_0_proj.", k)
+    k = re.sub(r"\.(ff|ff_in)\.net\.2\.", r".\1.net_2.", k)
+    return "params." + k
+
+
 def clip_vision_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``CLIPVisionModelWithProjection`` params → the port's state dict
     (HF ``CLIPVisionModelWithProjection`` keys; the inverse of JAX's
@@ -203,6 +226,37 @@ def vae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         k = k.replace(".mid_attn.to_out_0.", ".mid_block.attentions.0.to_out.0.")
         k = k.replace(".mid_attn.", ".mid_block.attentions.0.")
         k, w = _export_tensor(k, np.asarray(w), False)
+        out[k] = _to_torch(w)
+    return out
+
+
+def unet384_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UNet384`` params → the port's state dict (the reference's torch
+    keys: the inverse of JAX's ``convert_unet384``)."""
+    tree = params.get("params", params)
+    out = {}
+    for key, w in _flatten_tree(tree).items():
+        k = re.sub(r"^(down|up)_blocks_(\d+)_(resnets|attentions)_(\d+)\.",
+                   r"\1_blocks.\2.\3.\4.", key)
+        k = re.sub(r"^down_blocks_(\d+)_downsample\.conv\.",
+                   r"down_blocks.\1.downsamplers.0.conv.", k)
+        k = re.sub(r"^up_blocks_(\d+)_upsample\.conv\.", r"up_blocks.\1.upsamplers.0.conv.", k)
+        k = re.sub(r"^mid_resnets_(\d+)\.", r"mid_block.resnets.\1.", k)
+        k = re.sub(r"^mid_attn\.", "mid_block.attentions.0.", k)
+        k = k.replace(".to_out_0.", ".to_out.0.")
+        k, w = _export_tensor(k, np.asarray(w), False)
+        out[k] = _to_torch(w)
+    return out
+
+
+def offset_encoder_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``LatentTransparencyOffsetEncoder`` params → the port's state dict
+    (``blocks.N.``: the inverse of JAX's ``convert_offset_encoder``)."""
+    tree = params.get("params", params)
+    out = {}
+    for key, w in _flatten_tree(tree).items():
+        k, w = _export_tensor(re.sub(r"^blocks_(\d+)\.", r"blocks.\1.", key), np.asarray(w),
+                              False)
         out[k] = _to_torch(w)
     return out
 
@@ -331,6 +385,21 @@ def init_svd_unet_(module: torch.nn.Module, generator: torch.Generator) -> torch
     for name, p in module.named_parameters():
         if name.endswith("mix_factor"):
             p.fill_(0.5)
+    return module
+
+
+def init_unet384_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw ``UNet384``'s weights as the flax modules do; ``latent_conv_in``
+    starts at zero, so the latent injection is a no-op at init."""
+    _init_flax_(module, generator, zero=("latent_conv_in.",))
+    return module
+
+
+def init_offset_encoder_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw the offset encoder's weights as the flax modules do; the last
+    conv (``blocks.16``) starts at zero, so the offset is 0 at init."""
+    last = max(int(n.split(".")[1]) for n, _ in module.named_parameters())
+    _init_flax_(module, generator, zero=(f"blocks.{last}.",))
     return module
 
 

@@ -1,8 +1,10 @@
 """The sites of kernels 8, 4 and 6 in one CFG forward of the full-width
 UNet in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents),
-of kernel 7 in the SD VAE's 512 px image encode and 16-frame decode, and of
+of kernel 7 in the SD VAE's 512 px image encode and 16-frame decode, of
 kernels 1, 2, 3 and 5 in one CFG forward of the full-width SVD UNet under
-``attn_impl="pallas"``, with their launch counts. ``chip_smoke.py`` checks
+``attn_impl="pallas"``, and of kernels 1-5 in one CFG forward of the
+full-width UNet at the stage-2 request's shapes (384 px, 8 frames), with
+their launch counts. ``chip_smoke.py`` checks
 and times the kernels at these sites and sums them by the counts; the plan
 tests hold the launch plans to them.
 """
@@ -88,3 +90,32 @@ SVD_TAP_SITES = ((4096, 320, 10), (1024, 640, 10), (256, 1280, 10), (64, 1280, 1
 # norm1 + attn1; 16 a forward.
 SVD_BLOCK_SITES = ((4096, 320, 5, 5), (1024, 640, 10, 5), (256, 1280, 20, 5),
                    (64, 1280, 20, 1))
+
+# The stage-2 request (``cli_stage2.main_eval`` at
+# ``configs/layerdiffuse_stage2_384.yaml`` with attn_impl=pallas): the
+# full-width mask+motion UNet, one CFG forward of b = 2 at 48×48 latents,
+# 8 frames + the condition frame, so f = 9 and b·f = 18; s = 2304, 576, 144
+# and 36 (the last three end on ragged tiles). The same modules as at
+# 64×64 latents, so the same counts a forward: kernel 1 15, kernel 2 33,
+# kernel 3 88, kernel 4 33, kernel 5 34.
+# tests/test_torch_port_stage2_sites.py counts them through the wrappers
+# over that forward on the meta device (and the Concat UNet's: f = 8).
+STAGE2_BF = 18
+STAGE2_FRAMES = 9
+# Kernel 1: (s, heads, calls); the mid block's s = 36 runs the plain path.
+STAGE2_FLASH_SITES = ((2304, 5, 5), (576, 10, 5), (144, 20, 5))
+# Kernel 2: (n rows, c, calls): the spatial transformers' tails and
+# transformer_in's (c = 512).
+STAGE2_GEGLU_SITES = ((STAGE2_BF * 2304, 512, 1), (STAGE2_BF * 2304, 320, 10),
+                      (STAGE2_BF * 576, 640, 10), (STAGE2_BF * 144, 1280, 10),
+                      (STAGE2_BF * 36, 1280, 2))
+# Kernel 3: (s, c, calls) at (b, f) = (2, 9), the four stages of every
+# temporal conv layer, a quarter of them (the last) with the residual.
+STAGE2_TAP_SITES = ((2304, 320, 20), (576, 640, 20), (144, 1280, 20), (36, 1280, 28))
+# Kernel 4: (s, k, c, calls) at n = b·f = 18.
+STAGE2_PROJ_SITES = ((2304, 512, 320, 1), (2304, 320, 320, 10), (576, 640, 640, 10),
+                     (144, 1280, 1280, 10), (36, 1280, 1280, 2))
+# Kernel 5: (s, c, heads, calls) at (b, f) = (2, 9): transformer_in (8
+# heads of 64 over 512) and the temporal transformers.
+STAGE2_BLOCK_SITES = ((2304, 512, 8, 2), (2304, 320, 5, 10), (576, 640, 10, 10),
+                      (144, 1280, 20, 10), (36, 1280, 20, 2))

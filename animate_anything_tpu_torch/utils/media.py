@@ -43,6 +43,14 @@ def fit_image_to_area(path: str, target_h: int, target_w: int,
     return load_image(path, size=(th, tw))
 
 
+def load_image_rgba(path: str, size: tuple[int, int] | None = None) -> np.ndarray:
+    """→ (h, w, 4) uint8 RGBA, Lanczos-resized to ``size`` (h, w) if given."""
+    img = Image.open(path).convert("RGBA")
+    if size is not None:
+        img = img.resize((size[1], size[0]), Image.LANCZOS)
+    return np.asarray(img)
+
+
 def to_uint8(video: np.ndarray) -> np.ndarray:
     """[-1, 1] float video → uint8."""
     return np.clip((np.asarray(video, np.float32) + 1.0) * 127.5, 0, 255).astype(np.uint8)

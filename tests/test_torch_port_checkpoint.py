@@ -312,10 +312,20 @@ def test_unet_config_from_json_matches_jax(cfg):
 
 
 def test_unet_config_from_json_refuses_the_channel_concat_condition():
+    """The channel concat is ported: a config that names it reads as JAX's;
+    a condition mode neither package has is refused."""
+    import dataclasses
+
+    from animate_anything_tpu.models.factory import unet_config_from_json as jax_fn
     from animate_anything_tpu_torch.models.factory import unet_config_from_json
 
+    cfg = {"condition_mode": "channel_concat", "in_channels": 4, "motion_mask": True}
+    got, want = unet_config_from_json(cfg), jax_fn(cfg)
+    assert got.condition_mode == "channel_concat"
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
     with pytest.raises(ValueError, match="condition_mode"):
-        unet_config_from_json({"condition_mode": "channel_concat"})
+        unet_config_from_json({"condition_mode": "bogus"})
 
 
 @pytest.mark.parametrize("cfg", [{"_class_name": "AutoencoderKL", "block_out_channels":

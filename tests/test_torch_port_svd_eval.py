@@ -103,12 +103,16 @@ def test_build_svd_models_shapes_and_policy():
 
 
 def test_cli_trains_nothing_yet_and_train_svd_forwards(tmp_path, monkeypatch):
+    """Without ``--eval`` the CLI trains (``cli_svd.main``; the step itself is
+    held in ``test_torch_port_svd_train_cli.py``), with it it samples."""
     from animate_anything_tpu_torch import cli_svd, train_svd
 
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cli_svd.cli(["--config", os.path.join(REPO, CONFIG), "--device", "cpu"])
-    seen = {}
+    seen, trained = {}, {}
+    monkeypatch.setattr(cli_svd, "main", lambda **kw: trained.update(kw))
     monkeypatch.setattr(cli_svd, "main_eval", lambda **kw: seen.update(kw))
+    cli_svd.cli(["--config", os.path.join(REPO, CONFIG), "--device", "cpu"])
+    assert trained["device"] == "cpu" and trained["gradient_checkpointing"] is True
+    assert trained["train_batch_size"] == 3 and not seen
     train_svd.cli(["--config", os.path.join(REPO, CONFIG), "--eval", "--device", "cpu",
                    "model_size=tiny", f"output_dir={tmp_path}"])
     assert seen["device"] == "cpu" and seen["model_size"] == "tiny"
