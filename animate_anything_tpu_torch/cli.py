@@ -52,20 +52,22 @@ from animate_anything_tpu_torch.utils import media
 from animate_anything_tpu_torch.utils.logging_util import MetricLogger
 
 
-def _build_pipeline(models, sampler: str = "dpmpp") -> LatentToVideoPipeline:
+def _build_pipeline(models, sampler: str = "dpmpp", pab=None) -> LatentToVideoPipeline:
     return LatentToVideoPipeline(models["unet"], models["vae"], text_encoder=models["text"],
                                  tokenizer=models["tokenizer"], schedule=models["schedule"],
-                                 sampler=sampler)
+                                 sampler=sampler, pab=pab)
 
 
 def run_validation(models, validation_data: Config, output_dir: str, step: int,
                    motion_mask: bool, motion_strength: bool,
                    generator: Optional[torch.Generator] = None, eval_index: int = 0,
-                   sampler: str = "dpmpp", noise: Optional[torch.Tensor] = None) -> dict:
+                   sampler: str = "dpmpp", noise: Optional[torch.Tensor] = None,
+                   pab: Optional[dict] = None) -> dict:
     """Animate the validation image, write the sample, report the motion
     metrics (the sample a gif with an mp4 sidecar, the mask a jpg).
-    ``noise`` (the start latents' noise) overrides ``generator``."""
-    pipe = _build_pipeline(models, sampler)
+    ``noise`` (the start latents' noise) overrides ``generator``; ``pab``:
+    the PAB step-caching config, or None."""
+    pipe = _build_pipeline(models, sampler, pab)
     vd = validation_data
     img_path = vd.get("prompt_image")
     h = int(vd.get("height", 512))
@@ -117,12 +119,6 @@ def run_validation(models, validation_data: Config, output_dir: str, step: int,
     return metrics
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.get("pab"):
-        raise ValueError("pab: Pyramid-Attention-Broadcast step caching is not ported yet "
-                         "(ROADMAP queue E, item 17)")
-
-
 def _cast(models: dict, policy) -> dict:
     """The modules cast to the policy (bf16 matrices) unless it is fp32."""
     if policy.compute_dtype != torch.float32:
@@ -165,7 +161,6 @@ def main_eval(*, device="cuda", **cfg_kw) -> dict:
     strength i + 3), each printed; returns the last one's metrics, with the
     mean motion precision where there is a mask."""
     cfg = Config(cfg_kw)
-    _refuse_unported(cfg)
     dev = resolve_device(device)
     output_dir = cfg.get("output_dir", "./output")
     os.makedirs(output_dir, exist_ok=True)
@@ -179,7 +174,7 @@ def main_eval(*, device="cuda", **cfg_kw) -> dict:
         metrics = run_validation(
             models, cfg.get("validation_data", Config()), output_dir, i,
             motion_mask, motion_strength, generator=torch.Generator(dev).manual_seed(i),
-            eval_index=i)
+            eval_index=i, pab=(dict(cfg.pab) if cfg.get("pab") else None))
         print(metrics)
         if "motion_precision" in metrics:
             precisions.append(metrics["motion_precision"])

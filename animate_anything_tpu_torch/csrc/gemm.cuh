@@ -28,8 +28,8 @@
 // rows past s read as zeros, never the next slab's.  Two sub-tiles make a
 // 128-row tile, so s = 64 fills whole tiles with two slabs.  After its TMA
 // store each warpgroup sums its stored bf16 tile's columns over the slab's
-// rows and adds Σy, Σy² with one fp32 atomic per column into (slabs, n)
-// buffers the caller zeroed (tiles finish in no order).
+// rows, and a tree of tickets adds those partials into Σy, Σy² in one fixed
+// order (below), whatever order the tiles finish in.
 #pragma once
 
 #include "common.cuh"
@@ -157,6 +157,183 @@ int launch_layer_norm(const void* x, const void* s, const void* b, void* out, in
   return launch_layer_norm_lpr<32, 16, Owner, STATS>(x, s, b, out, n, c, cs, eps, stream);
 }
 
+// ---- fixed-order slab sums (kernels 3 and 4) ------------------------------------
+
+// Σy, Σy² per (slab, column) of a stored output, in one fixed order of
+// additions, whatever order the tiles finish in (fp32 atomics added the
+// tiles' partials in finishing order, so identical calls differed).  Each
+// 64-row sub-tile of a slab writes its per-column partial sums into `part`
+// in its epilogue; after its last tile each warp takes its sub-tiles'
+// tickets (kernel 6's pattern, group_norm.cu), and a two-level tree adds
+// the partials up, a warp's 64 columns at a time:
+// - level 1: the sub-tiles of a slab in groups of FAN consecutive ones; the
+//   last warp to arrive for its (slab, group, output chunk, warp) adds the
+//   group's partials in sub-tile order;
+// - level 2: the last group to finish a (slab, chunk, warp) adds the
+//   groups' sums in group order into s1, s2 (a slab of one group stores its
+//   level-1 sum there directly, one of one sub-tile its partial).
+// A ticket a tile would cost the tile loop a fence and a round trip each
+// time, and one sequential fold of a 64-sub-tile slab (s = 4096) 64
+// dependent L2 reads; taken at the end, a warp's tickets are one fence and
+// one round trip (a lane a sub-tile), and each fold reads at most FAN
+// partials a column, all in flight at once.  The last arriver of each level
+// resets its ticket.
+constexpr int FAN = 8;
+
+struct SlabSums {
+  float* s1;      // (slabs, n) fp32
+  float* s2;
+  float* part;    // (2, slabs, subs_per_slab + groups, n) fp32: partials, then group sums
+  int* tickets;   // (slabs·groups + slabs)·chunks·4, zeroed, left zeroed
+  int slabs, subs_per_slab, chunks;
+  __device__ __forceinline__ int groups() const { return (subs_per_slab + FAN - 1) / FAN; }
+  __device__ __forceinline__ size_t row(int slab, int r) const {  // r: a sub-tile or subs + group
+    return (size_t)slab * (subs_per_slab + groups()) + r;
+  }
+  __device__ __forceinline__ float* part2(int n) const {  // the Σy² half of `part`
+    return part + (size_t)slabs * (subs_per_slab + groups()) * n;
+  }
+};
+
+// A warp's sub-tile whose partials it wrote (slab < 0: none): output chunk
+// `chunk` of the kernel's chunk width.
+struct SumsSlot {
+  int slab, sub, chunk;
+};
+
+// Whether the calling warp (of a warpgroup's 4) writes partials for output
+// chunk `chunk` of `width` columns: it has columns there, and slabs have
+// more than one sub-tile.
+__device__ __forceinline__ bool warp_sums(const SlabSums& ss, int n, int chunk, int width,
+                                          int warp) {
+  return ss.subs_per_slab > 1 && 64 * warp < width && chunk * width + 64 * warp < n;
+}
+
+// Thread lt of the calling warpgroup holds (a0, a1) = Σy and (q0, q1) = Σy²
+// of columns j0 + 2·lt, + 1 over sub-tile `sub` of slab `slab`, for output
+// chunk `chunk` of `width` columns from j0 = chunk·width: written to `part`
+// (or, for a one-sub-tile slab, to s1, s2).
+__device__ __forceinline__ void slab_sums_write(const SlabSums& ss, int n, int slab, int sub,
+                                                int chunk, int width, int lt, float a0, float a1,
+                                                float q0, float q1) {
+  const int col = chunk * width + 2 * lt;
+  if (2 * lt >= width || col >= n) return;
+  if (ss.subs_per_slab == 1) {
+    *reinterpret_cast<float2*>(ss.s1 + (size_t)slab * n + col) = make_float2(a0, a1);
+    *reinterpret_cast<float2*>(ss.s2 + (size_t)slab * n + col) = make_float2(q0, q1);
+    return;
+  }
+  const size_t at = ss.row(slab, sub) * n + col;
+  *reinterpret_cast<float2*>(ss.part + at) = make_float2(a0, a1);
+  *reinterpret_cast<float2*>(ss.part2(n) + at) = make_float2(q0, q1);
+}
+
+// Σ in order of the FAN-at-most rows r0 .. r0 + count − 1 of `part`'s Σy
+// and Σy² halves at column col, each load in flight before the adds.
+__device__ __forceinline__ void fold_rows(const SlabSums& ss, int n, int slab, int r0, int count,
+                                          int col, float2& s, float2& q) {
+  float2 u[FAN], v[FAN];
+#pragma unroll
+  for (int j = 0; j < FAN; ++j) {
+    const size_t at = ss.row(slab, r0 + min(j, count - 1)) * n + col;
+    u[j] = __ldcg(reinterpret_cast<const float2*>(ss.part + at));
+    v[j] = __ldcg(reinterpret_cast<const float2*>(ss.part2(n) + at));
+  }
+  s = make_float2(0.f, 0.f);
+  q = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < FAN; ++j) {
+    if (j < count) {
+      s.x += u[j].x;
+      s.y += u[j].y;
+      q.x += v[j].x;
+      q.y += v[j].y;
+    }
+  }
+}
+
+// The folds of one slot whose level-1 ticket this warp took last: its
+// group's partials, then (the last group of its slab) the groups' sums.
+__device__ __forceinline__ void fold_slot(const SlabSums& ss, int n, const SumsSlot& sl,
+                                          int width, int lt) {
+  const int warp = lt >> 5, lane = lt & 31;
+  const int col = sl.chunk * width + 2 * lt;
+  const bool on = 2 * lt < width && col < n;
+  const int groups = ss.groups(), group = sl.sub / FAN;
+  float2 s, q;
+  if (on) fold_rows(ss, n, sl.slab, group * FAN, min(FAN, ss.subs_per_slab - group * FAN), col,
+                    s, q);
+  const size_t out = (size_t)sl.slab * n + col;
+  if (groups == 1) {
+    if (on) {
+      *reinterpret_cast<float2*>(ss.s1 + out) = s;
+      *reinterpret_cast<float2*>(ss.s2 + out) = q;
+    }
+    return;
+  }
+  if (on) {
+    const size_t at = ss.row(sl.slab, ss.subs_per_slab + group) * n + col;
+    *reinterpret_cast<float2*>(ss.part + at) = s;
+    *reinterpret_cast<float2*>(ss.part2(n) + at) = q;
+  }
+  __threadfence();
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) {
+    int* t2 = ss.tickets + (size_t)ss.slabs * groups * ss.chunks * 4 +
+              ((size_t)sl.slab * ss.chunks + sl.chunk) * 4 + warp;
+    last = atomicAdd(t2, 1) == groups - 1;
+    if (last) *t2 = 0;
+  }
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  if (!on) return;
+  float2 st = make_float2(0.f, 0.f), qt = make_float2(0.f, 0.f);
+  for (int g0 = 0; g0 < groups; g0 += FAN) {
+    fold_rows(ss, n, sl.slab, ss.subs_per_slab + g0, min(FAN, groups - g0), col, s, q);
+    st.x += s.x;
+    st.y += s.y;
+    qt.x += q.x;
+    qt.y += q.y;
+  }
+  *reinterpret_cast<float2*>(ss.s1 + out) = st;
+  *reinterpret_cast<float2*>(ss.s2 + out) = qt;
+}
+
+// After the calling warp's last tile: the level-1 tickets of its `count`
+// slots, slot_of(i) (slab < 0 where it wrote none), one lane a slot, then
+// the folds of those it took last.  All 32 lanes call it.
+template <typename SlotOf>
+__device__ __forceinline__ void slab_sums_finish(const SlabSums& ss, int n, int width, int count,
+                                                 SlotOf slot_of, int lt) {
+  const int warp = lt >> 5, lane = lt & 31;
+  __threadfence();  // this warp's partials before any of its tickets
+  __syncwarp();
+  for (int base = 0; base < count; base += 32) {
+    SumsSlot mine{-1, 0, 0};
+    if (base + lane < count) mine = slot_of(base + lane);
+    bool last = false;
+    if (mine.slab >= 0) {
+      const int group = mine.sub / FAN;
+      int* t1 = ss.tickets +
+                (((size_t)mine.slab * ss.groups() + group) * ss.chunks + mine.chunk) * 4 + warp;
+      last = atomicAdd(t1, 1) == min(FAN, ss.subs_per_slab - group * FAN) - 1;
+      if (last) *t1 = 0;
+    }
+    unsigned mask = __ballot_sync(0xffffffffu, last);
+    if (mask) __threadfence();
+    while (mask) {
+      const int j = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const SumsSlot sl{__shfl_sync(0xffffffffu, mine.slab, j),
+                        __shfl_sync(0xffffffffu, mine.sub, j),
+                        __shfl_sync(0xffffffffu, mine.chunk, j)};
+      fold_slot(ss, n, sl, width, lt);
+      __syncwarp();
+    }
+  }
+}
+
 // ---- the GEMMs ------------------------------------------------------------------
 
 struct GemmParams {
@@ -169,8 +346,7 @@ struct GemmParams {
   int gate_row0;       // GEGLU: the W1 row (and b1 entry) of gate column 0, 4c
   int col_tiles, tiles, stages;
   int s, subs_per_slab, subs;  // the slab form: rows a slab, 64-row sub-tiles a slab, in all
-  float* s1;                   // the slab form: (slabs, n) fp32 Σy, Σy², zeroed
-  float* s2;
+  SlabSums sums;               // the slab form: Σy, Σy² per (slab, column)
 };
 
 // The slab form's sub-tile h (0, 1) of 128-row tile `pair`: whether it
@@ -287,11 +463,11 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, 
 }
 
 // The slab form's Σy, Σy² of the warpgroup's stored output tile `out`
-// (OUT columns from j0, `rows` rows of slab `slab`): two columns a thread,
-// one fp32 atomic each.
+// (OUT columns from j0, `rows` rows of sub-tile `sub` of slab `slab`): two
+// columns a thread, written as the sub-tile's partials (slab_sums_write).
 template <typename Chunks, int OUT>
 __device__ __forceinline__ void column_sums(const GemmParams& p, const uint8_t* out, int j0,
-                                            int slab, int rows, int lt) {
+                                            int ct, int slab, int sub, int rows, int lt) {
   const int col = 2 * lt;
   if (col >= OUT || j0 + col >= p.n) return;
   float a0 = 0.f, a1 = 0.f, q0 = 0.f, q1 = 0.f;
@@ -303,11 +479,7 @@ __device__ __forceinline__ void column_sums(const GemmParams& p, const uint8_t* 
     q0 = fmaf(v.x, v.x, q0);
     q1 = fmaf(v.y, v.y, q1);
   }
-  const size_t o = (size_t)slab * p.n + j0 + col;
-  atomicAdd(p.s1 + o, a0);
-  atomicAdd(p.s1 + o + 1, a1);
-  atomicAdd(p.s2 + o, q0);
-  atomicAdd(p.s2 + o + 1, q1);
+  slab_sums_write(p.sums, p.n, slab, sub, ct, OUT, lt, a0, a1, q0, q1);
 }
 
 template <int BN, bool GEGLU, typename Owner, bool SLABS = false>
@@ -418,9 +590,20 @@ tma_gemm_kernel(const __grid_constant__ GemmParams p) {
       bulk_commit();
     }
     if constexpr (SLABS) {
-      if (me.on) column_sums<Chunks, L::OUT>(p, out_ptr, j0, me.slab, min(64, p.s - row0), lt);
+      if (me.on)
+        column_sums<Chunks, L::OUT>(p, out_ptr, j0, ct, me.slab, row0 / 64, min(64, p.s - row0),
+                                    lt);
       named_bar_sync(1 + wg, 128);  // the sums have read the tile before the next residual load
     }
+  }
+  if constexpr (SLABS) {  // the tickets of this warp's sub-tiles, one a tile
+    const int count = blockIdx.x < p.tiles ? (p.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+    slab_sums_finish(p.sums, p.n, L::OUT, count, [&](int i) {
+      const int tile = blockIdx.x + i * gridDim.x, ct = tile % p.col_tiles;
+      const SlabRows r = slab_rows(p, tile / p.col_tiles, wg);
+      return r.on && warp_sums(p.sums, p.n, ct, L::OUT, lt >> 5) ? SumsSlot{r.slab, r.s0 / 64, ct}
+                                                                : SumsSlot{-1, 0, 0};
+    }, lt);
   }
   if (lt == 0) bulk_wait();
 }
@@ -472,14 +655,20 @@ int gemm_bias_residual(const void* a, const void* w, const void* bias, const voi
 }
 
 // The slab form: h (slabs, s, k), y and res (slabs, s, n); y = h·wᵀ + bias +
-// res with Σy, Σy² of the stored y per (slab, column) added into s1, s2
-// (slabs, n), zeroed by the caller.  Tile width bn in 256, 160, 128, 64
-// (the launch plan's, ops/proj_residual.py::launch_plan).
+// res with Σy, Σy² of the stored y per (slab, column) written into s1, s2
+// (slabs, n) in fixed order through `part` (2·slabs·(subs + groups)·n fp32
+// scratch where s > 64: subs = ⌈s/64⌉ sub-tiles a slab, groups = ⌈subs/FAN⌉)
+// and `tickets` (slabs·(groups + 1)·⌈n/bn⌉·4 zeroed ints, left zeroed).
+// Tile width bn in 256, 160, 128, 64 (the launch plan's,
+// ops/proj_residual.py::launch_plan).
 template <typename Owner>
 int gemm_bias_residual_stats(const void* a, const void* w, const void* bias, const void* res,
-                             void* y, float* s1, float* s2, int slabs, int s, int n, int k,
-                             int bn, int stages, int grid, int smem, cudaStream_t stream) {
-  if (slabs < 1 || s < 1 || res == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                             void* y, float* s1, float* s2, float* part, int* tickets, int slabs,
+                             int s, int n, int k, int bn, int stages, int grid, int smem,
+                             cudaStream_t stream) {
+  if (slabs < 1 || s < 1 || res == nullptr || tickets == nullptr ||
+      (s > 64 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   GemmParams p = {};
   p.bias = static_cast<const float*>(bias);
   p.m = slabs * s;
@@ -488,10 +677,9 @@ int gemm_bias_residual_stats(const void* a, const void* w, const void* bias, con
   p.s = s;
   p.subs_per_slab = (s + 63) / 64;
   p.subs = slabs * p.subs_per_slab;
-  p.s1 = s1;
-  p.s2 = s2;
   p.col_tiles = (n + bn - 1) / bn;
   p.tiles = (p.subs + 1) / 2 * p.col_tiles;
+  p.sums = SlabSums{s1, s2, part, tickets, slabs, p.subs_per_slab, p.col_tiles};
   p.stages = stages;
   switch (bn) {
     case 256: return launch_gemm<256, false, Owner, true>(p, a, w, n, y, res, grid, smem, stream);

@@ -21,9 +21,10 @@
 //   during the mainloop; the epilogue adds bias and residual in fp32 over
 //   it, rounds to bf16 and stores it with one TMA store;
 // - then each warpgroup sums its stored tile's columns over the slab's rows
-//   and adds Σy, Σy² with one fp32 atomic per column into buffers the
-//   wrapper zeroed (the TPU accumulated them on a sequential grid axis;
-//   Hopper blocks finish in no order), as kernel 3 does;
+//   into per-sub-tile partials, which a tree of tickets adds in one fixed
+//   order (gemm.cuh's slab sums), as kernel 3 does: the TPU accumulated
+//   them on a sequential grid axis, one fixed order, and so does this,
+//   though Hopper blocks finish in no order;
 // - the tile width comes from the wrapper's launch plan
 //   (ops/proj_residual.py::launch_plan), the fewest waves of tile work
 //   (ops/geglu.py::pick_width): 160 at c = 320 and 640, where 64-column
@@ -35,16 +36,20 @@
 #include "gemm.cuh"
 
 // h: (n, s, k) bf16; w: (c, k) bf16 (torch Linear layout); bias: (c,) fp32;
-// res, y: (n, s, c) bf16; s1, s2: (n, c) fp32, zeroed by the caller.
-// k % 8 == 0, c % 8 == 0, all 16-byte aligned.  The launch plan: tile width
-// bn (256, 160, 128 or 64 output columns), ring stages, persistent grid and
-// dynamic shared bytes.
+// res, y: (n, s, c) bf16; s1, s2: (n, c) fp32, written; part: (2, n,
+// subs + groups, c) fp32 scratch (subs = ⌈s/64⌉, groups = ⌈subs/8⌉; unused,
+// may be null, at s <= 64); tickets: n·(groups + 1)·⌈c/bn⌉·4 zeroed ints,
+// left zeroed.  k % 8 == 0, c % 8 == 0, all 16-byte
+// aligned.  The launch plan: tile width bn (256, 160, 128 or 64 output
+// columns), ring stages, persistent grid and dynamic shared bytes.
 AAT_EXPORT int aat_proj_residual(const void* h, const void* w, const void* bias, const void* res,
-                                 void* y, void* s1, void* s2, int n, int s, int k, int c, int bn,
-                                 int stages, int grid, int smem, void* stream) {
+                                 void* y, void* s1, void* s2, void* part, void* tickets, int n,
+                                 int s, int k, int c, int bn, int stages, int grid, int smem,
+                                 void* stream) {
   using namespace aat;
   if (k % 8 != 0 || c % 8 != 0 || k < 8 || c < 8) return static_cast<int>(cudaErrorInvalidValue);
   return gemm::gemm_bias_residual_stats<proj_residual>(
-      h, w, bias, res, y, static_cast<float*>(s1), static_cast<float*>(s2), n, s, c, k, bn,
-      stages, grid, smem, static_cast<cudaStream_t>(stream));
+      h, w, bias, res, y, static_cast<float*>(s1), static_cast<float*>(s2),
+      static_cast<float*>(part), static_cast<int*>(tickets), n, s, c, k, bn, stages, grid, smem,
+      static_cast<cudaStream_t>(stream));
 }

@@ -57,12 +57,13 @@
 //   residual, prefetched into L2 by TMA at the tile's start and read from
 //   there) in fp32, rounded to bf16 into the warpgroup's 64 x NB output
 //   tile in TMA's swizzle and stored with one TMA store; then each thread
-//   sums two columns of the stored tile over the slab's rows and adds Σy,
-//   Σy² with one fp32 atomic per column and warpgroup into buffers the
-//   wrapper zeroed (tiles finish in no order; the TPU kernel accumulated
-//   across a sequential grid axis).  Writing y and the sums straight from
-//   registers (16-byte pieces, an atomic per column and warp) took half
-//   the time of a tile's mainloop again.
+//   sums two columns of the stored tile over the sub-tile's rows into the
+//   sub-tile's partials, which gemm.cuh's tree of tickets adds in one fixed
+//   order after the last tile (slab_sums_write / slab_sums_finish): Σy, Σy²
+//   have one order, as the TPU kernel's, accumulated across a sequential
+//   grid axis, had, though tiles finish in no order.  Writing y and the
+//   sums straight from registers (16-byte pieces, an atomic per column and
+//   warp) took half the time of a tile's mainloop again.
 // Tiles, ring depth, grid and shared-memory bytes come from the wrapper's
 // launch plan (ops/temporal_conv.py::launch_plan), checked here.  The TPU's
 // c <= 640 gate was a VMEM limit: this kernel runs at every width.
@@ -104,8 +105,7 @@ struct TapParams {
   const float* a;      // (bsz, cin) fp32
   const float* sh;     // (bsz, cin) fp32
   const float* bias;   // (cout,) fp32
-  float* s1;           // (bsz, f, cout) fp32, zeroed
-  float* s2;
+  gemm::SlabSums sums;  // Σy, Σy² per (bsz·f slab, cout)
   int f, s, cin, cout;
   int subs_per_slab, subs;  // 64-row sub-tiles a (batch, frame) slab; in all
   int col_tiles, tiles, nkc, stages;
@@ -226,8 +226,9 @@ __device__ __forceinline__ void activate(uint4* half, const float* __restrict__ 
 // bias (+ residual, read from L2) in fp32, rounded to bf16 into the output
 // tile `out` (shared), stored with one TMA store per chunk (rows past s are
 // not written); then Σy, Σy² of the stored values over the sub-tile's
-// `rows` rows, two columns a thread, one fp32 atomic each into the slab's
-// sums.  The caller has made `out` free (the last store has read it).
+// `rows` rows, two columns a thread, written as the sub-tile's partials of
+// the slab's fixed-order sums (their tickets are taken after the last
+// tile).  The caller has made `out` free (the last store has read it).
 template <int NB>
 __device__ __forceinline__ void tap_epilogue(const TapParams& p, const float* acc, uint8_t* out,
                                              uint32_t out_s, int n0, const Half& me,
@@ -263,8 +264,8 @@ __device__ __forceinline__ void tap_epilogue(const TapParams& p, const float* ac
     bulk_commit();
   }
   const int rows = min(SUB, p.s - me.s0), col = 2 * lt;
+  float a0 = 0.f, a1 = 0.f, q0 = 0.f, q1 = 0.f;
   if (col < NB && n0 + col < p.cout) {
-    float a0 = 0.f, a1 = 0.f, q0 = 0.f, q1 = 0.f;
     for (int r = 0; r < rows; ++r) {
       const float2 v = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(out + out_offset<Chunks>(r, col)));
@@ -273,12 +274,8 @@ __device__ __forceinline__ void tap_epilogue(const TapParams& p, const float* ac
       q0 = fmaf(v.x, v.x, q0);
       q1 = fmaf(v.y, v.y, q1);
     }
-    const size_t o = (size_t)me.slab * p.cout + n0 + col;
-    atomicAdd(p.s1 + o, a0);
-    atomicAdd(p.s1 + o + 1, a1);
-    atomicAdd(p.s2 + o, q0);
-    atomicAdd(p.s2 + o + 1, q1);
   }
+  gemm::slab_sums_write(p.sums, p.cout, me.slab, me.s0 / SUB, n0 / NB, NB, lt, a0, a1, q0, q1);
 }
 
 template <int NB>
@@ -386,6 +383,16 @@ tap_conv_kernel(const __grid_constant__ TapParams p) {
       }
     }
   }
+  // the tickets of this warp's sub-tiles, one a tile and accumulator
+  const int tiles = blockIdx.x < p.tiles ? (p.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  gemm::slab_sums_finish(p.sums, p.cout, NB, tiles * NACC, [&](int i) {
+    const int tile = blockIdx.x + (i / NACC) * gridDim.x;
+    const int chunk = (tile % p.col_tiles) * NACC + i % NACC;
+    const Half me = half_of(p, tile, wg);
+    return me.on && gemm::warp_sums(p.sums, p.cout, chunk, NB, lt >> 5)
+               ? gemm::SumsSlot{me.slab, me.s0 / SUB, chunk}
+               : gemm::SumsSlot{-1, 0, 0};
+  }, lt);
   if (lt == 0) bulk_wait();
 }
 
@@ -418,25 +425,26 @@ int launch(TapParams& p, const void* x, const void* w, const void* y, const void
 
 // x: (bsz, f, s, cin) bf16; a, sh: (bsz, cin) fp32; w: (cout, 3, cin) bf16;
 // bias: (cout,) fp32; res: (bsz, f, s, cout) bf16 or null; y: (bsz, f, s, cout)
-// bf16; s1, s2: (bsz, f, cout) fp32, zeroed by the caller.  cin % 32 == 0,
-// cout % 8 == 0, all 16-byte aligned.  The launch plan
-// (ops/temporal_conv.py::launch_plan): tile width bn (320 = 2 x 160 or 256 =
-// 2 x 128 output columns), ring stages, persistent grid and dynamic shared
-// bytes.
+// bf16; s1, s2: (bsz, f, cout) fp32, written; part: (2, bsz·f, subs + groups,
+// cout) fp32 scratch (subs = ⌈s/64⌉, groups = ⌈subs/8⌉; unused, may be null,
+// at s <= 64); tickets: bsz·f·(groups + 1)·⌈cout/bn⌉·2·4 zeroed ints, left
+// zeroed.  cin % 32 == 0, cout % 8 == 0, all 16-byte
+// aligned.  The launch plan (ops/temporal_conv.py::launch_plan): tile width
+// bn (320 = 2 x 160 or 256 = 2 x 128 output columns), ring stages,
+// persistent grid and dynamic shared bytes.
 AAT_EXPORT int aat_tap_conv(const void* x, const void* a, const void* sh, const void* w,
                             const void* bias, const void* res, void* y, void* s1, void* s2,
-                            int bsz, int f, int s, int cin, int cout, int bn, int stages, int grid,
-                            int smem, void* stream) {
+                            void* part, void* tickets, int bsz, int f, int s, int cin, int cout,
+                            int bn, int stages, int grid, int smem, void* stream) {
   using namespace aat;
-  if (bsz < 1 || f < 1 || s < 1 || cin % 32 != 0 || cin < 32 || cout % 8 != 0 || cout < 8)
+  if (bsz < 1 || f < 1 || s < 1 || cin % 32 != 0 || cin < 32 || cout % 8 != 0 || cout < 8 ||
+      tickets == nullptr || (s > SUB && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   TapParams p = {};
   p.r = static_cast<const bf16*>(res);
   p.a = static_cast<const float*>(a);
   p.sh = static_cast<const float*>(sh);
   p.bias = static_cast<const float*>(bias);
-  p.s1 = static_cast<float*>(s1);
-  p.s2 = static_cast<float*>(s2);
   p.f = f;
   p.s = s;
   p.cin = cin;
@@ -447,6 +455,9 @@ AAT_EXPORT int aat_tap_conv(const void* x, const void* a, const void* sh, const 
   p.tiles = (p.subs + 1) / 2 * p.col_tiles;
   p.nkc = (cin + 63) / 64;
   p.stages = stages;
+  p.sums = gemm::SlabSums{static_cast<float*>(s1), static_cast<float*>(s2),
+                          static_cast<float*>(part), static_cast<int*>(tickets), bsz * f,
+                          p.subs_per_slab, p.col_tiles * NACC};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 320: return launch<160>(p, x, w, y, res, bsz, grid, smem, st);

@@ -107,24 +107,34 @@ def dpmpp_step(schedule: DiffusionSchedule, tables: DpmppTables, state: SamplerS
 
 
 def sample_loop(schedule: DiffusionSchedule, latents: torch.Tensor, timesteps: np.ndarray,
-                model_fn: Callable[[torch.Tensor, int], torch.Tensor],
-                sampler: str = "dpmpp") -> torch.Tensor:
+                model_fn: Callable, sampler: str = "dpmpp", model_state=None) -> torch.Tensor:
     """Run the denoise loop; model_fn(latents, t) → model output. DDIM steps
     from each t to t − T // len(timesteps), as JAX's loop does, also on a
-    truncated grid whose own spacing is wider (ROADMAP queue 3)."""
+    truncated grid whose own spacing is wider (ROADMAP queue 3).
+
+    ``model_state``: an optional carry threaded through the loop: when given,
+    ``model_fn(latents, t, i, state)`` → ``(out, state)`` (step-dependent
+    model behaviour: the PAB delta cache, ``models/pab.py``)."""
     ts = np.asarray(timesteps)
+    carry = model_state
+
+    def call(x, i):
+        nonlocal carry
+        if model_state is None:
+            return model_fn(x, int(ts[i]))
+        out, carry = model_fn(x, int(ts[i]), i, carry)
+        return out
+
     if sampler == "dpmpp":
         tables = dpmpp_init(schedule, ts)
         state = SamplerState(sample=latents, aux=torch.zeros_like(latents))
         for i in range(len(ts)):
-            out = model_fn(state.sample, int(ts[i]))
-            state = dpmpp_step(schedule, tables, state, out, i)
+            state = dpmpp_step(schedule, tables, state, call(state.sample, i), i)
         return state.sample
     if sampler == "ddim":
         step_gap = schedule.num_train_timesteps // len(ts) if len(ts) else 0
         sample = latents
-        for t in ts:
-            sample = ddim_step(schedule, sample, model_fn(sample, int(t)), int(t),
-                               int(t) - step_gap)
+        for i, t in enumerate(ts):
+            sample = ddim_step(schedule, sample, call(sample, i), int(t), int(t) - step_gap)
         return sample
     raise ValueError(f"unknown sampler {sampler}")

@@ -23,6 +23,10 @@ Under ``attn_impl="pallas"``:
   kernel 2's tail: a shape gate on both devices, not a fallback. The
   output projection runs kernel 4.
 
+Under a PAB cache (``pab=``, ``models/pab.py``) both transformers return
+``delta + x`` with the delta from the cache or from their body with a plain
+``proj_out``, and no output sums, as JAX's ``pab_reuse`` branch does.
+
 Under ``attn_impl="xla"`` or ``"packed"`` (JAX's composite configuration):
 all attention goes to ``ops/attention.xla_attention`` (SDPA on the card),
 the feed-forward is norm3 + the exact-erf GEGLU, the output projection a
@@ -50,13 +54,16 @@ from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, t
 
 class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when context is None. Keys:
-    to_q/to_k/to_v (no bias), to_out.0 (bias)."""
+    to_q/to_k/to_v (no bias), to_out.0 (bias). ``path``: the module path a
+    UNet gives it (``utils/ptp.tag_attention_paths``), tagged on every call
+    with whether it attends to a context, as JAX's ``tag``."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None,
                  attn_impl: str = "pallas"):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim, self.attn_impl = heads, head_dim, attn_impl
+        self.path: tuple = ()
         self.to_q = Linear(dim, inner, bias=False)
         self.to_k = Linear(context_dim or dim, inner, bias=False)
         self.to_v = Linear(context_dim or dim, inner, bias=False)
@@ -69,7 +76,8 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).reshape(b, sq, self.heads, self.head_dim)
         k = self.to_k(ctx).reshape(b, sk, self.heads, self.head_dim)
         v = self.to_v(ctx).reshape(b, sk, self.heads, self.head_dim)
-        out = attention(q, k, v, impl=self.attn_impl).reshape(b, sq, self.heads * self.head_dim)
+        out = attention(q, k, v, impl=self.attn_impl, tag=(self.path, context is not None))
+        out = out.reshape(b, sq, self.heads * self.head_dim)
         return self.to_out[0](out)
 
 
@@ -142,20 +150,35 @@ class SpatialTransformer(nn.Module):
              for _ in range(num_layers)])
         self.proj_out = Linear(inner, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, entry_sums=None):
+    def forward(self, x: torch.Tensor, context: torch.Tensor, entry_sums=None, pab=None):
         """x (b·f, h, w, c), context (b·f, seq, ctx_dim) → (y, out_sums) with
-        out_sums the per-(b·f, c) fp32 (Σy, Σy²), None off ``"pallas"``."""
+        out_sums the per-(b·f, c) fp32 (Σy, Σy²), None off ``"pallas"`` and
+        under ``pab`` (a ``models/pab.PABStep``: the delta cached or
+        computed by its ``"spatial"`` flag)."""
         bf, hh, ww, c = x.shape
-        h = self.norm(x, sums=entry_sums).reshape(bf, hh * ww, c)
-        h = self.proj_in(h)
-        for block in self.transformer_blocks:
-            h = block(h, context)
+        if pab is not None:
+            delta = pab.cache.delta(self, x, pab.flag("spatial"), self.proj_out.weight.dtype,
+                                    lambda: self._delta(x, context, entry_sums))
+            return delta + x, None
+        h = self._hidden(x, context, entry_sums)
         if self.attn_impl != "pallas":
             return self.proj_out(h).reshape(bf, hh, ww, c) + x, None
         dt = self.proj_out.weight.dtype
         y, sums = proj_residual_stats(h.to(dt), self.proj_out.weight, self.proj_out.bias,
                                       x.reshape(bf, hh * ww, c).to(dt))
         return y.reshape(bf, hh, ww, c), sums
+
+    def _hidden(self, x, context, entry_sums=None):
+        """The entry GroupNorm, proj_in and the blocks: (b·f, h·w, inner)."""
+        bf, hh, ww, c = x.shape
+        h = self.proj_in(self.norm(x, sums=entry_sums).reshape(bf, hh * ww, c))
+        for block in self.transformer_blocks:
+            h = block(h, context)
+        return h
+
+    def _delta(self, x, context, entry_sums=None):
+        """The residual delta, ``proj_out`` a plain Linear (JAX's ``_delta``)."""
+        return self.proj_out(self._hidden(x, context, entry_sums)).reshape(x.shape)
 
 
 class TemporalSelfAttention(nn.Module):
@@ -230,23 +253,39 @@ class TemporalTransformer(nn.Module):
             [TemporalBasicBlock(inner, heads, head_dim, attn_impl) for _ in range(num_layers)])
         self.proj_out = Linear(inner, channels)
 
-    def forward(self, x: torch.Tensor, num_frames: int, entry_sums=None):
-        """x (b·f, h, w, c) → (y, out_sums), out_sums None off ``"pallas"``.
+    def forward(self, x: torch.Tensor, num_frames: int, entry_sums=None, pab=None):
+        """x (b·f, h, w, c) → (y, out_sums), out_sums None off ``"pallas"``
+        and under ``pab`` (its ``"temporal"`` flag; see SpatialTransformer).
         entry_sums: per-(b, c) sums for the entry GroupNorm, whose statistics
         pool over (f, h, w) per batch (torch GroupNorm on (b, c, f, h, w))."""
         bf, hh, ww, c = x.shape
-        b = bf // num_frames
-        h = self.norm(x.reshape(b, num_frames, hh, ww, c), sums=entry_sums)
-        h = self.proj_in(h.reshape(b, num_frames, hh * ww, c))
-        pallas = self.attn_impl == "pallas"
-        inner = self.heads * self.head_dim
-        fused = pallas and fused_ok(num_frames, inner, self.heads, self.head_dim)
-        kernel5 = kernel_ok(num_frames, inner, self.heads)
-        for block in self.transformer_blocks:
-            h = block(h, fused, kernel5)
-        if not pallas:
+        if pab is not None:
+            delta = pab.cache.delta(self, x, pab.flag("temporal"), self.proj_out.weight.dtype,
+                                    lambda: self._delta(x, num_frames, entry_sums))
+            return delta + x, None
+        h = self._hidden(x, num_frames, entry_sums)
+        if self.attn_impl != "pallas":
             return self.proj_out(h).reshape(bf, hh, ww, c) + x, None
         dt = self.proj_out.weight.dtype
         y, sums = proj_residual_stats(h.reshape(bf, hh * ww, -1).to(dt), self.proj_out.weight,
                                       self.proj_out.bias, x.reshape(bf, hh * ww, c).to(dt))
         return y.reshape(bf, hh, ww, c), sums
+
+    def _hidden(self, x, num_frames: int, entry_sums=None):
+        """The entry GroupNorm, proj_in and the blocks on the (b, f, h·w,
+        inner) view."""
+        bf, hh, ww, c = x.shape
+        b = bf // num_frames
+        h = self.norm(x.reshape(b, num_frames, hh, ww, c), sums=entry_sums)
+        h = self.proj_in(h.reshape(b, num_frames, hh * ww, c))
+        inner = self.heads * self.head_dim
+        fused = self.attn_impl == "pallas" and fused_ok(num_frames, inner, self.heads,
+                                                        self.head_dim)
+        kernel5 = kernel_ok(num_frames, inner, self.heads)
+        for block in self.transformer_blocks:
+            h = block(h, fused, kernel5)
+        return h
+
+    def _delta(self, x, num_frames: int, entry_sums=None):
+        """The residual delta, ``proj_out`` a plain Linear (JAX's ``_delta``)."""
+        return self.proj_out(self._hidden(x, num_frames, entry_sums)).reshape(x.shape)

@@ -34,8 +34,10 @@ Parameter names are the diffusers keys that JAX's ``export_svd_unet``
 writes (``utils/convert.py::svd_unet_state_dict``), so they load with
 ``strict=True``. ``gradient_checkpointing`` recomputes each
 ``SpatioTemporalResBlock`` and ``TransformerSpatioTemporalModel`` in the
-backward while autograd records (JAX's per-sub-layer ``nn.remat``). Not
-ported: PAB step caching (ROADMAP queue E, item 17).
+backward while autograd records (JAX's per-sub-layer ``nn.remat``).
+``pab`` (a ``models/pab.PABStep`` with one flag) reaches every
+``TransformerSpatioTemporalModel``: on a reuse step it adds its cached
+residual delta and runs nothing else.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from animate_anything_tpu_torch.models.unet3d_blocks import run_layer
 from animate_anything_tpu_torch.ops.group_norm import group_norm_silu
 from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, temporal_block
 from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv
+from animate_anything_tpu_torch.utils.ptp import tag_attention_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,8 +266,17 @@ class TransformerSpatioTemporalModel(nn.Module):
         self.time_mixer = AlphaBlender()
         self.proj_out = Linear(inner, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, num_frames: int) -> torch.Tensor:
-        """x (b·f, h, w, c), context (b, L, ctx) → (b·f, h, w, c)."""
+    def forward(self, x: torch.Tensor, context: torch.Tensor, num_frames: int,
+                pab=None) -> torch.Tensor:
+        """x (b·f, h, w, c), context (b, L, ctx) → (b·f, h, w, c); under
+        ``pab`` the residual delta is cached or computed by its flag."""
+        if pab is None:
+            return self._delta(x, context, num_frames) + x
+        delta = pab.cache.delta(self, x, pab.flag("spatial"), self.proj_out.weight.dtype,
+                                lambda: self._delta(x, context, num_frames))
+        return delta + x
+
+    def _delta(self, x: torch.Tensor, context: torch.Tensor, num_frames: int) -> torch.Tensor:
         bf, hh, ww, c = x.shape
         f = num_frames
         b = bf // f
@@ -280,7 +292,7 @@ class TransformerSpatioTemporalModel(nn.Module):
             hm = h.reshape(b, f, hh * ww, inner) + f_emb[None, :, None, :]
             hm = self.temporal_transformer_blocks[0](hm, context)
             h = self.time_mixer(h, hm.reshape(bf, hh * ww, inner))
-        return self.proj_out(h).reshape(bf, hh, ww, c) + x
+        return self.proj_out(h).reshape(bf, hh, ww, c)
 
 
 class BlockContainers(nn.Module):
@@ -349,6 +361,8 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(32, ch0, eps=eps)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        # JAX names the mid transformer ``mid_attentions_0``: no "mid" place
+        tag_attention_paths(self, {"mid_block": "mid_attentions"})
 
     def with_attn_impl(self, attn_impl: str) -> "UNetSpatioTemporalConditionModel":
         """This UNet under another ``attn_impl``, sharing its parameters."""
@@ -359,10 +373,11 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         return other.train(self.training)
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
-                added_time_ids: torch.Tensor) -> torch.Tensor:
+                added_time_ids: torch.Tensor, pab=None) -> torch.Tensor:
         """sample (b, f, h, w, in_channels), timestep () or (b,) continuous
         (never rounded), encoder_hidden_states (b, L, cross_dim),
-        added_time_ids (b, 3) → (b, f, h, w, out_channels)."""
+        added_time_ids (b, 3) → (b, f, h, w, out_channels). ``pab``: this
+        step's ``models/pab.PABStep`` (one flag), or None."""
         cfg = self.config
         b, f, hh, ww, _ = sample.shape
         ch0 = cfg.block_out_channels[0]
@@ -383,7 +398,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             for j, resnet in enumerate(blk.resnets):
                 x = run_layer(remat, resnet, x, emb, f)
                 if len(blk.attentions):
-                    x = run_layer(remat, blk.attentions[j], x, ctx, f)
+                    x = run_layer(remat, blk.attentions[j], x, ctx, f, pab)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
@@ -391,14 +406,14 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         mid = self.mid_block
         x = run_layer(remat, mid.resnets[0], x, emb, f)
-        x = run_layer(remat, mid.attentions[0], x, ctx, f)
+        x = run_layer(remat, mid.attentions[0], x, ctx, f, pab)
         x = run_layer(remat, mid.resnets[1], x, emb, f)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):
                 x = run_layer(remat, resnet, torch.cat([x, skips.pop()], dim=-1), emb, f)
                 if len(blk.attentions):
-                    x = run_layer(remat, blk.attentions[j], x, ctx, f)
+                    x = run_layer(remat, blk.attentions[j], x, ctx, f, pab)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x, tuple(skips[-1].shape[1:3]))
 

@@ -5,6 +5,7 @@ Words hash (md5) into the CLIP vocab range, with BOS/EOS at its last two
 ids, so a pipeline runs end to end without tokenizer files. The JAX package
 falls back to it when a run has no ``tokenizer/`` directory; the ids equal
 JAX's. Checkpoints with tokenizer files use ``clip_tokenizer.CLIPBPETokenizer``.
+``decode`` is the best-effort inverse: the words it has hashed.
 """
 
 from __future__ import annotations
@@ -18,14 +19,21 @@ class HashTokenizer:
     def __init__(self, vocab_size: int = 49408, model_max_length: int = 77):
         self.vocab_size = vocab_size
         self.model_max_length = model_max_length
+        self._id2word: dict = {}
 
     def _word_id(self, w: str) -> int:
-        return int(hashlib.md5(w.encode()).hexdigest(), 16) % (self.vocab_size - 2)
+        h = int(hashlib.md5(w.encode()).hexdigest(), 16) % (self.vocab_size - 2)
+        self._id2word[h] = w
+        return h
 
     def encode(self, text: str) -> list[int]:
         """BOS + per-word ids + EOS (CLIPTokenizer.encode-compatible shape)."""
         bos, eos = self.vocab_size - 2, self.vocab_size - 1
         return [bos] + [self._word_id(w) for w in text.lower().split()] + [eos]
+
+    def decode(self, ids) -> str:
+        """The words seen for ``ids``, space-separated ("" for unseen ids)."""
+        return " ".join(self._id2word.get(int(i), "") for i in np.atleast_1d(np.asarray(ids)))
 
     def __call__(self, text, padding=None, truncation=True, max_length=77,
                  return_tensors="np", **kw):

@@ -38,6 +38,7 @@ from animate_anything_tpu_torch.models.layers import (Conv2d, FusedGroupNorm, Ti
 from animate_anything_tpu_torch.models.unet3d_blocks import (CrossAttnDownBlock3D,
                                                              CrossAttnUpBlock3D, DownBlock3D,
                                                              UNetMidBlock3DCrossAttn, UpBlock3D)
+from animate_anything_tpu_torch.utils.ptp import tag_attention_paths
 
 
 ATTN_IMPLS = ("pallas", "xla", "packed")
@@ -147,6 +148,7 @@ class UNet3DConditionModel(nn.Module):
 
         self.conv_norm_out = FusedGroupNorm(ch0, g, eps, silu=True)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        tag_attention_paths(self)
 
     def with_attn_impl(self, attn_impl: str) -> "UNet3DConditionModel":
         """This UNet under another ``attn_impl``: the parameters are the same
@@ -158,10 +160,12 @@ class UNet3DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 condition_latent: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                motion: Optional[torch.Tensor] = None) -> torch.Tensor:
+                motion: Optional[torch.Tensor] = None, pab=None) -> torch.Tensor:
         """sample (b, f, h, w, c_in), timestep () or (b,), encoder_hidden_states
         (b, seq, cross_dim), condition_latent (b, 1, h, w, c_in), mask
-        (b, 1, h, w, 1) with 1 = may move, motion (b,) → (b, f, h, w, c_out)."""
+        (b, 1, h, w, 1) with 1 = may move, motion (b,) → (b, f, h, w, c_out).
+        ``pab``: this step's ``models/pab.PABStep`` (``{"spatial",
+        "temporal"}`` flags), or None for the exact forward."""
         cfg = self.config
         ch0 = cfg.block_out_channels[0]
         dt = self.time_embedding.linear_1.weight.dtype
@@ -201,20 +205,20 @@ class UNet3DConditionModel(nn.Module):
 
         cur_sums = None
         if nf > 1:
-            x, cur_sums = self.transformer_in(x, nf)
+            x, cur_sums = self.transformer_in(x, nf, None, pab)
 
         # 4. down
         skips, skip_sums = [x], [cur_sums]
         for blk in self.down_blocks:
             if isinstance(blk, CrossAttnDownBlock3D):
-                x, outs, outs_sums, cur_sums = blk(x, emb, context, nf, cur_sums)
+                x, outs, outs_sums, cur_sums = blk(x, emb, context, nf, cur_sums, pab)
             else:
                 x, outs, outs_sums, cur_sums = blk(x, emb, nf, cur_sums)
             skips.extend(outs)
             skip_sums.extend(outs_sums)
 
         # 5. mid
-        x, cur_sums = self.mid_block(x, emb, context, nf, cur_sums)
+        x, cur_sums = self.mid_block(x, emb, context, nf, cur_sums, pab)
 
         # 6. up; the upsample size follows the skip stack
         n_layers = cfg.layers_per_block + 1
@@ -223,7 +227,8 @@ class UNet3DConditionModel(nn.Module):
             del skips[-n_layers:], skip_sums[-n_layers:]
             size = tuple(skips[-1].shape[1:3]) if skips else None
             if isinstance(blk, CrossAttnUpBlock3D):
-                x, cur_sums = blk(x, block_skips, emb, context, nf, cur_sums, block_sums, size)
+                x, cur_sums = blk(x, block_skips, emb, context, nf, cur_sums, block_sums, size,
+                                 pab)
             else:
                 x, cur_sums = blk(x, block_skips, emb, nf, cur_sums, block_sums, size)
 

@@ -9,6 +9,10 @@ Block graphs as in the reference:
 - DownBlock3D / UpBlock3D: [resnet → temp_conv];
 - temporal modules are skipped when num_frames == 1.
 
+``pab`` (a ``models/pab.PABStep``, JAX's ``pab_reuse`` with the request's
+cache) reaches every spatial and temporal transformer of the cross-attention
+blocks.
+
 GroupNorm sums thread between producers and consumers: under
 ``attn_impl="pallas"`` each kernel epilogue (temporal conv, transformer
 output projection) hands per-(b·f, c) (Σ, Σ²) to the next GroupNorm,
@@ -92,7 +96,7 @@ class CrossAttnDownBlock3D(_Layered):
                     cross_attention_dim, attn_impl)
         self.downsamplers = nn.ModuleList([Downsample2D(out_channels)]) if add_downsample else None
 
-    def forward(self, x, temb, context, num_frames: int, in_sums=None):
+    def forward(self, x, temb, context, num_frames: int, in_sums=None, pab=None):
         outputs, out_sums, cur = [], [], in_sums
         for resnet, tconv, attn, tattn in zip(self.resnets, self.temp_convs, self.attentions,
                                               self.temp_attentions):
@@ -100,11 +104,11 @@ class CrossAttnDownBlock3D(_Layered):
             entry = None
             if num_frames > 1:
                 x, entry = run_layer(self.remat, tconv, x, num_frames)
-            x, sp = run_layer(self.remat, attn, x, context, entry)
+            x, sp = run_layer(self.remat, attn, x, context, entry, pab)
             cur = sp
             if num_frames > 1:
                 x, cur = run_layer(self.remat, tattn, x, num_frames,
-                              _fold_frames(sp, num_frames))
+                                   _fold_frames(sp, num_frames), pab)
             outputs.append(x)
             out_sums.append(cur)
         if self.downsamplers is not None:
@@ -162,18 +166,18 @@ class UNetMidBlock3DCrossAttn(nn.Module):
             [TemporalTransformer(in_channels, heads, head_dim, groups=groups, attn_impl=attn_impl)
              for _ in range(num_layers)])
 
-    def forward(self, x, temb, context, num_frames: int, in_sums=None):
+    def forward(self, x, temb, context, num_frames: int, in_sums=None, pab=None):
         x = run_layer(self.remat, self.resnets[0], x, temb, in_sums)
         entry = None
         if num_frames > 1:
             x, entry = run_layer(self.remat, self.temp_convs[0], x, num_frames)
         cur = entry
         for i, (attn, tattn) in enumerate(zip(self.attentions, self.temp_attentions)):
-            x, sp = run_layer(self.remat, attn, x, context, entry)
+            x, sp = run_layer(self.remat, attn, x, context, entry, pab)
             cur = sp
             if num_frames > 1:
                 x, cur = run_layer(self.remat, tattn, x, num_frames,
-                              _fold_frames(sp, num_frames))
+                                   _fold_frames(sp, num_frames), pab)
             x = run_layer(self.remat, self.resnets[i + 1], x, temb, cur)
             entry = None
             if num_frames > 1:
@@ -197,7 +201,7 @@ class CrossAttnUpBlock3D(_Layered):
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
 
     def forward(self, x, skips, temb, context, num_frames: int, in_sums=None, skip_sums=None,
-                output_size=None):
+                output_size=None, pab=None):
         cur = in_sums
         for resnet, tconv, attn, tattn in zip(self.resnets, self.temp_convs, self.attentions,
                                               self.temp_attentions):
@@ -207,11 +211,11 @@ class CrossAttnUpBlock3D(_Layered):
             entry = None
             if num_frames > 1:
                 x, entry = run_layer(self.remat, tconv, x, num_frames)
-            x, sp = run_layer(self.remat, attn, x, context, entry)
+            x, sp = run_layer(self.remat, attn, x, context, entry, pab)
             cur = sp
             if num_frames > 1:
                 x, cur = run_layer(self.remat, tattn, x, num_frames,
-                              _fold_frames(sp, num_frames))
+                                   _fold_frames(sp, num_frames), pab)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, output_size)
             cur = None

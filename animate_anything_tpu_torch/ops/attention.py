@@ -22,15 +22,26 @@ by name, as in JAX:
   is no option on the card: at s = 4096 over 34 × 5 heads its fp32 scores
   alone would take ~11 GB.
 
-The default implementation is ``"pallas"``, where JAX's is ``"xla"``: every
-caller of the port (the pipeline, the trainer, ``UNet3DConfig``) means the
-JAX package's ``attn_impl="pallas"`` configuration. The models pass the
-configuration's ``attn_impl`` to every call; the port has no process-wide
-default to set (JAX's ``set_default_attn_impl`` serves its CLI and server,
-which the port does not have).
+The default implementation, for calls with ``impl=None``, is ``"pallas"``,
+where JAX's is ``"xla"``: every caller of the port (the pipeline, the
+trainer, ``UNet3DConfig``) means the JAX package's ``attn_impl="pallas"``
+configuration. The models pass the configuration's ``attn_impl`` to every
+call; ``set_default_attn_impl`` changes the default of the calls that pass
+none, as JAX's does for its CLI and server.
+
+Prompt-to-prompt control (``utils/ptp.py``): while a controller is active,
+every non-causal call runs JAX's ``_controlled_attention``: fp32
+probabilities materialised, handed to the controller with the call's tag
+``(module path, is_cross)`` and its place in the UNet, and what it returns
+multiplies v. JAX sends no Pallas kernel down that branch, so plain torch
+is the port here. The frame attention (``ops/temporal_attention.py``) and
+the fused temporal block never call this function, in JAX or here, so the
+controller never sees them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +50,19 @@ from animate_anything_tpu_torch.ops.flash_attention import (attention_reference,
                                                             kernel_ok)
 
 MIN_KERNEL_SEQ = 128
+_DEFAULT_IMPL = "pallas"
+
+
+def set_default_attn_impl(impl: str) -> None:
+    """The implementation of calls that pass ``impl=None``."""
+    global _DEFAULT_IMPL
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl {impl}")
+    _DEFAULT_IMPL = impl
+
+
+def default_attn_impl() -> str:
+    return _DEFAULT_IMPL
 
 
 def xla_attention(q, k, v, is_causal: bool = False) -> torch.Tensor:
@@ -51,8 +75,16 @@ def xla_attention(q, k, v, is_causal: bool = False) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
-def attention(q, k, v, impl: str = "pallas", is_causal: bool = False) -> torch.Tensor:
-    """Scaled dot-product attention over (B, S, H, D) tensors."""
+def attention(q, k, v, impl: Optional[str] = None, is_causal: bool = False,
+              tag: Optional[tuple] = None) -> torch.Tensor:
+    """Scaled dot-product attention over (B, S, H, D) tensors. ``tag`` =
+    (module path, is_cross) for a prompt-to-prompt controller."""
+    from animate_anything_tpu_torch.utils.ptp import active_controller
+
+    ctrl = active_controller()
+    if ctrl is not None and not is_causal:
+        return _controlled_attention(q, k, v, ctrl, tag)
+    impl = impl or _DEFAULT_IMPL
     if impl != "pallas":
         return xla_attention(q, k, v, is_causal=is_causal)
     if is_causal or q.shape[1] < MIN_KERNEL_SEQ or k.shape[1] < MIN_KERNEL_SEQ:
@@ -60,3 +92,20 @@ def attention(q, k, v, impl: str = "pallas", is_causal: bool = False) -> torch.T
     if q.device.type == "cuda" and not kernel_ok(q.shape, k.shape):
         return xla_attention(q, k, v)
     return flash_attention(q, k, v)
+
+
+def _controlled_attention(q, k, v, ctrl, tag) -> torch.Tensor:
+    """JAX's ``_controlled_attention``: fp32 scores and softmax, the
+    (b·h, sq, sk) probabilities through the controller, then P·v with fp32
+    accumulation, in q's dtype. Untagged calls count as cross-attention
+    where q and k are different tensors, as JAX's ``q is not k``."""
+    from animate_anything_tpu_torch.utils.ptp import place_in_unet
+
+    path, is_cross = tag if tag is not None else ((), q is not k)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
+    probs = torch.softmax(scores, dim=-1).reshape(b * h, sq, sk)
+    probs = ctrl(probs, bool(is_cross), place_in_unet(tuple(path))).reshape(b, h, sq, sk)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)

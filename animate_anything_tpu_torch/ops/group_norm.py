@@ -137,13 +137,17 @@ _TICKETS: dict = {}
 
 
 def tickets(device: torch.device, count: int) -> torch.Tensor:
-    """The per-(sample, slab) ticket counters of kernels 6 and 10, and
-    kernel 7's grid-barrier counts, on ``device`` for the current stream:
-    zeroed once here, and left zeroed by each launch (the last block of a
-    slab resets its counter; kernel 7's last block, its counts). A launch
-    finds them zero only if the launch before it on them has ended, so each
-    stream has its own: launches on one stream run in turn."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    """The per-(sample, slab) ticket counters of kernels 6 and 10, kernels 3
+    and 4's sums tickets, and kernel 7's grid-barrier counts, on ``device``
+    for the current stream: zeroed once here, and left zeroed by each launch
+    (the last block of a slab resets its counter; kernel 7's last block, its
+    counts). A launch finds them zero only if the launch before it on them
+    has ended, so each stream has its own: launches on one stream run in
+    turn. A device without streams (the meta device of the launch-count
+    tests) keys them by the device alone."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None
+    key = (device, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < count:
         buf = torch.zeros(max(count, 1024), device=device, dtype=torch.int32)

@@ -3,7 +3,9 @@ epilogue (``csrc/proj_residual.cu``).
 
 Replaces ``animate_anything_tpu/ops/proj_residual.py::_pallas_proj``:
 ``y = h·Wᵀ + bias + residual`` with per-(n, c) fp32 (Σy, Σy²) of the STORED
-y, which the consumer GroupNorm takes through ``group_affine(sums=)``. The
+y, which the consumer GroupNorm takes through ``group_affine(sums=)``, added
+in one fixed order (``temporal_conv.sums_scratch``), so identical calls
+return identical bits. The
 weight is the torch Linear layout (c, k). The kernel is the slab form of
 ``csrc/gemm.cuh``'s persistent TMA + wgmma residual GEMM (kernel 2's second
 GEMM); design note in the source header. ``launch_plan`` picks the tile
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib, geglu
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
+from animate_anything_tpu_torch.ops.temporal_conv import sums_scratch
 
 SUB_ROWS = 64  # a sub-tile: 64 rows of one slab, one warpgroup's; two make a tile
 TILE_WIDTHS = geglu.OUT_BN  # output columns a tile: the residual GEMM's instantiations
@@ -77,10 +80,10 @@ def _launch(h, w, bias, residual):
     cuda_lib.check_cuda("proj_residual residual", residual, bf, (n, s, c))
     plan = launch_plan(n, s, k, c, cuda_lib.sm_count(h.device))
     y = torch.empty_like(residual)
-    s1 = torch.zeros((n, c), device=h.device, dtype=torch.float32)
-    s2 = torch.zeros_like(s1)
+    s1, s2, part, tk = sums_scratch(n, s, c, -(-c // plan["bn"]), h.device)
     cuda_lib.call("aat_proj_residual", h.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                  residual.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, s, k, c,
+                  residual.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                  None if part is None else part.data_ptr(), tk.data_ptr(), n, s, k, c,
                   plan["bn"], plan["stages"], plan["grid"], plan["smem"])
     global launches
     launches += 1

@@ -6,7 +6,9 @@ Replaces ``animate_anything_tpu/ops/temporal_conv.py::_pallas_stage``. The
 GroupNorm statistics fold stays plain torch through ``group_affine``, as in
 JAX; the kernel takes the folded (a, b). Unlike the TPU path (gated to
 c ≤ 640 by VMEM) the kernel runs at every width, and it always emits the
-stats of its stored output. Design note in the source header;
+stats of its stored output, in one fixed order of additions (per-sub-tile
+partials folded in sub-tile order: ``sums_scratch``), so identical calls
+return identical bits. Design note in the source header;
 ``launch_plan`` picks the tiles, ring depth, grid and shared memory, on any
 machine.
 
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from animate_anything_tpu_torch.ops import cuda_lib, geglu
+from animate_anything_tpu_torch.ops import cuda_lib, geglu, group_norm
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.group_norm import group_affine
 
@@ -62,6 +64,27 @@ def launch_plan(bsz: int, f: int, s: int, cin: int, cout: int, sms: int = 132) -
     stages = min(MAX_STAGES, (SMEM_LIMIT - _smem(bn, 0)) // (_smem(bn, 1) - _smem(bn, 0)))
     return dict(bn=bn, stages=stages, grid=min(tiles, sms), smem=_smem(bn, stages),
                 subs=subs, tiles=tiles, k_steps=3 * -(-cin // 64))
+
+
+SUMS_FAN = 8  # sub-tile partials a fold adds (``gemm.cuh``'s FAN)
+
+
+def sums_scratch(slabs: int, s: int, cout: int, chunks: int, device) -> tuple:
+    """The fixed-order sums' buffers of kernels 3 and 4 for ``slabs`` slabs
+    of s rows and ``cout`` columns in ``chunks`` output chunks: Σy and Σy²
+    (slabs, cout) fp32, written by the kernel; the per-sub-tile partials and
+    their groups' sums, (2, slabs, subs + groups, cout) fp32 (subs = ⌈s/64⌉
+    sub-tiles a slab, groups of ``SUMS_FAN``), None where a slab is one
+    sub-tile; and the tickets, slabs·(groups + 1)·chunks·4 zeroed ints of
+    the device's current stream (``group_norm.tickets``), left zeroed."""
+    subs = -(-s // SUB_ROWS)
+    groups = -(-subs // SUMS_FAN)
+    f32 = torch.float32
+    s1 = torch.empty((slabs, cout), device=device, dtype=f32)
+    s2 = torch.empty_like(s1)
+    part = (torch.empty((2, slabs, subs + groups, cout), device=device, dtype=f32)
+            if subs > 1 else None)
+    return s1, s2, part, group_norm.tickets(device, slabs * (groups + 1) * chunks * 4)
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
@@ -119,15 +142,16 @@ def _launch(x, a, b, w, bias, residual):
         cuda_lib.check_cuda("tap_conv residual", residual, bf, (bsz, f, s, cout))
     plan = launch_plan(bsz, f, s, cin, cout, cuda_lib.sm_count(x.device))
     y = torch.empty((bsz, f, s, cout), device=x.device, dtype=bf)
-    s1 = torch.zeros((bsz, f, cout), device=x.device, dtype=f32)
-    s2 = torch.zeros_like(s1)
+    chunks = -(-cout // plan["bn"]) * 2  # two accumulators a tile
+    s1, s2, part, tk = sums_scratch(bsz * f, s, cout, chunks, x.device)
     cuda_lib.call("aat_tap_conv", x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
                   bias.data_ptr(), None if residual is None else residual.data_ptr(),
-                  y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz, f, s, cin, cout, plan["bn"],
-                  plan["stages"], plan["grid"], plan["smem"])
+                  y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                  None if part is None else part.data_ptr(), tk.data_ptr(), bsz, f, s, cin,
+                  cout, plan["bn"], plan["stages"], plan["grid"], plan["smem"])
     global launches
     launches += 1
-    return y, (s1, s2)
+    return y, (s1.view(bsz, f, cout), s2.view(bsz, f, cout))
 
 
 def tap_conv(x, a, b, w, bias, residual=None):

@@ -11,6 +11,11 @@ latents — the port of ``animate_anything_tpu/pipelines/latent2video.py``.
 ``animate_image(image, prompt)`` encodes its prompt (and the empty negative
 prompt) through the pipeline's tokenizer and CLIP text encoder
 (``encode_prompt``), as JAX's does; ``__call__`` takes the embeddings.
+
+``pab``: Pyramid-Attention-Broadcast step caching (``models/pab.py``),
+``{"spatial_rate": 2, "temporal_rate": 3, "warmup": 4, "tail": 1}``: each
+request gets a new ``PABCache`` threaded through the sampler, and each step
+its spatial and temporal reuse flags. None is the exact computation.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from animate_anything_tpu_torch.diffusion import (DiffusionSchedule, ddim_timest
                                                   dpmpp_timesteps, make_schedule, sample_loop)
 from animate_anything_tpu_torch.models.clip_text import CLIPTextModel
 from animate_anything_tpu_torch.models.layers import resize_nearest
+from animate_anything_tpu_torch.models.pab import PABCache, PABStep, unet3d_flags
 from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
 from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, encode_video
 
@@ -32,12 +38,14 @@ from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, e
 class LatentToVideoPipeline:
     def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL,
                  text_encoder: Optional[CLIPTextModel] = None, tokenizer=None,
-                 schedule: Optional[DiffusionSchedule] = None, sampler: str = "dpmpp"):
+                 schedule: Optional[DiffusionSchedule] = None, sampler: str = "dpmpp",
+                 pab: Optional[dict] = None):
         """tokenizer: ``models/tokenizers.py::HashTokenizer`` or
         ``models/clip_tokenizer.py::CLIPBPETokenizer`` (called as HF's);
-        sampler: ``"dpmpp"`` or ``"ddim"``."""
+        sampler: ``"dpmpp"`` or ``"ddim"``; pab: the PAB config or None."""
         if sampler not in ("dpmpp", "ddim"):
             raise ValueError(f"unknown sampler {sampler}")
+        self.pab = dict(pab) if pab else None
         self.unet = unet
         self.vae = vae
         self.text_encoder = text_encoder
@@ -91,11 +99,11 @@ class LatentToVideoPipeline:
                  latents: torch.Tensor, condition_latent: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, motion=None,
                  timesteps: Optional[np.ndarray] = None, num_inference_steps: int = 25,
-                 guidance_scale: float = 9.0):
-        """Returns (video, latents); video is (b, f, 8h, 8w, 3) in [-1, 1].
-        Without ``prompt_embeds`` the ``prompt`` is encoded (``encode_prompt``,
-        the empty negative prompt); ``motion`` is (b,) strengths, a tensor or
-        a list."""
+                 guidance_scale: float = 9.0, output_type: str = "np"):
+        """Returns (video, latents); video is (b, f, 8h, 8w, 3) in [-1, 1], or
+        None for ``output_type="latent"``. Without ``prompt_embeds`` the
+        ``prompt`` is encoded (``encode_prompt``, the empty negative prompt);
+        ``motion`` is (b,) strengths, a tensor or a list."""
         if prompt_embeds is None:
             prompt_embeds, negative_prompt_embeds = self.encode_prompt(prompt)
         if timesteps is None:
@@ -110,12 +118,24 @@ class LatentToVideoPipeline:
         motion2 = None if motion is None else torch.cat([motion, motion])
         gs = float(guidance_scale)
 
-        def model_fn(x: torch.Tensor, t: int) -> torch.Tensor:
-            out = self.unet(torch.cat([x, x]), t, embeds, cond2, mask2, motion2)
+        def guided(x: torch.Tensor, t: int, pab=None) -> torch.Tensor:
+            out = self.unet(torch.cat([x, x]), t, embeds, cond2, mask2, motion2, pab=pab)
             uncond, cond = out[:b], out[b:]
             return uncond.float() + gs * (cond - uncond).float()
 
-        latents = sample_loop(self.schedule, latents, timesteps, model_fn, self.sampler)
+        if self.pab is None:
+            latents = sample_loop(self.schedule, latents, timesteps, guided, self.sampler)
+        else:
+            sflags, tflags = unet3d_flags(self.pab, len(timesteps))
+
+            def model_fn(x, t, i, cache):
+                flags = {"spatial": bool(sflags[i]), "temporal": bool(tflags[i])}
+                return guided(x, t, PABStep(cache, flags)), cache
+
+            latents = sample_loop(self.schedule, latents, timesteps, model_fn, self.sampler,
+                                  model_state=PABCache())
+        if output_type == "latent":
+            return None, latents
         return decode_video(self.vae, latents), latents
 
     @torch.no_grad()

@@ -15,6 +15,10 @@
   (``TextStableVideoDiffusionPipeline.video_to_condition_latent``);
 - ``condition_type`` image / text / both for the encoder states.
 
+``pab``: PAB step caching (``models/pab.py``), ``{"rate": 2, "warmup": 4,
+"tail": 1}``: one reuse flag a step for every spatio-temporal transformer,
+a new ``PABCache`` each request.
+
 Randomness comes from an explicit ``torch.Generator``; ``noise`` (the start
 latents' N(0, 1)) and ``aug_noise`` (the image's augmentation N(0, 1))
 override it, so a caller can feed in any other source's draws.
@@ -30,15 +34,14 @@ import torch
 from animate_anything_tpu_torch.diffusion.euler_edm import (euler_step, make_euler_schedule,
                                                             scale_model_input)
 from animate_anything_tpu_torch.models.clip_vision import preprocess_clip_image
+from animate_anything_tpu_torch.models.pab import PABCache, PABStep, svd_flags
 from animate_anything_tpu_torch.models.vae import decode_video, encode_video
 
 
 class MaskStableVideoDiffusionPipeline:
     def __init__(self, unet, vae, image_encoder=None, text_encoder=None, tokenizer=None,
                  pab: Optional[dict] = None):
-        if pab:
-            raise ValueError("pab: Pyramid-Attention-Broadcast step caching is not ported yet "
-                             "(ROADMAP queue E, item 17)")
+        self.pab = dict(pab) if pab else None
         self.unet = unet
         self.vae = vae
         self.image_encoder = image_encoder
@@ -124,12 +127,15 @@ class MaskStableVideoDiffusionPipeline:
         if noise is None:
             noise = torch.randn(shape, generator=generator, device=dev)
         x = (noise.to(dev, torch.float32) * es.init_noise_sigma).to(cond.dtype)
+        flags = None if self.pab is None else svd_flags(self.pab, num_inference_steps)
+        cache = None if self.pab is None else PABCache()
         for i in range(num_inference_steps):
             sigma, sigma_next = es.sigmas[i], es.sigmas[i + 1]
             inp = torch.cat([scale_model_input(torch.cat([x, x]), sigma), cond2], dim=-1)
             if mask2 is not None:
                 inp = torch.cat([mask2, inp], dim=-1)
-            out = self.unet(inp, es.timesteps[i], embeds2, added)
+            pab = None if cache is None else PABStep(cache, bool(flags[i]))
+            out = self.unet(inp, es.timesteps[i], embeds2, added, pab=pab)
             uncond, cnd = out[:b], out[b:]
             x = euler_step(x, uncond + guidance * (cnd - uncond), sigma, sigma_next)
         if output_type == "latent":

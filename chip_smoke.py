@@ -20,8 +20,8 @@
    kernel 5 at its five sites beside its bf16 composite (LayerNorm, q/k/v
    Linear, SDPA over the frames, Linear + x) and at JAX's test shapes and the
    reach of JAX's gate (48 and 128 frames, head dims 8 to 256, c = 2048, a
-   ragged s), each of the two called twice: kernel 5 and kernel 3's y bit
-   for bit, kernel 3's atomic sums within a stated tolerance; the gates that
+   ragged s), each of the two called twice: kernel 5, and kernel 3's y and
+   fixed-order sums, bit for bit; the gates that
    send the head sizes the forward does not take to SDPA or the einsum form
    and the widths past kernel 2's reach (c > 4096) to its lean composite,
    with kernel 2 at widths off 16, off 8 (zero-padded) and past 1280; the
@@ -72,13 +72,12 @@
    the port (``animate_anything_tpu_torch.cli.main_eval``) at
    ``configs/train_mask_motion.yaml`` (random weights, the checkpoint
    directory being absent): twice in memory (the two videos within
-   ``EVAL_RUN_TO_RUN``), then its weights through ``save_pipeline`` (fp32)
+   ``EVAL_RUN_TO_RUN`` and bit-equal), then its weights through ``save_pipeline`` (fp32)
    and back, the models built from that directory equal to the in-memory
    ones bit for bit, ``main_eval`` on that directory, and one 4-step DDIM
    request on the same weights; every request launches kernels 1-5 and no
    other. Then one CFG forward of those weights twice on the same inputs,
-   and once with every kernel launched twice a call, to show which kernels
-   give another result on the same inputs;
+   and once with every kernel launched twice a call, every pair bit-equal;
 9. drives the SVD serving path (``run_svd_entry``): ``cli_svd.main_eval``
    at ``configs/train_svd_mask.yaml`` (9 channels, ``attn_impl: pallas``,
    512 px, 14 frames, 25 Euler steps, decode chunk 7, bf16, seeded random
@@ -105,8 +104,9 @@
 12. drives the stage-2 entry point (``run_stage2_entry``:
    ``cli_stage2.main_eval`` at ``configs/layerdiffuse_stage2_384.yaml`` with
    ``attn_impl=pallas``; 384 px, 8 frames, the LayerDiffuse pair's RGBA
-   decode, the gif and two webps) twice, kernels 1-5 at exactly 25 CFG
-   forwards' worth each run and no other, then the 9-channel Concat pipeline
+   decode, the gif and two webps) twice, bit-equal, kernels 1-5 at exactly
+   25 CFG forwards' worth each run and no other, then the 9-channel Concat
+   pipeline
    through a ``unet/config.json`` with ``condition_mode: channel_concat``;
    and, after step 11, SVD training (``run_svd_train_entry``: ``train_svd``
    without ``--eval`` at ``configs/train_svd_mask.yaml``, batch 3, 14 frames,
@@ -114,6 +114,17 @@
    checkpoint and ``unet/`` written once and the latter read back bit for
    bit), each step launching kernels 1, 2, 3, 5 and the flash backward and
    no other;
+12b. after step 12's stage 2, the serving path (``run_serving_paths``):
+   ``serving.VideoServer`` over HTTP on 127.0.0.1 (an ephemeral port)
+   fronting the ``app.py`` controller at ``configs/train_mask_motion.yaml``
+   and the ``app_svd.py`` one at ``configs/train_svd_mask.yaml`` (full
+   width, bf16, attn_impl pallas), three 512 px / 16-frame / 25-step / CFG 9
+   mask+motion requests (two with one seed: byte-equal gifs) and one SVD
+   request, every job ``done`` with its exact launches; a default PAB
+   request and an SVD PAB request on the first requests' inputs (launches
+   exact, latent PSNR and motion-score drift against the exact latents); a
+   27-frame long video in two chunks; one CFG forward under a prompt-to-
+   prompt ``AttentionStore`` at 256 px and 8 frames;
 13. checks that every kernel was launched on each path that runs it, prints
    one JSON line with the kernels' numbers (``launches``: the count on the
    path of the slice that brought the kernel in, the requests for kernels
@@ -127,8 +138,11 @@
    first SVD ``main_eval``), ``launches_train``,
    ``launches_train_entry`` (the LoRA run with its preview),
    ``launches_train_full`` (the full finetune at its YAML),
-   ``launches_stage2`` (the first stage-2 ``main_eval``) and
-   ``launches_svd_train`` (the SVD training run) each path's; for kernels
+   ``launches_stage2`` (the first stage-2 ``main_eval``),
+   ``launches_svd_train`` (the SVD training run), ``launches_server`` and
+   ``launches_server_svd`` (the server's first job of each family),
+   ``launches_pab``, ``launches_pab_svd``, ``launches_long_video`` and
+   ``launches_ptp`` each path's; for kernels
    1, 2, 3 and 5 their SVD sites' ``svd_ms``, ``svd_plain_ms``,
    ``svd_bound_ms``, ``svd_forward_ms`` and ``svd_forward_bound_ms``, for
    kernels 1-5 the same ``stage2_*`` numbers at the stage-2 request's sites,
@@ -160,6 +174,7 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -184,9 +199,9 @@ Y_ATOL, Y_RTOL = 2e-2, 1e-2
 # the softmax temperature moves the output by about 1e-2 of its RMS, a wrong
 # sample or head by about 1.
 ATTN_ATOL_RMS, ATTN_REL_RMS = 0.05, 1e-2
-# Σy / Σy² epilogues: fp32 atomics sum in another order, and a different
-# accumulation order can flip a bf16 rounding of y by one ulp (≤ 2^-7·|y|)
-# at a few of the s rows of a column.
+# Σy / Σy² epilogues: the kernels add in another order than the plain
+# version, and a different accumulation order can flip a bf16 rounding of y
+# by one ulp (≤ 2^-7·|y|) at a few of the s rows of a column.
 SUM_ATOL, SUM_RTOL = 0.5, 1e-3
 # The sums must be those of the STORED bf16 y, which the consumer GroupNorm
 # normalises: each is held against the sum of the kernel's own output, where
@@ -622,12 +637,9 @@ def check_geglu(gen) -> dict:
 TAP_CONV_SITES = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 TAP_CONV_TEST_SHAPES = ((2, 5, 24, 128, 128), (1, 3, 100, 96, 40), (2, 5, 200, 32, 128),
                         (1, 1, 70, 64, 64), (2, 4, 16, 64, 64))
-# Two calls of kernel 3: y is bit for bit the same (no atomics reach it);
-# each Σy, Σy² is a sum of at most s/64 fp32 atomic adds of 64-row partials
-# (at most 64 at s = 4096) in an order that changes from call to call, and
-# reassociating n fp32 adds moves a sum by at most (n − 1)·2^-24 of the sum
-# of the magnitudes added (3.8e-6 at n = 64): held to 1e-5 of Σ|y| (Σy²).
-ATOMIC_SUM_RTOL = 1e-5
+# Two identical calls of kernels 3 and 4 return the same bits: y, and Σy, Σy²,
+# whose 64-row partials the kernels add in one fixed order (sub-tile order,
+# ``gemm.cuh``'s ``slab_sums``), whatever order the tiles finish in.
 
 
 def _tap_conv_composite(x, a, b, w, bias, res):
@@ -654,26 +666,26 @@ def _tap_conv_args(gen, bsz, f, s, cin, cout):
     return x, a, b, w, bias, res
 
 
+def _require_same_bits(tag: str, first, again) -> None:
+    """Two identical calls' (y, (Σy, Σy²)) equal bit for bit."""
+    for name, u, v in zip(("y", "Σy", "Σy²"), (first[0], *first[1]), (again[0], *again[1])):
+        if not torch.equal(u, v):
+            raise AssertionError(f"{tag}: two identical calls give different {name}")
+
+
 def _tap_conv_case(tag: str, x, a, b, w, bias, residual) -> float:
     """Kernel 3 against its plain version, and a second call against the
-    first (y bit for bit, the sums within ``ATOMIC_SUM_RTOL``)."""
+    first: y, Σy and Σy² bit for bit."""
     from animate_anything_tpu_torch.ops import temporal_conv as tc
 
-    y, (s1, s2) = tc.tap_conv(x, a, b, w, bias, residual)
-    y2, (t1, t2) = tc.tap_conv(x, a, b, w, bias, residual)
+    y, (s1, s2) = first = tc.tap_conv(x, a, b, w, bias, residual)
+    again = tc.tap_conv(x, a, b, w, bias, residual)
     wy, (w1, w2) = tc.tap_conv_reference(x, a, b, w, bias, residual)
     _assert_close(tag, y, wy, Y_ATOL, Y_RTOL)
     _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
     _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
     _assert_stored_sums(tag, y, (s1, s2), dim=2)
-    if not torch.equal(y, y2):
-        raise AssertionError(f"{tag}: two calls give different y")
-    yf = y.float()
-    for name, got, first, mag in (("Σy", t1, s1, yf.abs().sum(2)),
-                                  ("Σy²", t2, s2, yf.square().sum(2))):
-        if bool(((got - first).abs() > ATOMIC_SUM_RTOL * mag).any()):
-            raise AssertionError(f"{tag} {name}: two calls differ by more than "
-                                 f"{ATOMIC_SUM_RTOL} of the magnitudes summed")
+    _require_same_bits(tag, first, again)
     return _err(y, wy)
 
 
@@ -732,29 +744,22 @@ def _proj_composite(h, w, bias, r):
 
 def _proj_case(gen, n, s, k, c):
     """Kernel 4 against its plain version, and a second call against the
-    first: y bit for bit, the atomic sums within ``ATOMIC_SUM_RTOL``."""
+    first: y, Σy and Σy² bit for bit."""
     from animate_anything_tpu_torch.ops import proj_residual as pr
 
     h = torch.randn(n, s, k, generator=gen, device="cuda").to(torch.bfloat16)
     w = _lecun(gen, c, k, fan_in=k)
     bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
     r = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
-    y, (s1, s2) = pr.proj_residual_stats(h, w, bias, r)
-    y2, (t1, t2) = pr.proj_residual_stats(h, w, bias, r)
+    y, (s1, s2) = first = pr.proj_residual_stats(h, w, bias, r)
+    again = pr.proj_residual_stats(h, w, bias, r)
     wy, (w1, w2) = pr.proj_residual_reference(h, w, bias, r)
     tag = f"proj_residual n={n} s={s} k={k} c={c}"
     _assert_close(tag, y, wy, Y_ATOL, Y_RTOL)
     _assert_close(tag + " Σy", s1, w1, SUM_ATOL, SUM_RTOL)
     _assert_close(tag + " Σy²", s2, w2, SUM_ATOL, SUM_RTOL)
     _assert_stored_sums(tag, y, (s1, s2), dim=1)
-    if not torch.equal(y, y2):
-        raise AssertionError(f"{tag}: two calls give different y")
-    yf = y.float()
-    for name, got, first, mag in (("Σy", t1, s1, yf.abs().sum(1)),
-                                  ("Σy²", t2, s2, yf.square().sum(1))):
-        if bool(((got - first).abs() > ATOMIC_SUM_RTOL * mag).any()):
-            raise AssertionError(f"{tag} {name}: two calls differ by more than "
-                                 f"{ATOMIC_SUM_RTOL} of the magnitudes summed")
+    _require_same_bits(tag, first, again)
     return tag, (h, w, bias, r), _err(y, wy)
 
 
@@ -1422,8 +1427,8 @@ def check_sites(gen, rows: list[dict], label: str, sites: dict) -> None:
     ``eps`` of the temporal GroupNorm, ``residual_share`` of kernel 3's
     calls, and (site, calls) tables ``flash``, ``geglu``, ``tap``,
     ``block`` and optionally ``proj`` from ``utils/kernel_sites``), each
-    against its plain version, called twice (kernels 1, 2, 5, kernel 3 and
-    4's y bit for bit, their sums within ``ATOMIC_SUM_RTOL``), timed by CUDA
+    against its plain version, called twice (every output bit for bit,
+    kernels 3 and 4's sums included), timed by CUDA
     events beside its bound; kernel 3 on the GroupNorm fold, with and
     without the residual. Adds to each kernel's row ``{label}_ms``,
     ``{label}_plain_ms``, ``{label}_bound_ms`` (summed over the sites) and
@@ -2088,9 +2093,10 @@ def compare_packed_xla(packed_unet, seed: int = 3) -> float:
 
 EVAL_CONFIG_PATH = "configs/train_mask_motion.yaml"
 # Two identical in-memory eval requests (same weights, seeds and inputs)
-# differ: max |diff| 0.094 and 0.109 over [-1, 1] frames in two runs on an
-# H100 80GB HBM3 at 700 W. The two in-memory runs, and the run from the saved
-# directory against the first, must stay within this.
+# differed by 0.094 and 0.109 over [-1, 1] frames on an H100 80GB HBM3 at
+# 700 W while kernels 3 and 4 added their sums with atomics; now they must be
+# bit-equal. The two in-memory runs, and the run from the saved directory
+# against the first, must stay within this.
 EVAL_RUN_TO_RUN = 0.25
 EVAL_DDIM_STEPS = 4
 # The 4-step DDIM video must differ from the 25-step DPM-Solver++ one by more
@@ -2243,10 +2249,11 @@ def _launched_twice():
 
 
 def repeat_cfg_forward(unet, vae, seed: int = 11) -> dict:
-    """Where two identical requests part: one CFG forward of ``unet`` twice on
-    the same inputs, one 16-frame VAE decode twice, then the forward once
-    with every kernel launched twice a call (``_launched_twice``). Returns
-    the per-kernel record."""
+    """Identical calls give identical bits: one CFG forward of ``unet``
+    twice on the same inputs, one 16-frame VAE decode twice, then the
+    forward once with every kernel launched twice a call
+    (``_launched_twice``), each pair bit-equal. Returns the per-kernel
+    record."""
     from animate_anything_tpu_torch.models.vae import decode_video
 
     inputs = cfg_forward_inputs(seed)
@@ -2268,6 +2275,10 @@ def repeat_cfg_forward(unet, vae, seed: int = 11) -> dict:
         log(f"  {name}: {rec['differ']} of {rec['calls']} calls gave another result on the "
             f"same inputs; max |diff| by output {[f'{v:.3g}' for v in rec['max_abs']]}, over "
             f"the output's max |value| {[f'{v:.3g}' for v in rec['max_rel']]}")
+    differ = {name: rec["differ"] for name, rec in seen.items() if rec["differ"]}
+    if differ or not torch.equal(a, b) or not torch.equal(da, db):
+        raise AssertionError(f"repeat_cfg_forward: identical calls differ (kernels {differ}, "
+                             f"forward {_err(a, b):.4g}, decode {_err(da, db):.4g})")
     return seen
 
 
@@ -2313,6 +2324,9 @@ def run_eval_entry() -> dict:
         if spread > EVAL_RUN_TO_RUN:
             raise AssertionError(f"main_eval: two in-memory runs {spread:.4g} apart, above "
                                  f"{EVAL_RUN_TO_RUN}")
+        if not torch.equal(video2, video):
+            raise AssertionError("main_eval: two identical in-memory runs are not bit-equal")
+        log("  the two in-memory runs are bit-equal")
         del video2
 
         ckpt = os.path.join(work, "pipeline")
@@ -2570,9 +2584,9 @@ def run_svd_entry() -> dict:
         video, launches, _ = _svd_run("main_eval (a)", cfg, frames, res, steps)
         video2, _, models = _svd_run("main_eval (a), again", cfg, frames, res, steps,
                                      keep_models=True)
-        # no value of the SVD path reads an atomic sum (kernel 3's Σy, Σy²
-        # go unused there), so the two are expected equal; held to the eval
-        # entry point's bound all the same
+        # no value of the SVD path reads kernel 3's Σy, Σy² (they go unused
+        # there), so the two are expected equal; held to the eval entry
+        # point's bound all the same
         spread = _err(video2, video)
         log(f"  run to run: max |diff| {spread:.4g} (limit {EVAL_RUN_TO_RUN}), relative RMS "
             f"{_rel_rms(video2, video):.3g}")
@@ -3500,13 +3514,12 @@ STAGE2_CONFIG_PATH = "configs/layerdiffuse_stage2_384.yaml"
 STAGE2_ATTN_IMPL = "pallas"
 # The 9-channel Concat pipeline's short run: steps.
 STAGE2_CONCAT_STEPS = 3
-# Two identical stage-2 requests: kernels 3 and 4 sum Σy, Σy² with fp32
-# atomics, whose order changes the GroupNorm statistics that read them in
-# the last bits; 25 steps under CFG 9 carry that on (the eval request's
-# video parts by 0.10 the same way; two runs on the H100 read a relative
-# RMS of 0.0225 and 0.0034 over the latents, max |diff| 2.48 and 0.35).
-# Held as a relative RMS over the latents, and the spread explained kernel
-# by kernel (``explain_stage2_spread``).
+# Two identical stage-2 requests: while kernels 3 and 4 summed Σy, Σy² with
+# fp32 atomics, whose order changed the GroupNorm statistics that read them
+# in the last bits, 25 steps under CFG 9 carried that on (two runs on the
+# H100 read a relative RMS of 0.0225 and 0.0034 over the latents). Their
+# sums now have one order, so the runs must also be bit-equal; the bound
+# stays.
 STAGE2_RUN_TO_RUN_REL = 1e-1
 
 
@@ -3624,10 +3637,9 @@ def explain_stage2_spread(unet, seed: int = 12) -> None:
     """Where two identical stage-2 requests part: one CFG forward of the
     stage-2 UNet at the request's shapes (2 × 8 frames, 48×48 latents) with
     every kernel launched twice a call on the same inputs
-    (``_launched_twice``). The only outputs that may differ are kernels 3
-    and 4's atomic Σy, Σy² (each kernel's y, and kernels 1, 2 and 5
-    entirely, bit for bit): the GroupNorms that read those sums carry the
-    difference on through the denoise loop."""
+    (``_launched_twice``). Raises, naming the kernels whose two results
+    differ, or, where every kernel is bit-stable, saying the spread comes
+    from another op."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     inputs = (torch.randn(2, 8, 48, 48, 4, generator=gen, device="cuda"), 500,
               torch.randn(2, 77, 1024, generator=gen, device="cuda"),
@@ -3640,13 +3652,12 @@ def explain_stage2_spread(unet, seed: int = 12) -> None:
         log(f"  {name}: {rec['differ']} of {rec['calls']} calls gave another result on the same "
             f"inputs; max |diff| by output {[f'{v:.3g}' for v in rec['max_abs']]}")
     wrong = {name: rec["max_abs"] for name, rec in seen.items()
-             if rec["calls"] == 0 or (rec["max_abs"] and rec["max_abs"][0] > 0)
-             or (name not in ("tap_conv", "proj_residual_stats") and rec["differ"])}
+             if rec["calls"] == 0 or rec["differ"]}
     if wrong:
-        raise AssertionError(f"stage-2 run to run: kernels give another result beyond kernels 3 "
-                             f"and 4's atomic sums (or never ran): {wrong}")
-    log("  the two requests part only through kernels 3 and 4's atomic Σy, Σy²: every kernel's "
-        "y, and kernels 1, 2 and 5 entirely, are bit-stable on the same inputs")
+        raise AssertionError(f"stage-2 run to run: kernels give another result on the same "
+                             f"inputs (or never ran): {wrong}")
+    raise AssertionError("stage-2 run to run: every kernel is bit-stable on the same inputs; "
+                         "another op parts the two requests")
 
 
 def run_stage2_entry() -> dict:
@@ -3657,9 +3668,10 @@ def run_stage2_entry() -> dict:
     image are absent):
 
     (a) twice, kernels 1-5 at exactly 25 CFG forwards' worth each run; the
-        two runs' latents within ``STAGE2_RUN_TO_RUN_REL``, any difference
-        traced to kernels 3 and 4's atomic Σ/Σ² (``explain_stage2_spread``),
-        the alpha flips counted;
+        two runs' latents within ``STAGE2_RUN_TO_RUN_REL`` and bit-equal,
+        latents and RGBA frames (a difference is traced by
+        ``explain_stage2_spread``, which fails the run), the alpha flips
+        counted;
     (b) the 9-channel Concat pipeline through a ``unet/config.json`` with
         ``condition_mode: channel_concat`` (a full-width UNet written in fp32
         under ``build/``, then read by ``main_eval`` with ``in_channels=9``),
@@ -3698,8 +3710,9 @@ def run_stage2_entry() -> dict:
             f"{rgba[..., 3].numel()} alpha values flipped")
         if rel > STAGE2_RUN_TO_RUN_REL:
             raise AssertionError(f"stage-2 main_eval: two runs {rel:.3g} apart")
-        if rel > 0:
+        if not (torch.equal(latents2, latents) and torch.equal(rgba2, rgba)):
             explain_stage2_spread(unet)
+        log("  the two runs are bit-equal (latents and RGBA frames)")
         del rgba, rgba2, latents, latents2, unet
 
         ccfg = UNet3DConfig(motion_mask=True, motion_strength=True, attn_impl=STAGE2_ATTN_IMPL,
@@ -3726,6 +3739,450 @@ def run_stage2_entry() -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+# --- the serving path: the HTTP server, PAB, the long video, ptp ---------------
+
+SERVE_LATENT_CONFIG = "configs/train_mask_motion.yaml"
+SERVE_SVD_CONFIG = SVD_CONFIG_PATH
+# The three mask+motion requests' seeds: the first two repeat, so their gifs
+# must be byte-equal now that kernels 3 and 4 add their sums in one order.
+SERVE_SEEDS = (3, 3, 4)
+SVD_FRAMES = 14
+# Each default-path kernel's launches in one CFG forward of the full-width
+# mask+motion UNet (the exact requests launch 25 times these), and the
+# share of them inside the spatial (16) and temporal (17, transformer_in
+# included) transformers, which PAB skips on their reuse steps: kernel 1
+# runs in the 15 spatial transformers with s >= 128, kernel 2 once in every
+# transformer, kernel 5 twice in every temporal one, kernel 4 in every
+# transformer's proj_out (never under PAB), kernel 3 in the temporal convs.
+PER_FORWARD = {"flash_attention": 15, "ln_geglu_ff": 33, "tap_conv": 88,
+               "proj_residual_stats": 33, "temporal_block": 34}
+SPATIAL_PER_FORWARD = {"flash_attention": 15, "ln_geglu_ff": 16}
+TEMPORAL_PER_FORWARD = {"ln_geglu_ff": 17, "temporal_block": 34}
+DEFAULT_PAB = {"spatial_rate": 2, "temporal_rate": 3, "warmup": 4, "tail": 1}
+SVD_PAB = {"rate": 2, "warmup": 4, "tail": 1}
+LONG_VIDEO_FRAMES = 27   # two 16-frame chunks, the second after an overlap of 5
+# ptp's AttentionStore materialises every site's fp32 probabilities: at
+# 512 px and 16 frames one top-level self-attention site alone is 34 × 5 ×
+# 4096² × 4 B ≈ 11.4 GB, so the phase runs one CFG forward at 256 px and 8
+# frames (18 × 5 × 1024² × 4 B ≈ 377 MB a top-level site).
+PTP_RES, PTP_FRAMES = 256, 8
+
+
+def exact_counts(steps: int) -> dict:
+    """Kernels 1-5's launches in an exact mask+motion request."""
+    return {name: steps * k for name, k in PER_FORWARD.items()}
+
+
+def pab_counts(steps: int, pab: dict) -> dict:
+    """Kernels 1-5's launches in a mask+motion request under ``pab``: the
+    transformers' kernels on their compute steps only, kernel 4 never."""
+    from animate_anything_tpu_torch.models.pab import unet3d_flags
+
+    sflags, tflags = unet3d_flags(pab, steps)
+    cs, ct = int((~sflags).sum()), int((~tflags).sum())
+    got = {name: cs * SPATIAL_PER_FORWARD.get(name, 0) + ct * TEMPORAL_PER_FORWARD.get(name, 0)
+           for name in PER_FORWARD}
+    got["tap_conv"] = steps * PER_FORWARD["tap_conv"]
+    return got
+
+
+def svd_pab_counts(steps: int, pab: dict) -> dict:
+    """Kernels 1, 2, 3 and 5's launches in an SVD request under ``pab``:
+    kernels 1, 2 and 5 run inside the spatio-temporal transformers, on their
+    compute steps; kernel 3 in the resnets, every step."""
+    from animate_anything_tpu_torch.models.pab import svd_flags
+
+    compute = int((~svd_flags(pab, steps)).sum())
+    per = _svd_counts_per_request(1)
+    return {name: (steps if name == "tap_conv" else compute) * k for name, k in per.items()}
+
+
+def _png_b64(arr) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _http(port: int, method: str, path: str, body=None) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def serve_requests(seed: int = 0) -> tuple:
+    """The server's requests: three mask+motion ones (512 px images, square
+    masks, strength, prompt; ``SERVE_SEEDS``) and one SVD request (an image
+    and a mask), as JSON bodies with base64 PNGs; and their arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bodies, arrays = [], []
+    for i, s in enumerate(SERVE_SEEDS):
+        image = rng.integers(0, 256, (RES, RES, 3), dtype=np.uint8) if i != 1 else arrays[0][0]
+        mask = np.zeros((RES, RES, 3), np.uint8)
+        mask[64:320, 128:384] = 255
+        arrays.append((image, mask))
+        bodies.append({"workload": "latent", "image_b64": _png_b64(image),
+                       "mask_b64": _png_b64(mask), "prompt": PROMPTS[0], "motion_scale": 6.0,
+                       "sample_steps": STEPS, "cfg_scale": GUIDANCE, "seed": s})
+    image = rng.integers(0, 256, (RES, RES, 3), dtype=np.uint8)
+    mask = np.zeros((RES, RES, 3), np.uint8)
+    mask[128:384, 128:384] = 255
+    arrays.append((image, mask))
+    bodies.append({"workload": "svd", "image_b64": _png_b64(image), "mask_b64": _png_b64(mask),
+                   "sample_steps": STEPS, "seed": 5})
+    return bodies, arrays
+
+
+@contextlib.contextmanager
+def _captured_latents():
+    """Each mask+motion ``animate_image`` call's and SVD pipeline call's
+    latents on the host and seconds (ended by a device sync), in call
+    order, as (kind, latents, seconds)."""
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+    from animate_anything_tpu_torch.pipelines.svd import MaskStableVideoDiffusionPipeline
+
+    seen = []
+    orig_l, orig_s = LatentToVideoPipeline.animate_image, MaskStableVideoDiffusionPipeline.__call__
+
+    def recorded(kind, orig):
+        def run(self, *args, **kw):
+            t0 = time.perf_counter()
+            video, latents = orig(self, *args, **kw)
+            torch.cuda.synchronize()
+            seen.append((kind, latents.float().cpu(), time.perf_counter() - t0))
+            return video, latents
+        return run
+
+    latent, svd = recorded("latent", orig_l), recorded("svd", orig_s)
+
+    LatentToVideoPipeline.animate_image, MaskStableVideoDiffusionPipeline.__call__ = latent, svd
+    try:
+        yield seen
+    finally:
+        LatentToVideoPipeline.animate_image = orig_l
+        MaskStableVideoDiffusionPipeline.__call__ = orig_s
+
+
+def _counted(route, jobs: list):
+    """``route`` with each job's launches (counts set to 0 just before it,
+    read just after) and peak memory appended to ``jobs``; it runs on the
+    server's worker thread, one job at a time."""
+    def run(req):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        path = route(req)
+        torch.cuda.synchronize()
+        jobs.append({"workload": req.get("workload", "latent"), "launches": read_counts(),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return path
+    return run
+
+
+def run_server_entry(work: str) -> dict:
+    """``serving.VideoServer`` over HTTP on 127.0.0.1 (an ephemeral port),
+    fronting both model families (``multi_workload_generate_fn``): the
+    mask+motion controller at ``SERVE_LATENT_CONFIG`` (bf16, attn_impl
+    pallas, 512 px, 16 frames) and the SVD controller at
+    ``SERVE_SVD_CONFIG`` (9 channels, 14 frames), random weights from the
+    seed. Three mask+motion requests (25 steps, CFG 9; two with the same
+    seed, whose gifs must be byte-equal) and one SVD request, all queued at
+    once; every job must end ``done`` (a job's exception ends it ``error``,
+    which fails the run), each launching exactly its request's counts and
+    no other kernel. Logs each job's queue and generate seconds, launches
+    and peak memory. → the controllers, the requests, each job's launches
+    and the requests' latents."""
+    import io
+    import os
+
+    from PIL import Image
+
+    from animate_anything_tpu_torch import app, app_svd
+    from animate_anything_tpu_torch.core.config import load_config
+    from animate_anything_tpu_torch.serving import (VideoServer, controller_generate_fn,
+                                                    multi_workload_generate_fn,
+                                                    svd_controller_generate_fn)
+
+    lcfg, scfg = load_config(SERVE_LATENT_CONFIG), load_config(SERVE_SVD_CONFIG)
+    t0 = time.perf_counter()
+    latent = app.AnimateController(lcfg.get("pretrained_model_path"), lcfg["validation_data"],
+                                   output_dir=os.path.join(work, "latent"),
+                                   attn_impl=lcfg["attn_impl"],
+                                   mixed_precision=lcfg["mixed_precision"])
+    t1 = time.perf_counter()
+    svd = app_svd.AnimateController(None, scfg["validation_data"],
+                                    output_dir=os.path.join(work, "svd"),
+                                    motion_mask=bool(scfg["motion_mask"]),
+                                    attn_impl=scfg["attn_impl"],
+                                    mixed_precision=scfg["mixed_precision"])
+    torch.cuda.synchronize()
+    log(f"server: the mask+motion controller at {SERVE_LATENT_CONFIG} built in {t1 - t0:.3f} s, "
+        f"the SVD one at {SERVE_SVD_CONFIG} in {time.perf_counter() - t1:.3f} s")
+    jobs: list = []
+    server = VideoServer(multi_workload_generate_fn({
+        "latent": _counted(controller_generate_fn(latent), jobs),
+        "svd": _counted(svd_controller_generate_fn(svd), jobs)}), device="cuda")
+    httpd = server.serve(0, host="127.0.0.1")
+    port = httpd.server_address[1]
+    bodies, arrays = serve_requests()
+    try:
+        code, body = _http(port, "GET", "/healthz")
+        if code != 200 or not json.loads(body)["ok"]:
+            raise AssertionError(f"server /healthz: {code} {body[:200]!r}")
+        with _captured_latents() as seen:
+            t0 = time.perf_counter()
+            ids = []
+            for b in bodies:
+                code, reply = _http(port, "POST", "/generate", b)
+                if code != 202:
+                    raise AssertionError(f"server /generate: {code} {reply[:200]!r}")
+                ids.append(json.loads(reply)["job_id"])
+            status = {}
+            while len(status) < len(ids) and time.perf_counter() - t0 < 300:
+                if not server._worker.is_alive():
+                    raise AssertionError("server: the worker thread died")
+                for i in ids:
+                    if i not in status:
+                        st = json.loads(_http(port, "GET", f"/jobs/{i}")[1])
+                        if st["status"] in ("done", "error"):
+                            status[i] = st
+                time.sleep(0.05)
+            wall = time.perf_counter() - t0
+        failed = [status.get(i, {"job_id": i, "status": "timeout"}) for i in ids
+                  if status.get(i, {}).get("status") != "done"]
+        if failed:
+            raise AssertionError(f"server: jobs that did not end done: {failed}")
+        gifs = []
+        for i in ids:
+            code, data = _http(port, "GET", f"/result/{i}")
+            if code != 200:
+                raise AssertionError(f"server /result/{i}: {code}")
+            gifs.append(data)
+        health = json.loads(_http(port, "GET", "/healthz")[1])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+    if health["jobs_done"] != len(ids) or health["queue_depth"] != 0:
+        raise AssertionError(f"server /healthz after the jobs: {health}")
+    for (b, st, job, data, (_, _, request)) in zip(bodies, (status[i] for i in ids), jobs, gifs,
+                                                   seen):
+        with Image.open(io.BytesIO(data)) as gif:
+            frames = SVD_FRAMES if b["workload"] == "svd" else FRAMES
+            if gif.n_frames != frames or gif.size != (RES, RES):
+                raise AssertionError(f"server job {st['job_id']}: gif of {gif.n_frames} "
+                                     f"frames at {gif.size}")
+        want = (_svd_counts_per_request(STEPS) if b["workload"] == "svd" else exact_counts(STEPS))
+        names = SVD_KERNELS if b["workload"] == "svd" else FORWARD_KERNELS
+        require_only(f"server job {st['job_id']}", job["launches"], names)
+        got = {n: job["launches"][n] for n in names}
+        if got != want:
+            raise AssertionError(f"server job {st['job_id']} ({b['workload']}): launches {got}, "
+                                 f"expected {want}")
+        log(f"  job {st['job_id']} ({b['workload']}, seed {b['seed']}): queue "
+            f"{st['queue_seconds']:.3f} s, generate {st['generate_seconds']:.3f} s (the "
+            f"request {request:.3f} s, then the gif), peak {job['peak_gib']:.2f} GiB, gif "
+            f"{len(data)} bytes; launches {got}")
+    if gifs[0] != gifs[1]:
+        raise AssertionError("server: the two requests with the same seed returned different "
+                             "gifs")
+    if gifs[0] == gifs[2]:
+        raise AssertionError("server: requests with different seeds returned the same gif")
+    log(f"  {len(ids)} jobs done in {wall:.3f} s of wall; the two same-seed mask+motion gifs "
+        f"byte-equal ({len(gifs[0])} bytes); /healthz {health}")
+    return {"latent": latent, "svd": svd, "bodies": bodies, "arrays": arrays, "jobs": jobs,
+            "latents": [lat for _, lat, _ in seen], "seconds": [dt for _, _, dt in seen]}
+
+
+def _psnr_and_drift(got, want) -> tuple:
+    """bench.py's PAB quality: latent PSNR over the exact latents' range, and
+    the relative drift of the latent motion score."""
+    from animate_anything_tpu_torch.metrics.motion import latent_motion_score
+
+    mse = float((got - want).square().mean())
+    peak = float(want.max() - want.min())
+    psnr = 10 * math.log10(peak ** 2 / max(mse, 1e-12))
+    ms_e, ms_p = float(latent_motion_score(want)[0]), float(latent_motion_score(got)[0])
+    return psnr, abs(ms_p - ms_e) / max(abs(ms_e), 1e-9)
+
+
+def run_pab_requests(served: dict) -> tuple:
+    """A default PAB mask+motion request (``DEFAULT_PAB``) and an SVD PAB
+    request (``SVD_PAB``) through the server's controllers, on the same
+    inputs and seeds as the server's first exact request of each family:
+    seconds, launches (asserted exactly: ``pab_counts``, ``svd_pab_counts``),
+    and the latent PSNR and motion-score drift against the exact request.
+    → (mask+motion launches, SVD launches)."""
+    from animate_anything_tpu_torch.serving import (controller_generate_fn,
+                                                    svd_controller_generate_fn)
+
+    out = []
+    for kind, controller, route, pab, want_fn, at, names in (
+            ("mask+motion", served["latent"], controller_generate_fn, DEFAULT_PAB, pab_counts, 0,
+             FORWARD_KERNELS),
+            ("SVD", served["svd"], svd_controller_generate_fn, SVD_PAB, svd_pab_counts, -1,
+             SVD_KERNELS)):
+        exact, exact_s, body = served["latents"][at], served["seconds"][at], served["bodies"][at]
+        controller.pipeline.pab = dict(pab)
+        try:
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with _captured_latents() as seen, torch.inference_mode():
+                t0 = time.perf_counter()
+                route(controller)(body)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            controller.pipeline.pab = None
+        (_, latents, request), = seen
+        if not torch.isfinite(latents).all():
+            raise AssertionError(f"PAB {kind} request: non-finite latents")
+        require_only(f"PAB {kind} request", launches, [n for n in names
+                                                       if want_fn(STEPS, pab)[n]])
+        got, want = {n: launches[n] for n in names}, want_fn(STEPS, pab)
+        if got != want:
+            raise AssertionError(f"PAB {kind} request: launches {got}, expected {want}")
+        psnr, drift = _psnr_and_drift(latents, exact)
+        log(f"  PAB {kind} request ({pab}): {dt:.3f} s with the gif's write, the request "
+            f"{request:.3f} s (the exact one {exact_s:.3f} s), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got} (exact); "
+            f"against the exact request: latent PSNR {psnr:.2f} dB, motion-score drift "
+            f"{drift:.4f}")
+        out.append(launches)
+    return tuple(out)
+
+
+def run_long_video(served: dict) -> dict:
+    """``pipelines/long_video.generate_long_video`` at full width through the
+    server's mask+motion pipeline: ``LONG_VIDEO_FRAMES`` frames in two
+    16-frame chunks (an overlap of 5), 25 steps, CFG 9, the first server
+    request's image and mask; the video finite and of its shape, kernels 1-5
+    at exactly two requests' counts. → its launches."""
+    from animate_anything_tpu_torch.pipelines.long_video import generate_long_video
+
+    image, mask = served["arrays"][0]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    video, latents = generate_long_video(
+        served["latent"].pipeline, image, PROMPTS[0], total_frames=LONG_VIDEO_FRAMES,
+        chunk_frames=FRAMES, mask_img=mask[..., 0], motion_strength=4.0,
+        num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator("cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    if tuple(video.shape) != (1, LONG_VIDEO_FRAMES, RES, RES, 3) or \
+            not torch.isfinite(video).all():
+        raise AssertionError(f"long video: {tuple(video.shape)}, finite "
+                             f"{bool(torch.isfinite(video).all())}")
+    want = {n: 2 * k for n, k in exact_counts(STEPS).items()}
+    require_only("long video", launches, FORWARD_KERNELS)
+    got = {n: launches[n] for n in FORWARD_KERNELS}
+    if got != want:
+        raise AssertionError(f"long video: launches {got}, expected {want}")
+    log(f"  long video: {LONG_VIDEO_FRAMES} frames in 2 chunks of {FRAMES} in {dt:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}")
+    return launches
+
+
+def run_ptp_forward(served: dict) -> dict:
+    """One CFG forward of the full-width mask+motion UNet under a
+    prompt-to-prompt ``AttentionStore`` at ``PTP_RES`` px and ``PTP_FRAMES``
+    frames (see ``PTP_RES`` for the memory): every spatial self- and
+    cross-attention site stored under its down / mid / up key, each
+    probability row summing to 1, the output finite; the controlled
+    attention is plain torch (kernel 1 launches none), kernels 2-5 a
+    forward's counts. → its launches."""
+    from animate_anything_tpu_torch.utils.ptp import (AttentionStore, aggregate_attention,
+                                                      attention_control)
+
+    unet = served["latent"].pipeline.unet
+    hw = PTP_RES // 8
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    inputs = (torch.randn(2, PTP_FRAMES, hw, hw, 4, generator=gen, device="cuda"), 500,
+              torch.randn(2, 77, 1024, generator=gen, device="cuda"),
+              torch.randn(2, 1, hw, hw, 4, generator=gen, device="cuda"),
+              torch.ones(2, 1, hw, hw, 1, device="cuda"), torch.tensor([5.0, 5.0], device="cuda"))
+    log(f"ptp: one CFG forward at {PTP_RES} px, {PTP_FRAMES} frames under an AttentionStore "
+        f"(at {RES} px and {FRAMES} frames one top-level site's fp32 probabilities alone would "
+        f"take 34 x 5 x 4096^2 x 4 B ~ 11.4 GB)")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    store = AttentionStore()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), attention_control(store):
+        out = unet(*inputs)
+        store.between_steps()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    maps = store.get_average_attention()
+    sizes = {k: len(v) for k, v in maps.items()}
+    missing = [k for k in ("down_self", "down_cross", "mid_self", "mid_cross", "up_self",
+                           "up_cross") if not maps[k]]
+    if missing or not torch.isfinite(out).all():
+        raise AssertionError(f"ptp: no maps under {missing}, finite output "
+                             f"{bool(torch.isfinite(out).all())}")
+    worst = max(float((m.sum(-1) - 1).abs().max()) for v in maps.values() for m in v)
+    if worst > 1e-3:
+        raise AssertionError(f"ptp: probability rows sum to 1 within {worst:.3g}")
+    heat = aggregate_attention(store, hw, ["down", "up"], is_cross=True)
+    want = {n: 0 if n == "flash_attention" else k for n, k in PER_FORWARD.items()}
+    got = {n: launches[n] for n in FORWARD_KERNELS}
+    require_not_launched("ptp forward", launches, [n for n in launches
+                                                   if n not in FORWARD_KERNELS])
+    if got != want:
+        raise AssertionError(f"ptp forward: launches {got}, expected {want}")
+    log(f"  {dt:.3f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; maps a key "
+        f"{sizes}; rows sum to 1 within {worst:.2g}; the {hw}x{hw} cross heatmap "
+        f"{tuple(heat.shape)}; launches {got}")
+    del store, maps, heat, out
+    return launches
+
+
+def run_serving_paths() -> dict:
+    """The server, then PAB, the long video and ptp on the server's models;
+    → each path's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="serve_", dir="build")
+    try:
+        served = run_server_entry(work)
+        pab_latent, pab_svd = run_pab_requests(served)
+        long_video = run_long_video(served)
+        ptp = run_ptp_forward(served)
+        jobs = served["jobs"]
+        del served
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"server": jobs[0]["launches"], "server_svd": jobs[-1]["launches"],
+            "pab": pab_latent, "pab_svd": pab_svd, "long_video": long_video, "ptp": ptp}
 
 
 def main() -> int:
@@ -3776,6 +4233,9 @@ def main() -> int:
     stage2 = run_stage2_entry()
     gc.collect()
     torch.cuda.empty_cache()
+    serving = run_serving_paths()
+    gc.collect()
+    torch.cuda.empty_cache()
     train = run_train_steps()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3794,7 +4254,7 @@ def main() -> int:
                               ("train", train),
                               ("train_entry", train_entry["lora"]),
                               ("train_full", train_entry["full"]), ("stage2", stage2),
-                              ("svd_train", svd_train)):
+                              ("svd_train", svd_train), *serving.items()):
             row[f"launches_{label}"] = counts.get(name, counts[counter])
 
     print(json.dumps({"kernels": rows}))

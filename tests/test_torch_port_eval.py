@@ -12,8 +12,8 @@ against the JAX package's, on the CPU in fp32:
 - ``calculate_motion_precision`` / ``get_moved_area_mask`` on seeded frames
   equal to JAX's, with and without JAX's native helper;
 - the sample, its sidecar and the mask written under JAX's names;
-- PAB raises, and so does a run (eval or training) asked for on a card
-  that is absent.
+- ``main_eval`` with ``pab:`` (PAB step caching, 6 steps) against JAX's;
+- a run (eval or training) asked for on a card that is absent raises.
 """
 
 import functools
@@ -211,14 +211,50 @@ def test_main_eval_writes_the_files_jax_writes(jax_eval, port_eval):
             np.testing.assert_array_equal(np.asarray(mask), np.asarray(want_mask))
 
 
-@pytest.mark.parametrize("key,value,item", [("pab", {"spatial_rate": 2}, "E, item 17")])
-def test_main_eval_refuses_what_is_not_ported(tmp_path, key, value, item):
-    from animate_anything_tpu_torch.cli import main_eval
-    from animate_anything_tpu_torch.core.config import load_config
+PAB = {"spatial_rate": 2, "temporal_rate": 3, "warmup": 1, "tail": 1}
 
-    cfg = load_config(CONFIG, [f"output_dir={tmp_path}"]).to_dict()
-    with pytest.raises(ValueError, match=item):
-        main_eval(device="cpu", **dict(cfg, **{key: value}))
+
+@pytest.fixture(scope="module")
+def pab_evals(tiny_dir, tmp_path_factory):
+    """Both sides' ``main_eval`` with ``pab:`` (6 steps: both flags fire),
+    JAX's start noise handed to the port as in ``port_eval``."""
+    from animate_anything_tpu.cli import main_eval
+    from animate_anything_tpu.core.config import load_config
+    from animate_anything_tpu.pipelines import LatentToVideoPipeline as JaxPipeline
+    from animate_anything_tpu_torch import cli
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+
+    cfg = load_config(CONFIG, [f"pretrained_model_path={tiny_dir}",
+                               "validation_data.num_inference_steps=6"]).to_dict()
+    cfg["pab"] = PAB
+    with pytest.MonkeyPatch.context() as mp:
+        seen = _capture(mp, JaxPipeline)
+        with pytest.warns(UserWarning, match="tokenizer"):
+            want = main_eval(**dict(cfg, output_dir=str(tmp_path_factory.mktemp("jax_pab"))))
+    (want_video, want_latents), = seen
+    noise = jax.random.normal(jax.random.PRNGKey(0), want_latents.shape, jnp.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "run_validation",
+                   functools.partial(cli.run_validation, noise=t(np.asarray(noise))))
+        seen = _capture(mp, LatentToVideoPipeline)
+        with pytest.warns(UserWarning, match="tokenizer"):
+            got = cli.main_eval(device="cpu", **dict(
+                cfg, output_dir=str(tmp_path_factory.mktemp("port_pab"))))
+    (got_video, got_latents), = seen
+    return want, want_video, want_latents, got, got_video, got_latents
+
+
+def test_main_eval_with_pab_matches_jax(pab_evals):
+    """``main_eval`` takes ``pab:`` through to the pipeline as JAX's does: the
+    video, latents and motion score within the exact run's tolerances of
+    JAX's."""
+    want, want_video, want_latents, got, got_video, got_latents = pab_evals
+    assert got_video.shape == want_video.shape == (1, 4, 32, 32, 3)
+    np.testing.assert_allclose(got_video, want_video, atol=VIDEO_ATOL)
+    np.testing.assert_allclose(got_latents, want_latents,
+                               atol=2e-5 * np.abs(want_latents).max())
+    np.testing.assert_allclose(got["latent_motion_score"], want["latent_motion_score"],
+                               rtol=SCORE_RTOL)
 
 
 def test_cli_eval_runs_and_training_raises(tmp_path, capsys):
