@@ -175,10 +175,22 @@ int launch_layer_norm(const void* x, const void* s, const void* b, void* out, in
 // A ticket a tile would cost the tile loop a fence and a round trip each
 // time, and one sequential fold of a 64-sub-tile slab (s = 4096) 64
 // dependent L2 reads; taken at the end, a warp's tickets are one fence and
-// one round trip (a lane a sub-tile), and each fold reads at most FAN
-// partials a column, all in flight at once.  The last arriver of each level
-// resets its ticket.
+// one round trip a level (a lane a sub-tile), and each fold reads at most
+// FAN partials a column, all in flight at once, FOLDS folds at a time.  The
+// last arriver of each level resets its ticket.
 constexpr int FAN = 8;
+
+// The scratch of the slab sums below for `slabs` slabs of s rows and n
+// columns in `chunks` output chunks: the fp32 elements of `part` (0 where a
+// slab is one sub-tile and no partials are written) and the ints of
+// `tickets`.  The wrappers size their buffers from it (aat_slab_sums_sizes),
+// so this is the layout's one owner.
+inline void slab_sums_sizes(int slabs, int s, int n, int chunks, long long* part,
+                            long long* tickets) {
+  const long long subs = (s + 63) / 64, groups = (subs + FAN - 1) / FAN;
+  *part = subs > 1 ? 2 * slabs * (subs + groups) * n : 0;
+  *tickets = slabs * (groups + 1) * chunks * 4;
+}
 
 struct SlabSums {
   float* s1;      // (slabs, n) fp32
@@ -228,85 +240,143 @@ __device__ __forceinline__ void slab_sums_write(const SlabSums& ss, int n, int s
   *reinterpret_cast<float2*>(ss.part2(n) + at) = make_float2(q0, q1);
 }
 
-// Σ in order of the FAN-at-most rows r0 .. r0 + count − 1 of `part`'s Σy
-// and Σy² halves at column col, each load in flight before the adds.
-__device__ __forceinline__ void fold_rows(const SlabSums& ss, int n, int slab, int r0, int count,
-                                          int col, float2& s, float2& q) {
+// Up to FAN rows r0 .. r0 + count − 1 of `part`'s Σy and Σy² halves at
+// column col: load() issues every load, sum() adds them in row order, so
+// the loads of FOLDS folds are in flight together.
+struct RowFold {
   float2 u[FAN], v[FAN];
+  int count;
+  __device__ __forceinline__ void load(const SlabSums& ss, int n, int slab, int r0, int cnt,
+                                       int col) {
+    count = cnt;
 #pragma unroll
-  for (int j = 0; j < FAN; ++j) {
-    const size_t at = ss.row(slab, r0 + min(j, count - 1)) * n + col;
-    u[j] = __ldcg(reinterpret_cast<const float2*>(ss.part + at));
-    v[j] = __ldcg(reinterpret_cast<const float2*>(ss.part2(n) + at));
+    for (int j = 0; j < FAN; ++j) {
+      const size_t at = ss.row(slab, r0 + min(j, cnt - 1)) * n + col;
+      u[j] = __ldcg(reinterpret_cast<const float2*>(ss.part + at));
+      v[j] = __ldcg(reinterpret_cast<const float2*>(ss.part2(n) + at));
+    }
   }
-  s = make_float2(0.f, 0.f);
-  q = make_float2(0.f, 0.f);
+  __device__ __forceinline__ void sum(float2& s, float2& q) const {
+    s = make_float2(0.f, 0.f);
+    q = make_float2(0.f, 0.f);
 #pragma unroll
-  for (int j = 0; j < FAN; ++j) {
-    if (j < count) {
-      s.x += u[j].x;
-      s.y += u[j].y;
-      q.x += v[j].x;
-      q.y += v[j].y;
+    for (int j = 0; j < FAN; ++j) {
+      if (j < count) {
+        s.x += u[j].x;
+        s.y += u[j].y;
+        q.x += v[j].x;
+        q.y += v[j].y;
+      }
+    }
+  }
+};
+
+// Folds whose loads a warp keeps in flight together: four made kernel 4 spill
+// at its 168 registers (384 threads) and ran slower than two.
+constexpr int FOLDS = 2;
+
+// The next (at most) FOLDS slots of `mask` (lanes holding slots in `mine`),
+// taken off it: their count.  `mask` is the same in all lanes.
+__device__ __forceinline__ int next_slots(unsigned& mask, const SumsSlot& mine,
+                                          SumsSlot (&sl)[FOLDS]) {
+  int k = 0;
+  for (; k < FOLDS && mask; ++k) {
+    const int j = __ffs(mask) - 1;
+    mask &= mask - 1;
+    sl[k] = SumsSlot{__shfl_sync(0xffffffffu, mine.slab, j), __shfl_sync(0xffffffffu, mine.sub, j),
+                     __shfl_sync(0xffffffffu, mine.chunk, j)};
+  }
+  return k;
+}
+
+__device__ __forceinline__ void store_sums(float* s1, float* s2, size_t at, float2 s, float2 q) {
+  *reinterpret_cast<float2*>(s1 + at) = s;
+  *reinterpret_cast<float2*>(s2 + at) = q;
+}
+
+// Level 1 for every slot of `mask`, whose level-1 ticket this warp took
+// last: its group's partials in sub-tile order into the group's row of
+// `part` (a slab of one group: into s1, s2), FOLDS slots at a time.
+__device__ __forceinline__ void fold_groups(const SlabSums& ss, int n, int width, unsigned mask,
+                                            const SumsSlot& mine, int lt) {
+  const int groups = ss.groups();
+  while (mask) {
+    SumsSlot sl[FOLDS];
+    const int k = next_slots(mask, mine, sl);
+    RowFold f[FOLDS];
+#pragma unroll
+    for (int i = 0; i < FOLDS; ++i) {
+      const int col = sl[i].chunk * width + 2 * lt, group = sl[i].sub / FAN;
+      if (i < k && 2 * lt < width && col < n)
+        f[i].load(ss, n, sl[i].slab, group * FAN, min(FAN, ss.subs_per_slab - group * FAN), col);
+    }
+#pragma unroll
+    for (int i = 0; i < FOLDS; ++i) {
+      const int col = sl[i].chunk * width + 2 * lt, group = sl[i].sub / FAN;
+      if (i < k && 2 * lt < width && col < n) {
+        float2 s, q;
+        f[i].sum(s, q);
+        if (groups == 1)
+          store_sums(ss.s1, ss.s2, (size_t)sl[i].slab * n + col, s, q);
+        else
+          store_sums(ss.part, ss.part2(n), ss.row(sl[i].slab, ss.subs_per_slab + group) * n + col,
+                     s, q);
+      }
     }
   }
 }
 
-// The folds of one slot whose level-1 ticket this warp took last: its
-// group's partials, then (the last group of its slab) the groups' sums.
-__device__ __forceinline__ void fold_slot(const SlabSums& ss, int n, const SumsSlot& sl,
-                                          int width, int lt) {
-  const int warp = lt >> 5, lane = lt & 31;
-  const int col = sl.chunk * width + 2 * lt;
-  const bool on = 2 * lt < width && col < n;
-  const int groups = ss.groups(), group = sl.sub / FAN;
-  float2 s, q;
-  if (on) fold_rows(ss, n, sl.slab, group * FAN, min(FAN, ss.subs_per_slab - group * FAN), col,
-                    s, q);
-  const size_t out = (size_t)sl.slab * n + col;
-  if (groups == 1) {
-    if (on) {
-      *reinterpret_cast<float2*>(ss.s1 + out) = s;
-      *reinterpret_cast<float2*>(ss.s2 + out) = q;
+// Level 2 for every slot of `mask`, whose slab's level-2 ticket this warp
+// took last: the slab's group sums in group order into s1, s2, FOLDS slots
+// at a time.
+__device__ __forceinline__ void fold_slabs(const SlabSums& ss, int n, int width, unsigned mask,
+                                           const SumsSlot& mine, int lt) {
+  const int groups = ss.groups();
+  while (mask) {
+    SumsSlot sl[FOLDS];
+    const int k = next_slots(mask, mine, sl);
+    float2 st[FOLDS] = {}, qt[FOLDS] = {};
+    for (int g0 = 0; g0 < groups; g0 += FAN) {
+      RowFold f[FOLDS];
+#pragma unroll
+      for (int i = 0; i < FOLDS; ++i) {
+        const int col = sl[i].chunk * width + 2 * lt;
+        if (i < k && 2 * lt < width && col < n)
+          f[i].load(ss, n, sl[i].slab, ss.subs_per_slab + g0, min(FAN, groups - g0), col);
+      }
+#pragma unroll
+      for (int i = 0; i < FOLDS; ++i) {
+        const int col = sl[i].chunk * width + 2 * lt;
+        if (i < k && 2 * lt < width && col < n) {
+          float2 s, q;
+          f[i].sum(s, q);
+          st[i].x += s.x;
+          st[i].y += s.y;
+          qt[i].x += q.x;
+          qt[i].y += q.y;
+        }
+      }
     }
-    return;
+#pragma unroll
+    for (int i = 0; i < FOLDS; ++i) {
+      const int col = sl[i].chunk * width + 2 * lt;
+      if (i < k && 2 * lt < width && col < n)
+        store_sums(ss.s1, ss.s2, (size_t)sl[i].slab * n + col, st[i], qt[i]);
+    }
   }
-  if (on) {
-    const size_t at = ss.row(sl.slab, ss.subs_per_slab + group) * n + col;
-    *reinterpret_cast<float2*>(ss.part + at) = s;
-    *reinterpret_cast<float2*>(ss.part2(n) + at) = q;
-  }
-  __threadfence();
-  __syncwarp();
-  int last = 0;
-  if (lane == 0) {
-    int* t2 = ss.tickets + (size_t)ss.slabs * groups * ss.chunks * 4 +
-              ((size_t)sl.slab * ss.chunks + sl.chunk) * 4 + warp;
-    last = atomicAdd(t2, 1) == groups - 1;
-    if (last) *t2 = 0;
-  }
-  if (!__shfl_sync(0xffffffffu, last, 0)) return;
-  __threadfence();
-  if (!on) return;
-  float2 st = make_float2(0.f, 0.f), qt = make_float2(0.f, 0.f);
-  for (int g0 = 0; g0 < groups; g0 += FAN) {
-    fold_rows(ss, n, sl.slab, ss.subs_per_slab + g0, min(FAN, groups - g0), col, s, q);
-    st.x += s.x;
-    st.y += s.y;
-    qt.x += q.x;
-    qt.y += q.y;
-  }
-  *reinterpret_cast<float2*>(ss.s1 + out) = st;
-  *reinterpret_cast<float2*>(ss.s2 + out) = qt;
 }
 
 // After the calling warp's last tile: the level-1 tickets of its `count`
-// slots, slot_of(i) (slab < 0 where it wrote none), one lane a slot, then
-// the folds of those it took last.  All 32 lanes call it.
+// slots, slot_of(i) (slab < 0 where it wrote none), one lane a slot; the
+// folds of the groups it took last; one fence, then those groups' level-2
+// tickets, a lane a slot again, and the folds of the slabs it took last.
+// The tickets and fences are taken once for all of a warp's slots, and the
+// folds' loads run FOLDS slots at a time: the last warps to finish fold most
+// groups, so the tail is what each fold waits for.  All 32 lanes call it.
 template <typename SlotOf>
 __device__ __forceinline__ void slab_sums_finish(const SlabSums& ss, int n, int width, int count,
                                                  SlotOf slot_of, int lt) {
-  const int warp = lt >> 5, lane = lt & 31;
+  const int warp = lt >> 5, lane = lt & 31, groups = ss.groups();
   __threadfence();  // this warp's partials before any of its tickets
   __syncwarp();
   for (int base = 0; base < count; base += 32) {
@@ -316,21 +386,28 @@ __device__ __forceinline__ void slab_sums_finish(const SlabSums& ss, int n, int 
     if (mine.slab >= 0) {
       const int group = mine.sub / FAN;
       int* t1 = ss.tickets +
-                (((size_t)mine.slab * ss.groups() + group) * ss.chunks + mine.chunk) * 4 + warp;
+                (((size_t)mine.slab * groups + group) * ss.chunks + mine.chunk) * 4 + warp;
       last = atomicAdd(t1, 1) == min(FAN, ss.subs_per_slab - group * FAN) - 1;
       if (last) *t1 = 0;
     }
-    unsigned mask = __ballot_sync(0xffffffffu, last);
-    if (mask) __threadfence();
-    while (mask) {
-      const int j = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const SumsSlot sl{__shfl_sync(0xffffffffu, mine.slab, j),
-                        __shfl_sync(0xffffffffu, mine.sub, j),
-                        __shfl_sync(0xffffffffu, mine.chunk, j)};
-      fold_slot(ss, n, sl, width, lt);
-      __syncwarp();
+    const unsigned mask = __ballot_sync(0xffffffffu, last);
+    if (!mask) continue;
+    __threadfence();
+    fold_groups(ss, n, width, mask, mine, lt);
+    if (groups == 1) continue;
+    __threadfence();  // the group sums before their level-2 tickets
+    __syncwarp();
+    bool last2 = false;
+    if (last) {
+      int* t2 = ss.tickets + (size_t)ss.slabs * groups * ss.chunks * 4 +
+                ((size_t)mine.slab * ss.chunks + mine.chunk) * 4 + warp;
+      last2 = atomicAdd(t2, 1) == groups - 1;
+      if (last2) *t2 = 0;
     }
+    const unsigned mask2 = __ballot_sync(0xffffffffu, last2);
+    if (!mask2) continue;
+    __threadfence();
+    fold_slabs(ss, n, width, mask2, mine, lt);
   }
 }
 

@@ -36,11 +36,10 @@
 #include "gemm.cuh"
 
 // h: (n, s, k) bf16; w: (c, k) bf16 (torch Linear layout); bias: (c,) fp32;
-// res, y: (n, s, c) bf16; s1, s2: (n, c) fp32, written; part: (2, n,
-// subs + groups, c) fp32 scratch (subs = ⌈s/64⌉, groups = ⌈subs/8⌉; unused,
-// may be null, at s <= 64); tickets: n·(groups + 1)·⌈c/bn⌉·4 zeroed ints,
-// left zeroed.  k % 8 == 0, c % 8 == 0, all 16-byte
-// aligned.  The launch plan: tile width bn (256, 160, 128 or 64 output
+// res, y: (n, s, c) bf16; s1, s2: (n, c) fp32, written; part: fp32 scratch
+// and tickets: zeroed ints, left zeroed, as many as aat_slab_sums_sizes
+// gives for (n, s, c, ⌈c/bn⌉) (part unused, may be null, at s <= 64).
+// k % 8 == 0, c % 8 == 0, all 16-byte aligned.  The launch plan: tile width bn (256, 160, 128 or 64 output
 // columns), ring stages, persistent grid and dynamic shared bytes.
 AAT_EXPORT int aat_proj_residual(const void* h, const void* w, const void* bias, const void* res,
                                  void* y, void* s1, void* s2, void* part, void* tickets, int n,
@@ -52,4 +51,12 @@ AAT_EXPORT int aat_proj_residual(const void* h, const void* w, const void* bias,
       h, w, bias, res, y, static_cast<float*>(s1), static_cast<float*>(s2),
       static_cast<float*>(part), static_cast<int*>(tickets), n, s, c, k, bn, stages, grid, smem,
       static_cast<cudaStream_t>(stream));
+}
+
+// The sizes of kernels 3 and 4's sums scratch (gemm.cuh's slab_sums_sizes):
+// fp32 elements of `part` and ints of `tickets` for `slabs` slabs of s rows
+// and n columns in `chunks` output chunks.
+AAT_EXPORT void aat_slab_sums_sizes(int slabs, int s, int n, int chunks, long long* part,
+                                    long long* tickets) {
+  aat::gemm::slab_sums_sizes(slabs, s, n, chunks, part, tickets);
 }

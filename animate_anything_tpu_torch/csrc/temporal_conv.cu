@@ -425,11 +425,10 @@ int launch(TapParams& p, const void* x, const void* w, const void* y, const void
 
 // x: (bsz, f, s, cin) bf16; a, sh: (bsz, cin) fp32; w: (cout, 3, cin) bf16;
 // bias: (cout,) fp32; res: (bsz, f, s, cout) bf16 or null; y: (bsz, f, s, cout)
-// bf16; s1, s2: (bsz, f, cout) fp32, written; part: (2, bsz·f, subs + groups,
-// cout) fp32 scratch (subs = ⌈s/64⌉, groups = ⌈subs/8⌉; unused, may be null,
-// at s <= 64); tickets: bsz·f·(groups + 1)·⌈cout/bn⌉·2·4 zeroed ints, left
-// zeroed.  cin % 32 == 0, cout % 8 == 0, all 16-byte
-// aligned.  The launch plan (ops/temporal_conv.py::launch_plan): tile width
+// bf16; s1, s2: (bsz, f, cout) fp32, written; part: fp32 scratch and
+// tickets: zeroed ints, left zeroed, as many as aat_slab_sums_sizes gives for
+// (bsz·f, s, cout, 2·⌈cout/bn⌉) (part unused, may be null, at s <= 64).
+// cin % 32 == 0, cout % 8 == 0, all 16-byte aligned.  The launch plan (ops/temporal_conv.py::launch_plan): tile width
 // bn (320 = 2 x 160 or 256 = 2 x 128 output columns), ring stages,
 // persistent grid and dynamic shared bytes.
 AAT_EXPORT int aat_tap_conv(const void* x, const void* a, const void* sh, const void* w,

@@ -22,19 +22,20 @@ by name, as in JAX:
   is no option on the card: at s = 4096 over 34 × 5 heads its fp32 scores
   alone would take ~11 GB.
 
-The default implementation, for calls with ``impl=None``, is ``"pallas"``,
-where JAX's is ``"xla"``: every caller of the port (the pipeline, the
-trainer, ``UNet3DConfig``) means the JAX package's ``attn_impl="pallas"``
-configuration. The models pass the configuration's ``attn_impl`` to every
-call; ``set_default_attn_impl`` changes the default of the calls that pass
-none, as JAX's does for its CLI and server.
+The default implementation is ``"pallas"``, where JAX's is ``"xla"``: every
+caller of the port (the pipeline, the trainer, ``UNet3DConfig``) means the
+JAX package's ``attn_impl="pallas"`` configuration. The models pass the
+configuration's ``attn_impl`` to every call; the port has no process-wide
+default to set (JAX's ``set_default_attn_impl`` is called nowhere, its
+server's included).
 
 Prompt-to-prompt control (``utils/ptp.py``): while a controller is active,
 every non-causal call runs JAX's ``_controlled_attention``: fp32
 probabilities materialised, handed to the controller with the call's tag
 ``(module path, is_cross)`` and its place in the UNet, and what it returns
 multiplies v. JAX sends no Pallas kernel down that branch, so plain torch
-is the port here. The frame attention (``ops/temporal_attention.py``) and
+is the port here. A controller reaches only the calls of the thread that
+opened it (``utils/ptp.attention_control``), never a server's worker. The frame attention (``ops/temporal_attention.py``) and
 the fused temporal block never call this function, in JAX or here, so the
 controller never sees them.
 """
@@ -48,21 +49,9 @@ import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops.flash_attention import (attention_reference, flash_attention,
                                                             kernel_ok)
+from animate_anything_tpu_torch.utils.ptp import active_controller, place_in_unet
 
 MIN_KERNEL_SEQ = 128
-_DEFAULT_IMPL = "pallas"
-
-
-def set_default_attn_impl(impl: str) -> None:
-    """The implementation of calls that pass ``impl=None``."""
-    global _DEFAULT_IMPL
-    if impl not in ("xla", "pallas"):
-        raise ValueError(f"unknown attention impl {impl}")
-    _DEFAULT_IMPL = impl
-
-
-def default_attn_impl() -> str:
-    return _DEFAULT_IMPL
 
 
 def xla_attention(q, k, v, is_causal: bool = False) -> torch.Tensor:
@@ -75,16 +64,13 @@ def xla_attention(q, k, v, is_causal: bool = False) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
-def attention(q, k, v, impl: Optional[str] = None, is_causal: bool = False,
+def attention(q, k, v, impl: str = "pallas", is_causal: bool = False,
               tag: Optional[tuple] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, S, H, D) tensors. ``tag`` =
     (module path, is_cross) for a prompt-to-prompt controller."""
-    from animate_anything_tpu_torch.utils.ptp import active_controller
-
     ctrl = active_controller()
     if ctrl is not None and not is_causal:
         return _controlled_attention(q, k, v, ctrl, tag)
-    impl = impl or _DEFAULT_IMPL
     if impl != "pallas":
         return xla_attention(q, k, v, is_causal=is_causal)
     if is_causal or q.shape[1] < MIN_KERNEL_SEQ or k.shape[1] < MIN_KERNEL_SEQ:
@@ -99,8 +85,6 @@ def _controlled_attention(q, k, v, ctrl, tag) -> torch.Tensor:
     (b·h, sq, sk) probabilities through the controller, then P·v with fp32
     accumulation, in q's dtype. Untagged calls count as cross-attention
     where q and k are different tensors, as JAX's ``q is not k``."""
-    from animate_anything_tpu_torch.utils.ptp import place_in_unet
-
     path, is_cross = tag if tag is not None else ((), q is not k)
     b, sq, h, d = q.shape
     sk = k.shape[1]

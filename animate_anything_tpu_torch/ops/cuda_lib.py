@@ -144,6 +144,9 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            sizes = ctypes.POINTER(ctypes.c_longlong)
+            lib.aat_slab_sums_sizes.argtypes = [_I, _I, _I, _I, sizes, sizes]
+            lib.aat_slab_sums_sizes.restype = None
             lib.aat_error_string.argtypes = [ctypes.c_int]
             lib.aat_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -157,6 +160,17 @@ def call(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
                            f"{lib.aat_error_string(err).decode()}")
+
+
+@functools.lru_cache(maxsize=None)
+def slab_sums_sizes(slabs: int, s: int, n: int, chunks: int) -> tuple[int, int]:
+    """The fp32 elements of kernels 3 and 4's sums scratch and the ints of
+    its tickets, for ``slabs`` slabs of s rows and n columns in ``chunks``
+    output chunks, from the library (``csrc/gemm.cuh``'s
+    ``slab_sums_sizes``, the layout's one owner)."""
+    part, tickets = ctypes.c_longlong(), ctypes.c_longlong()
+    library().aat_slab_sums_sizes(slabs, s, n, chunks, ctypes.byref(part), ctypes.byref(tickets))
+    return part.value, tickets.value
 
 
 @functools.lru_cache(maxsize=None)

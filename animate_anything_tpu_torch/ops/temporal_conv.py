@@ -66,25 +66,19 @@ def launch_plan(bsz: int, f: int, s: int, cin: int, cout: int, sms: int = 132) -
                 subs=subs, tiles=tiles, k_steps=3 * -(-cin // 64))
 
 
-SUMS_FAN = 8  # sub-tile partials a fold adds (``gemm.cuh``'s FAN)
-
-
 def sums_scratch(slabs: int, s: int, cout: int, chunks: int, device) -> tuple:
     """The fixed-order sums' buffers of kernels 3 and 4 for ``slabs`` slabs
     of s rows and ``cout`` columns in ``chunks`` output chunks: Σy and Σy²
-    (slabs, cout) fp32, written by the kernel; the per-sub-tile partials and
-    their groups' sums, (2, slabs, subs + groups, cout) fp32 (subs = ⌈s/64⌉
-    sub-tiles a slab, groups of ``SUMS_FAN``), None where a slab is one
-    sub-tile; and the tickets, slabs·(groups + 1)·chunks·4 zeroed ints of
-    the device's current stream (``group_norm.tickets``), left zeroed."""
-    subs = -(-s // SUB_ROWS)
-    groups = -(-subs // SUMS_FAN)
-    f32 = torch.float32
-    s1 = torch.empty((slabs, cout), device=device, dtype=f32)
+    (slabs, cout) fp32, written by the kernel; the flat fp32 scratch of the
+    per-sub-tile partials and their groups' sums, None where a slab is one
+    sub-tile; and the zeroed tickets of the device's current stream
+    (``group_norm.tickets``), left zeroed. The library sizes the scratch
+    (``cuda_lib.slab_sums_sizes``), which owns its layout."""
+    part_n, tickets_n = cuda_lib.slab_sums_sizes(slabs, s, cout, chunks)
+    s1 = torch.empty((slabs, cout), device=device, dtype=torch.float32)
     s2 = torch.empty_like(s1)
-    part = (torch.empty((2, slabs, subs + groups, cout), device=device, dtype=f32)
-            if subs > 1 else None)
-    return s1, s2, part, group_norm.tickets(device, slabs * (groups + 1) * chunks * 4)
+    part = torch.empty(part_n, device=device, dtype=torch.float32) if part_n else None
+    return s1, s2, part, group_norm.tickets(device, tickets_n)
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The sites of kernels 8, 4 and 6 in one CFG forward of the full-width
-UNet in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents),
+"""The sites of kernel 3 in one CFG forward of the full-width UNet, of
+kernels 8, 4 and 6 in one in the opt-in configuration (n = 34 = 2 × 17 frames at 64×64 latents),
 of kernel 7 in the SD VAE's 512 px image encode and 16-frame decode, of
 kernels 1, 2, 3 and 5 in one CFG forward of the full-width SVD UNet under
 ``attn_impl="pallas"``, and of kernels 1-5 in one CFG forward of the
@@ -27,6 +27,9 @@ SPATIAL_CONV_SITES = (
     (8, 1280, 1280, True, False, 4), (8, 2560, 1280, True, False, 3),
     (8, 1280, 1280, False, True, 7),
 )
+# Kernel 3: (s, c) of the UNet's four temporal-conv sites (b = 2 for CFG, 17
+# frames, locations s, c -> c).
+TAP_CONV_SITES = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 # Kernel 4: (s, k, c, launches a CFG forward): transformer_in (512 -> 320),
 # then the proj_out of the spatial and temporal transformers at each level;
 # 33 a forward.

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import abc
 import contextlib
+import threading
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -27,21 +28,25 @@ from torch import nn
 
 from animate_anything_tpu_torch.utils.seq_align import get_word_inds  # re-export  # noqa: F401
 
-_ACTIVE: List["AttentionControl"] = []
+_LOCAL = threading.local()  # .stack: the controllers this thread opened, innermost last
 
 
 def active_controller() -> Optional["AttentionControl"]:
-    return _ACTIVE[-1] if _ACTIVE else None
+    """The innermost controller the calling thread opened, or None."""
+    stack = getattr(_LOCAL, "stack", None)
+    return stack[-1] if stack else None
 
 
 @contextlib.contextmanager
 def attention_control(controller: "AttentionControl"):
-    """Engage a controller for every attention() call in the dynamic scope."""
-    _ACTIVE.append(controller)
+    """Engage a controller for every attention() call in the dynamic scope,
+    on the calling thread only (a server's worker thread keeps its own)."""
+    stack = _LOCAL.__dict__.setdefault("stack", [])
+    stack.append(controller)
     try:
         yield controller
     finally:
-        _ACTIVE.pop()
+        stack.pop()
 
 
 def place_in_unet(path: Tuple[str, ...]) -> str:

@@ -629,12 +629,11 @@ def check_geglu(gen) -> dict:
     return tally.row
 
 
-# Kernel 3 at the UNet's four temporal-conv sites (b = 2 for CFG, 17 frames,
-# locations s, c -> c), then at the JAX package's test shape (tests/test_ops.py:
+# Kernel 3 at the UNet's four temporal-conv sites (``utils/kernel_sites.
+# TAP_CONV_SITES``), then at the JAX package's test shape (tests/test_ops.py:
 # 2 x 5 frames x 24 locations, 128 -> 128) and at edges of the kernel's
 # reach: ragged s (sub-tiles of 64 rows cut by the slab), cin % 64 == 32,
 # cin = 32, one frame (both outer taps past the ends), cout < 64.
-TAP_CONV_SITES = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 TAP_CONV_TEST_SHAPES = ((2, 5, 24, 128, 128), (1, 3, 100, 96, 40), (2, 5, 200, 32, 128),
                         (1, 1, 70, 64, 64), (2, 4, 16, 64, 64))
 # Two identical calls of kernels 3 and 4 return the same bits: y, and Σy, Σy²,
@@ -694,6 +693,7 @@ def check_tap_conv(gen) -> dict:
     residual, called twice; timed beside the bf16 composite
     (``composite_ms``), then at JAX's test shape and the edges of its reach."""
     from animate_anything_tpu_torch.ops import temporal_conv as tc
+    from animate_anything_tpu_torch.utils.kernel_sites import TAP_CONV_SITES
 
     tally = Tally("tap_conv", "animate_anything_tpu_torch/csrc/temporal_conv.cu",
                   "animate_anything_tpu/ops/temporal_conv.py:159")

@@ -228,25 +228,28 @@ def test_server_answers_a_tiny_request_end_to_end(tmp_path):
         server.shutdown()
 
 
-def test_set_default_attn_impl_routes_calls_without_an_impl():
-    """``ops/attention.set_default_attn_impl`` (JAX's, which its server and
-    CLI set) picks the implementation of calls that pass ``impl=None``; the
-    port's default stays ``"pallas"``."""
-    from animate_anything_tpu_torch.ops import attention as attn
+def test_ptp_controller_reaches_only_its_own_thread():
+    """A prompt-to-prompt controller opened on one thread reroutes that
+    thread's attention calls into the controlled branch, and no other
+    thread's: a server's worker keeps its kernel route while a caller holds
+    an ``AttentionStore`` open."""
+    import threading
 
-    assert attn.default_attn_impl() == "pallas"
+    from animate_anything_tpu_torch.ops import attention as attn
+    from animate_anything_tpu_torch.utils import ptp
+
     q = torch.randn(1, 130, 2, 16, generator=torch.Generator().manual_seed(0))
-    seen = []
+    store, seen = ptp.AttentionStore(), []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(attn, "xla_attention", lambda *a, **k: seen.append("xla") or a[0])
         mp.setattr(attn, "flash_attention", lambda *a, **k: seen.append("pallas") or a[0])
-        try:
-            attn.attention(q, q, q)
-            attn.set_default_attn_impl("xla")
-            attn.attention(q, q, q)
-            attn.attention(q, q, q, impl="pallas")
-            with pytest.raises(ValueError, match="unknown attention impl"):
-                attn.set_default_attn_impl("packed")
-        finally:
-            attn.set_default_attn_impl("pallas")
-    assert seen == ["pallas", "xla", "pallas"]
+        with ptp.attention_control(store):
+            worker = threading.Thread(target=lambda: seen.append(
+                ("worker", ptp.active_controller(), attn.attention(q, q, q) is q)))
+            worker.start()
+            worker.join()
+            own = attn.attention(q, q, q, tag=(("down_blocks", "0"), False))
+        assert ptp.active_controller() is None
+    assert seen == ["pallas", ("worker", None, True)]
+    torch.testing.assert_close(own, attn.attention_reference(q, q, q), rtol=1e-5, atol=1e-5)
+    (mine,) = store.step_store["down_self"]
+    assert mine.shape == (2, 130, 130)

@@ -41,6 +41,7 @@ def _meta_forward(condition_mode: str):
         mp.setattr(cuda_lib, "call", lambda name, *args: None)
         mp.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
         mp.setattr(cuda_lib, "sm_count", lambda device: 132)
+        mp.setattr(cuda_lib, "slab_sums_sizes", lambda *shape: (0, 1))  # no library here
         mp.setattr(flash_attention, "flash_forward_with_lse", recorder(
             "flash", flash_attention.flash_forward_with_lse, lambda q, k, v, *a: tuple(q.shape)))
         mp.setattr(geglu, "_launch", recorder("geglu", geglu._launch,

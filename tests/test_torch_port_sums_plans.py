@@ -107,6 +107,7 @@ def test_kernel_sites_are_the_opt_in_forwards():
         mp.setattr(cuda_lib, "call", lambda name, *args: None)
         mp.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
         mp.setattr(cuda_lib, "sm_count", lambda device: 132)
+        mp.setattr(cuda_lib, "slab_sums_sizes", lambda *shape: (0, 1))  # no library here
         mp.setattr(gn, "tickets", lambda device, count: torch.zeros(count, device=device))
         mp.setattr(gn, "_launch_channel_sums", record)
         with torch.device("meta"):

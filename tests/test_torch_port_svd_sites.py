@@ -49,6 +49,7 @@ def _meta_forward(attn_impl):
         mp.setattr(cuda_lib, "call", lambda name, *args: None)
         mp.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
         mp.setattr(cuda_lib, "sm_count", lambda device: 132)
+        mp.setattr(cuda_lib, "slab_sums_sizes", lambda *shape: (0, 1))  # no library here
         for mod in mods.values():
             for attr in ("launches", "bwd_launches"):
                 if hasattr(mod, attr):
