@@ -3,6 +3,7 @@
 
     python -m animate_anything_tpu_torch.cli --config configs/train_mask_motion.yaml \
         [--eval] [key.subkey=value ...] [--device cpu]
+    torchrun --nproc_per_node N -m animate_anything_tpu_torch.cli --config ...
 
 ``main(**cfg)`` trains: the run directory ``{output_dir}/{time}`` with
 ``config.yaml`` and ``train_log.jsonl``; the datasets (``extra_train_data``,
@@ -15,7 +16,14 @@ directory, or random weights when ``pretrained_model_path`` is not a
 directory), merges a saved adapter (``lora_path`` and its text-encoder
 sibling), animates the validation image ``eval_iters`` times and reports
 the motion metrics. Both run on the card unless ``device="cpu"`` is passed.
-PAB step caching is not ported and raises.
+
+Training reads the config's ``mesh`` as JAX does (``data`` -1 by default:
+every process). Under ``torchrun`` each process drives one GPU, decodes its
+rows of each global batch (``train_batch_size``) and averages the gradients
+over the data axis; the optimizer state is split over it (ZeRO,
+``parallel/partition.py``). Rank 0 alone logs and writes checkpoints,
+adapters, pipelines and previews. Without a launcher it is the one-device
+run.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import torch
 
 from animate_anything_tpu_torch.core.config import Config, load_config
 from animate_anything_tpu_torch.core.dtypes import cast_module_, policy_from_string
+from animate_anything_tpu_torch.core.mesh import (barrier, broadcast_object, init_distributed,
+                                                  is_main_process)
 from animate_anything_tpu_torch.data import (ConcatDataset, DataLoader, device_prefetch,
                                              extend_datasets, get_train_dataset)
 from animate_anything_tpu_torch.data.loader import check_mesh
@@ -49,7 +59,7 @@ from animate_anything_tpu_torch.train.checkpoint import (latest_checkpoint, rest
                                                          save_checkpoint, save_pipeline)
 from animate_anything_tpu_torch.train.trainer import batch_latents
 from animate_anything_tpu_torch.utils import media
-from animate_anything_tpu_torch.utils.logging_util import MetricLogger
+from animate_anything_tpu_torch.utils.logging_util import run_logger
 
 
 def _build_pipeline(models, sampler: str = "dpmpp", pab=None) -> LatentToVideoPipeline:
@@ -199,12 +209,15 @@ def train_dataset(cfg: Config, tokenizer):
 
 
 @torch.no_grad()
-def cache_dataset(dataset, vae, cache_dir: str, device):
+def cache_dataset(dataset, vae, cache_dir: str, device, rank: int = 0, ranks: int = 1):
     """Encode every item's clip once with the frozen VAE into ``cache_dir``
-    (JAX's ``cache_latents``) → the ``CachedDataset`` over it."""
+    (JAX's ``cache_latents``) → the ``CachedDataset`` over it. Under data
+    parallelism rank ``rank`` of ``ranks`` encodes the items i ≡ rank
+    (mod ranks), each to its own file; the cache is whole once every rank
+    has returned."""
     from animate_anything_tpu_torch.data import CachedDataset
 
-    for i in range(len(dataset)):
+    for i in range(rank, len(dataset), ranks):
         item = dataset[i]
         pixels = torch.from_numpy(np.asarray(item["pixel_values"]))[None].to(device)
         latents = batch_latents({"pixel_values": pixels}, vae)[0].cpu().numpy()
@@ -274,11 +287,15 @@ def main(*, device="cuda", **cfg_kw) -> str:
     generator seeded ``seed`` (also on resume, as JAX restarts its key)."""
     cfg = Config(cfg_kw)
     dev = resolve_device(device)
-    check_mesh(cfg.get("mesh"))
-    run_dir = os.path.join(cfg.get("output_dir", "./output"), time.strftime("%Y-%m-%dT%H-%M-%S"))
-    os.makedirs(run_dir, exist_ok=True)
-    Config(cfg).save(os.path.join(run_dir, "config.yaml"))
-    logger = MetricLogger(run_dir)
+    init_distributed(dev)
+    mesh = check_mesh(cfg.get("mesh"))
+    main_rank = is_main_process()
+    run_dir = broadcast_object(os.path.join(cfg.get("output_dir", "./output"),
+                                            time.strftime("%Y-%m-%dT%H-%M-%S")))
+    if main_rank:
+        os.makedirs(run_dir, exist_ok=True)
+        Config(cfg).save(os.path.join(run_dir, "config.yaml"))
+    logger = run_logger(run_dir)
 
     seed = int(cfg.get("seed") or 0)
     random.seed(seed)
@@ -315,12 +332,12 @@ def main(*, device="cuda", **cfg_kw) -> str:
             tree["text_lora"] = init_lora_params(torch.Generator(dev).manual_seed(seed + 8),
                                                  params, text_lora_cfg)
             bases["text"] = {p: params[p].detach().clone() for p in tree["text_lora"]}
-        state = create_lora_train_state(tree, tconf)
+        state = create_lora_train_state(tree, tconf, mesh=mesh)
     else:
-        state = create_train_state(unet, tconf)
+        state = create_train_state(unet, tconf, mesh=mesh)
     save_pretrained = not use_lora and bool(cfg.get("save_pretrained_model", True))
     fp32 = {}
-    if save_pretrained:      # what the cast rounds and the masters do not hold
+    if save_pretrained and main_rank:   # what the cast rounds and the masters do not hold
         fp32 = {name: {n: p.detach().to("cpu", copy=True) for n, p in m.named_parameters()
                        if n not in (state.masters if name == "unet" else ())}
                 for name, m in (("unet", unet), ("vae", vae), ("text", text))}
@@ -332,11 +349,15 @@ def main(*, device="cuda", **cfg_kw) -> str:
 
         dataset = CachedDataset(cache_dir=cfg.cached_latent_dir)
     elif tconf.cache_latents:
+        from animate_anything_tpu_torch.data import CachedDataset
+
         cache_dir = os.path.join(run_dir, "cached_latents")
-        dataset = cache_dataset(dataset, vae, cache_dir, dev)
+        cache_dataset(dataset, vae, cache_dir, dev, mesh.rank(), mesh.size())
+        barrier()
+        dataset = CachedDataset(cache_dir=cache_dir)
         print(f"cached {len(dataset)} latent items → {cache_dir}")
     loader = DataLoader(dataset, batch_size=int(cfg.get("train_batch_size", 1)), shuffle=True,
-                        seed=seed)
+                        seed=seed, mesh=mesh)
 
     resume = cfg.get("resume_from_checkpoint")
     if resume:
@@ -349,10 +370,11 @@ def main(*, device="cuda", **cfg_kw) -> str:
     if use_lora:
         step_fn = make_lora_train_step(
             models["schedule"], tconf, unet, bases.get("unet"), lora_cfg, text_encoder=text,
-            text_base=bases.get("text"), text_lora_config=text_lora_cfg, vae=vae, device=dev)
+            text_base=bases.get("text"), text_lora_config=text_lora_cfg, vae=vae, device=dev,
+            mesh=mesh)
     else:
         step_fn = make_train_step(models["schedule"], tconf, vae=vae, text_encoder=text,
-                                  device=dev)
+                                  device=dev, mesh=mesh)
     uncond_ids = torch.as_tensor(np.asarray(models["tokenizer"](
         "", padding="max_length", max_length=77).input_ids), device=dev)
 
@@ -362,7 +384,7 @@ def main(*, device="cuda", **cfg_kw) -> str:
     sample_preview = bool(cfg.get("validation_data", {}).get("sample_preview", False))
     global_step = state.step
     while global_step < max_steps:
-        for batch in device_prefetch(iter(loader), device=dev, mesh=cfg.get("mesh")):
+        for batch in device_prefetch(iter(loader), device=dev, mesh=mesh):
             if global_step >= max_steps:
                 break
             for key in ("text_prompt", "dataset", "motion"):
@@ -375,20 +397,21 @@ def main(*, device="cuda", **cfg_kw) -> str:
 
             if global_step % ckpt_steps == 0 or global_step >= max_steps:
                 save_checkpoint(os.path.join(run_dir, "ckpt"), state)
-                if lora_cfg is not None:
+                if lora_cfg is not None and main_rank:
                     save_lora(os.path.join(run_dir, f"lora_step_{global_step}.safetensors"),
                               state.params["unet_lora"], lora_cfg)
-                if text_lora_cfg is not None:
+                if text_lora_cfg is not None and main_rank:
                     save_lora(os.path.join(
                         run_dir, f"lora_step_{global_step}.text_encoder.safetensors"),
                         state.params["text_lora"], text_lora_cfg, prefix="text_encoder")
-                if save_pretrained:
+                if save_pretrained and main_rank:
                     with substituted(unet, {**fp32["unet"], **state.masters}), \
                             substituted(vae, fp32["vae"]), substituted(text, fp32["text"]):
                         save_pipeline(os.path.join(run_dir, f"pipeline_step_{global_step}"),
                                       unet, models["unet_config"], vae, models["vae_config"],
                                       text, models["text_config"])
-            if sample_preview and (global_step % val_steps == 0 or global_step == 5):
+            if sample_preview and main_rank and (global_step % val_steps == 0
+                                                 or global_step == 5):
                 with (_lora_merged(models, state, bases, lora_cfg, text_lora_cfg) if use_lora
                       else contextlib.nullcontext()):
                     vm = run_validation(models, cfg.validation_data, run_dir, global_step,

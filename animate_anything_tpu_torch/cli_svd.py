@@ -10,8 +10,11 @@
 sample's frame 0, the EDM step of ``train/svd_trainer.py`` on fp32 masters,
 and every ``checkpointing_steps`` steps and at the end the train state
 (``train/checkpoint.save_checkpoint``) and the UNet in the diffusers layout
-(``_save_svd_pipeline``). JAX's ``mesh`` has no counterpart yet: a mesh that
-asks for more than one device raises (ROADMAP queue F).
+(``_save_svd_pipeline``). The config's ``mesh`` is read as JAX reads it
+(``data`` 1 by default): under ``torchrun`` with ``mesh.data`` -1 or the
+process count, each process drives one GPU on its rows of every global
+batch, the gradients are averaged and the optimizer state split over the
+data axis, and rank 0 logs and writes.
 
 ``main_eval(**cfg)`` builds the SVD UNet, the VAE and the CLIP vision tower
 with random weights from ``seed`` (JAX's ``build_svd_models`` always draws
@@ -37,6 +40,8 @@ import torch
 
 from animate_anything_tpu_torch.core.config import Config, load_config
 from animate_anything_tpu_torch.core.dtypes import COMPUTE_DTYPE, cast_module_, policy_from_string
+from animate_anything_tpu_torch.core.mesh import (broadcast_object, init_distributed,
+                                                  is_main_process)
 from animate_anything_tpu_torch.data import DataLoader, device_prefetch
 from animate_anything_tpu_torch.data.loader import check_mesh
 from animate_anything_tpu_torch.models.clip_vision import (CLIPVisionConfig,
@@ -54,7 +59,7 @@ from animate_anything_tpu_torch.train.svd_trainer import SVDTrainConfig, make_sv
 from animate_anything_tpu_torch.utils import media
 from animate_anything_tpu_torch.utils.convert import (init_clip_vision_, init_svd_unet_,
                                                       init_vae_, svd_flax_path)
-from animate_anything_tpu_torch.utils.logging_util import MetricLogger
+from animate_anything_tpu_torch.utils.logging_util import run_logger
 
 
 def build_svd_models(motion_mask: bool = False, model_size: str = "full",
@@ -101,12 +106,15 @@ def main(*, device="cuda", **cfg_kw) -> str:
 
     cfg = Config(cfg_kw)
     dev = resolve_device(device)
-    check_mesh(cfg.get("mesh"))
-    run_dir = os.path.join(cfg.get("output_dir", "./output"),
-                           time.strftime("svd_%Y-%m-%dT%H-%M-%S"))
-    os.makedirs(run_dir, exist_ok=True)
-    Config(cfg).save(os.path.join(run_dir, "config.yaml"))
-    logger = MetricLogger(run_dir)
+    init_distributed(dev)
+    mesh = check_mesh(cfg.get("mesh"), default_data=1)
+    main_rank = is_main_process()
+    run_dir = broadcast_object(os.path.join(cfg.get("output_dir", "./output"),
+                                            time.strftime("svd_%Y-%m-%dT%H-%M-%S")))
+    if main_rank:
+        os.makedirs(run_dir, exist_ok=True)
+        Config(cfg).save(os.path.join(run_dir, "config.yaml"))
+    logger = run_logger(run_dir)
     seed = int(cfg.get("seed") or 0)
     generator = torch.Generator(dev).manual_seed(seed)
     policy = policy_from_string(cfg.get("mixed_precision", "bf16"))
@@ -125,8 +133,8 @@ def main(*, device="cuda", **cfg_kw) -> str:
         motion_mask=motion_mask)
     for name in ("unet", "vae", "image_encoder"):
         models[name].requires_grad_(False)
-    state = create_train_state(unet, tconf, svd_flax_path)
-    save_pretrained = bool(cfg.get("save_pretrained_model", True))
+    state = create_train_state(unet, tconf, svd_flax_path, mesh)
+    save_pretrained = bool(cfg.get("save_pretrained_model", True)) and main_rank
     # what the cast rounds and the masters do not hold
     fp32 = ({n: p.detach().to("cpu", copy=True) for n, p in unet.named_parameters()
              if n not in state.masters} if save_pretrained else {})
@@ -135,14 +143,16 @@ def main(*, device="cuda", **cfg_kw) -> str:
             cast_module_(models[name])
 
     loader = DataLoader(train_dataset(cfg, None),
-                        batch_size=int(cfg.get("train_batch_size", 1)), shuffle=True, seed=seed)
-    step_fn = make_svd_train_step(tconf, models["vae"], models["image_encoder"], device=dev)
+                        batch_size=int(cfg.get("train_batch_size", 1)), shuffle=True, seed=seed,
+                        mesh=mesh)
+    step_fn = make_svd_train_step(tconf, models["vae"], models["image_encoder"], device=dev,
+                                  mesh=mesh)
     size = models["image_config"].image_size
     max_steps = int(cfg.get("max_train_steps", 100))
     ckpt_steps = int(cfg.get("checkpointing_steps", max_steps))
     global_step = state.step
     while global_step < max_steps:
-        for batch in device_prefetch(iter(loader), device=dev, mesh=cfg.get("mesh")):
+        for batch in device_prefetch(iter(loader), device=dev, mesh=mesh):
             if global_step >= max_steps:
                 break
             pixels = batch["pixel_values"]

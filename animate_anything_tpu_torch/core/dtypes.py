@@ -52,10 +52,12 @@ def cast_module_(module: torch.nn.Module) -> torch.nn.Module:
 
 def master_params(module: torch.nn.Module,
                   names: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
-    """fp32 copies of ``module``'s parameters (only ``names``, if given)."""
+    """fp32 copies of ``module``'s parameters (only ``names``, if given), in
+    the contiguous layout whatever the parameter's (a ZeRO slice of a master
+    is a view of its flat range)."""
     keep = None if names is None else set(names)
-    return {name: p.detach().float().clone() for name, p in module.named_parameters()
-            if keep is None or name in keep}
+    return {name: p.detach().float().clone(memory_format=torch.contiguous_format)
+            for name, p in module.named_parameters() if keep is None or name in keep}
 
 
 @torch.no_grad()

@@ -2,21 +2,26 @@
 ``animate_anything_tpu/data/loader.py``.
 
 ``DataLoader``: a thread assembles numpy batches while the card computes;
-the order is a numpy permutation seeded ``seed + epoch``, as in JAX.
-``device_prefetch``: the next batch's copy to the card runs on a side CUDA
-stream from pinned host buffers while the current batch computes; the
-consumer's stream waits on the copy's event before it reads the batch, so
-no kernel reads a batch before its copy lands.
+the order is a numpy permutation seeded ``seed + epoch``, as in JAX. Under
+data parallelism (``mesh=``) every rank walks the same order and decodes
+only its rows of each global batch. ``device_prefetch``: the next batch's
+copy to the card runs on a side CUDA stream from pinned host buffers while
+the current batch computes; the consumer's stream waits on the copy's event
+before it reads the batch, so no kernel reads a batch before its copy
+lands.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from animate_anything_tpu_torch.core.mesh import (AXIS_DATA, Mesh, create_mesh,
+                                                  mesh_shape_from_config, row_range)
 
 
 def collate(items: list) -> Dict[str, Any]:
@@ -33,16 +38,22 @@ def collate(items: list) -> Dict[str, Any]:
 
 class DataLoader:
     """Shuffled, batched, background-threaded loader over any indexable
-    dataset of dicts."""
+    dataset of dicts. ``batch_size`` is the global batch; with a ``mesh``
+    whose data axis is above 1 each rank decodes and yields only its rows
+    of every global batch, in the same order on every rank."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = True, prefetch: int = 2):
+                 seed: int = 0, drop_last: bool = True, prefetch: int = 2,
+                 mesh: Optional[Mesh] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.mesh = mesh if mesh is not None and mesh.size(AXIS_DATA) > 1 else None
+        if self.mesh is not None:
+            row_range(batch_size, self.mesh)        # the batch must split evenly
         self._epoch = 0
         n = len(dataset)
         if n == 0 or (drop_last and n < batch_size):
@@ -72,18 +83,21 @@ class DataLoader:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        def rows(idx):
+            """Decode a global batch's indices: all, or this rank's rows."""
+            if self.mesh is None:
+                return collate([self.dataset[int(i)] for i in idx])
+            lo, hi = row_range(len(idx), self.mesh)
+            return collate([self.dataset[int(i)] for i in idx[lo:hi]])
+
         def worker():
-            batch = []
             try:
-                for i in order:
+                for start in range(0, len(order), self.batch_size):
                     if stop.is_set():
                         return
-                    batch.append(self.dataset[int(i)])
-                    if len(batch) == self.batch_size:
-                        q.put(collate(batch))
-                        batch = []
-                if batch and not self.drop_last:
-                    q.put(collate(batch))
+                    idx = order[start:start + self.batch_size]
+                    if len(idx) == self.batch_size or not self.drop_last:
+                        q.put(rows(idx))
             except Exception as e:  # surface worker errors to the consumer
                 q.put(e)
             finally:
@@ -103,13 +117,13 @@ class DataLoader:
             stop.set()
 
 
-def check_mesh(mesh) -> None:
-    """A config's ``mesh`` must ask for one device: every axis 1, or the data
-    axis -1 (all devices: one card); more raise (ROADMAP queue F, item 21)."""
-    for axis, n in dict(mesh or {}).items():
-        if int(n) != 1 and not (axis == "data" and int(n) == -1):
-            raise ValueError(f"mesh {axis}={n} asks for more than one device; data, frame and "
-                             "tensor parallelism are not ported (ROADMAP queue F, item 21)")
+def check_mesh(mesh, default_data: int = -1) -> Mesh:
+    """The mesh a config's ``mesh`` asks for (``data`` ``default_data`` when
+    absent), checked: the data axis must come to the world size (-1, or the
+    process count; 1 without a launcher), else ``ValueError``; a frame or
+    tensor axis above 1 raises ``AxisNotPorted`` (ROADMAP queue F, items
+    21b / 21c)."""
+    return create_mesh(mesh_shape_from_config(mesh, default_data))
 
 
 def device_prefetch(iterator, device="cuda", mesh=None, size: int = 1):
@@ -118,15 +132,17 @@ def device_prefetch(iterator, device="cuda", mesh=None, size: int = 1):
     on a side stream (pinned host buffers, ``non_blocking``) while the
     current batch computes. A yielded batch's tensors are ready on the
     current stream: it waits on the batch's copy event, and the tensors are
-    recorded on it so their memory is not reused early. ``mesh`` is JAX's
-    data sharding: one card takes ``{"data": 1}`` or ``{"data": -1}``; more
-    devices raise (ROADMAP queue F, item 21). On the CPU (``device="cpu"``)
-    the tensors wrap the host arrays. Raises without CUDA unless
-    ``device="cpu"``."""
+    recorded on it so their memory is not reused early. ``mesh`` (a
+    ``core/mesh.Mesh``, or a config's ``mesh`` mapping, ``check_mesh``-ed)
+    is only checked: under data parallelism the batches are already this
+    rank's rows, as a ``DataLoader(..., mesh=)`` yields them. On the CPU
+    (``device="cpu"``) the tensors wrap the host arrays. Raises without CUDA
+    unless ``device="cpu"``."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device_prefetch: no CUDA device (pass device='cpu' for the CPU)")
-    check_mesh(mesh)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        check_mesh(mesh)
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def put(batch):

@@ -11,8 +11,9 @@ JAX's is plain ``jnp``: the update is memory-bound elementwise work.
 
 ``AdamW8bit`` keeps ``train/trainer.AdamW``'s interface (the trainable fp32
 masters updated in place, clipping by global norm before it, ``MultiSteps``
-accumulation) and JAX's rounding: the bias corrections 1 − βⁿ in fp32,
-round half to even.
+accumulation, the ZeRO plan's slices: 256-aligned, so a rank holds whole
+blocks and their scales) and JAX's rounding: the bias corrections 1 − βⁿ in
+fp32, round half to even.
 """
 
 from __future__ import annotations
@@ -71,16 +72,18 @@ class AdamW8bit(AdamW):
     formula are ``AdamW``'s."""
 
     STATE = ("m_q", "m_scale", "v_q", "v_scale")
+    BLOCK_STATE = ("m_scale", "v_scale")
 
     def _init_moments(self, masters: Dict[str, torch.Tensor]) -> None:
+        own = {n: self.own(p, n) for n, p in masters.items()}
         self.m_q = {n: torch.zeros(p.shape, dtype=torch.int8, device=p.device)
-                    for n, p in masters.items()}
+                    for n, p in own.items()}
         self.v_q = {n: torch.zeros(p.shape, dtype=torch.uint8, device=p.device)
-                    for n, p in masters.items()}
+                    for n, p in own.items()}
         self.m_scale = {n: torch.zeros(nblocks(p.numel()), device=p.device)
-                        for n, p in masters.items()}
+                        for n, p in own.items()}
         self.v_scale = {n: torch.zeros(nblocks(p.numel()), device=p.device)
-                        for n, p in masters.items()}
+                        for n, p in own.items()}
 
     def _bias_corrections(self) -> Tuple[float, float]:
         """1 − β₁ⁿ and 1 − β₂ⁿ in fp32, as JAX computes them."""
@@ -95,12 +98,12 @@ class AdamW8bit(AdamW):
         grads = accumulate(self, grads, masters)
         if grads is None:
             return False
-        clip = clip_factor(grads, cfg.max_grad_norm)
+        clip = clip_factor(grads, cfg.max_grad_norm, self.plan)
         self.count += 1
         c1, c2 = self._bias_corrections()
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         for n in self.names:
-            p = masters[n]
+            p = self.own(masters[n], n)
             g = blocked(grads[n])
             if clip != 1.0:
                 g = g * clip
@@ -116,7 +119,5 @@ class AdamW8bit(AdamW):
             self.v_q[n].copy_(unblocked(vq, p.shape, torch.uint8))
             self.m_scale[n].copy_(ms)
             self.v_scale[n].copy_(vs)
-        if self.acc is not None:
-            for t in self.acc.values():
-                t.zero_()
+        self._finish(masters)
         return True

@@ -12,6 +12,12 @@ latents — the port of ``animate_anything_tpu/pipelines/latent2video.py``.
 prompt) through the pipeline's tokenizer and CLIP text encoder
 (``encode_prompt``), as JAX's does; ``__call__`` takes the embeddings.
 
+``mesh`` (``core/mesh.Mesh``; JAX's ``mesh=``): a batch that the data axis
+divides is denoised and decoded row-wise, each rank its rows, then
+all-gathered, so every rank returns the whole batch (JAX returns a global
+array); a batch that the axis does not divide runs whole on every rank, as
+JAX replicates it. A frame axis is not ported (ROADMAP queue F, item 21b).
+
 ``pab``: Pyramid-Attention-Broadcast step caching (``models/pab.py``),
 ``{"spatial_rate": 2, "temporal_rate": 3, "warmup": 4, "tail": 1}``: each
 request gets a new ``PABCache`` threaded through the sampler, and each step
@@ -25,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from animate_anything_tpu_torch.core.mesh import AXIS_DATA, gather_rows, row_range
 from animate_anything_tpu_torch.diffusion import (DiffusionSchedule, ddim_timesteps,
                                                   ddpm_forward_mask, ddpm_forward_timesteps,
                                                   dpmpp_timesteps, make_schedule, sample_loop)
@@ -39,13 +46,15 @@ class LatentToVideoPipeline:
     def __init__(self, unet: UNet3DConditionModel, vae: AutoencoderKL,
                  text_encoder: Optional[CLIPTextModel] = None, tokenizer=None,
                  schedule: Optional[DiffusionSchedule] = None, sampler: str = "dpmpp",
-                 pab: Optional[dict] = None):
+                 pab: Optional[dict] = None, mesh=None):
         """tokenizer: ``models/tokenizers.py::HashTokenizer`` or
         ``models/clip_tokenizer.py::CLIPBPETokenizer`` (called as HF's);
-        sampler: ``"dpmpp"`` or ``"ddim"``; pab: the PAB config or None."""
+        sampler: ``"dpmpp"`` or ``"ddim"``; pab: the PAB config or None;
+        mesh: the data-sharded batch, or None."""
         if sampler not in ("dpmpp", "ddim"):
             raise ValueError(f"unknown sampler {sampler}")
         self.pab = dict(pab) if pab else None
+        self.mesh = mesh
         self.unet = unet
         self.vae = vae
         self.text_encoder = text_encoder
@@ -108,13 +117,22 @@ class LatentToVideoPipeline:
             prompt_embeds, negative_prompt_embeds = self.encode_prompt(prompt)
         if timesteps is None:
             timesteps = self.get_timesteps(num_inference_steps)
+        if motion is not None:
+            motion = torch.as_tensor(motion, dtype=torch.float32, device=latents.device)
+        n = 1 if self.mesh is None else self.mesh.size(AXIS_DATA)
+        sharded = n > 1 and latents.shape[0] % n == 0
+        if sharded:         # this rank's rows of every per-sample input
+            rows = slice(*row_range(latents.shape[0], self.mesh))
+            latents, condition_latent = latents[rows], condition_latent[rows]
+            prompt_embeds, negative_prompt_embeds = (prompt_embeds[rows],
+                                                     negative_prompt_embeds[rows])
+            mask = None if mask is None else mask[rows]
+            motion = None if motion is None else motion[rows]
         b = latents.shape[0]
         dev = latents.device
         embeds = torch.cat([negative_prompt_embeds, prompt_embeds]).to(dev)
         cond2 = torch.cat([condition_latent, condition_latent])
         mask2 = None if mask is None else torch.cat([mask, mask])
-        if motion is not None:
-            motion = torch.as_tensor(motion, dtype=torch.float32, device=dev)
         motion2 = None if motion is None else torch.cat([motion, motion])
         gs = float(guidance_scale)
 
@@ -134,9 +152,11 @@ class LatentToVideoPipeline:
 
             latents = sample_loop(self.schedule, latents, timesteps, model_fn, self.sampler,
                                   model_state=PABCache())
-        if output_type == "latent":
-            return None, latents
-        return decode_video(self.vae, latents), latents
+        video = None if output_type == "latent" else decode_video(self.vae, latents)
+        if sharded:
+            latents = gather_rows(latents, self.mesh)
+            video = None if video is None else gather_rows(video, self.mesh)
+        return video, latents
 
     @torch.no_grad()
     def animate_image(self, image: np.ndarray, prompt: str, *,

@@ -6,8 +6,10 @@ writes ``{ckpt_dir}/step_{step:08d}/train_state.pt`` (the trainable fp32
 masters, or the adapter, the optimizer's moments and counts, the step) and
 keeps the newest ``keep`` = 3; ``restore_checkpoint`` copies one back into a
 freshly made state of the same run (restore-into-template, as orbax's), so a
-resumed run goes on at the saved step. The files are the port's own: orbax
-interop is not kept.
+resumed run goes on at the saved step. Under data parallelism the
+optimizer's ZeRO slices are gathered whole to rank 0, which writes, so the
+file is the one-device file, and a run at any rank count resumes from it. The
+files are the port's own: orbax interop is not kept.
 
 **Pipelines.** A directory holds ``unet/``, ``vae/`` and ``text_encoder/``, each with a
 ``config.json`` (the config dataclass as a dict) and its weights in fp32
@@ -44,12 +46,19 @@ def _to_host(tree):
 
 def save_checkpoint(ckpt_dir: str, state, keep: int = 3) -> str:
     """Write ``state`` (``train.TrainState``) under ``ckpt_dir/step_{step:08d}``
-    and prune to the newest ``keep`` steps; → the step's directory."""
+    and prune to the newest ``keep`` steps; → the step's directory. Under data
+    parallelism every rank calls it: the optimizer's slices are gathered
+    whole to rank 0, which alone writes the file a one-device run writes."""
+    from animate_anything_tpu_torch.core.mesh import is_main_process
+
     ckpt_dir = os.path.abspath(ckpt_dir)
     path = os.path.join(ckpt_dir, f"step_{int(state.step):08d}")
+    optimizer = state.optimizer.state_dict()
+    if not is_main_process():
+        return path
     os.makedirs(path, exist_ok=True)
     torch.save({"masters": _to_host(state.masters),
-                "optimizer": _to_host(state.optimizer.state_dict()),
+                "optimizer": _to_host(optimizer),
                 "step": int(state.step)}, os.path.join(path, STATE_FILE))
     entries = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
     for old in entries[:-keep]:

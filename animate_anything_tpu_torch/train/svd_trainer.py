@@ -41,7 +41,9 @@ from torch import nn
 from animate_anything_tpu_torch.diffusion.euler_edm import edm_precondition, edm_sample_sigmas
 from animate_anything_tpu_torch.models.vae import encode_video
 from animate_anything_tpu_torch.train.trainer import (TrainConfig, _check_device,
-                                                      apply_gradients, prepare_mask_for_latents)
+                                                      apply_gradients, global_rows,
+                                                      mean_metrics, prepare_mask_for_latents,
+                                                      rows_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,24 +145,39 @@ def make_svd_loss_fn(config: SVDTrainConfig, vae: nn.Module,
     return loss_fn
 
 
+def draw_svd_rows(config: SVDTrainConfig, pixel_shape: tuple, latent_channels: int,
+                  generator: torch.Generator, device, mesh=None) -> SVDDraws:
+    """``draw_svd_inputs`` for the global batch (every data rank draws the
+    same values), then this rank's rows of the image noise, σ and the latent
+    noise; the augmentation level and the dropout flag are one for the
+    batch, as in JAX."""
+    b = global_rows(mesh, pixel_shape[0])
+    d = draw_svd_inputs(config, (b,) + tuple(pixel_shape[1:]), latent_channels, generator,
+                        device)
+    rows = rows_of(mesh, b)
+    return SVDDraws(d.noise_aug, d.image_noise[rows], d.sigma[rows], d.noise[rows], d.drop)
+
+
 def make_svd_train_step(config: SVDTrainConfig, vae: nn.Module,
-                        image_encoder: Optional[nn.Module] = None, device="cuda") -> Callable:
+                        image_encoder: Optional[nn.Module] = None, device="cuda",
+                        mesh=None) -> Callable:
     """``train_step(state, batch, generator) → metrics`` (floats: edm_loss,
     mask_consistency_loss under ``motion_mask``, loss, grad_norm) for a
     full-finetune ``TrainState`` of the SVD UNet: the draws from
     ``generator`` (on ``device``), the loss, the backward, the optimizer.
-    Runs on the card unless ``device="cpu"``."""
+    Runs on the card unless ``device="cpu"``. ``mesh``: data parallelism,
+    as ``trainer.make_train_step`` (the batch is this rank's rows)."""
     device = _check_device(device, "make_svd_train_step")
     loss_fn = make_svd_loss_fn(config, vae, image_encoder)
     channels = vae.config.latent_channels
 
     def train_step(state, batch: dict, generator: torch.Generator) -> dict:
         batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
-        draws = draw_svd_inputs(config, tuple(batch["pixel_values"].shape), channels,
-                                generator, device)
+        draws = draw_svd_rows(config, tuple(batch["pixel_values"].shape), channels,
+                              generator, device, mesh)
         _, metrics = loss_fn(state.model, batch, draws)
         metrics["loss"].backward()
-        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out = mean_metrics(metrics, state)
         out["grad_norm"] = apply_gradients(state)
         return out
 

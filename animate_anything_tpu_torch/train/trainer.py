@@ -132,14 +132,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 def accumulate(opt, grads: Dict[str, Optional[torch.Tensor]],
                masters: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
-    """One micro-step's gradients for ``opt.names`` (None counts as zero), or
-    under ``MultiSteps`` (``opt.acc``) their running mean: None until the
-    k-th micro-step, then the mean."""
-    grads = {n: (torch.zeros_like(masters[n]) if grads.get(n) is None else grads[n])
+    """One micro-step's gradients for ``opt.names`` (None counts as zero), the
+    part of each that this rank updates (``opt.own``: all of it without a
+    ZeRO plan), or under ``MultiSteps`` (``opt.acc``) their running mean:
+    None until the k-th micro-step, then the mean."""
+    grads = {n: opt.own(torch.zeros_like(masters[n]) if grads.get(n) is None else grads[n], n)
              for n in opt.names}
     if opt.acc is None:
         return grads
-    for chunk in _chunks(opt.names, masters):
+    for chunk in _chunks(opt.names, grads):
         acc = [opt.acc[n] for n in chunk]
         g = [grads[n].float() for n in chunk]
         torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(g, acc),
@@ -151,9 +152,20 @@ def accumulate(opt, grads: Dict[str, Optional[torch.Tensor]],
     return opt.acc
 
 
-def clip_factor(grads: Dict[str, torch.Tensor], max_norm: float) -> float:
-    """optax's ``clip_by_global_norm`` as a factor on every gradient."""
-    norm = float(global_norm(grads.values())) if grads else 0.0
+def clip_factor(grads: Dict[str, torch.Tensor], max_norm: float, plan=None) -> float:
+    """optax's ``clip_by_global_norm`` as a factor on every gradient. Under a
+    ZeRO plan ``grads`` are this rank's parts, and the norm is taken over the
+    whole gradient: each array's ‖part‖² (a replicated array's on rank 0
+    alone), all-reduced over the data axis, summed."""
+    if not grads:
+        return 1.0
+    if plan is None:
+        norm = float(global_norm(grads.values()))
+    else:
+        norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+                 if plan.sharded(n) or plan.rank == 0 else g.new_zeros((), dtype=torch.float32)
+                 for n, g in grads.items()]
+        norm = float(plan.all_reduce_sum_(torch.stack(norms).square()).sum().sqrt())
     return 1.0 if norm < max_norm else max_norm / norm
 
 
@@ -182,48 +194,71 @@ class AdamW:
     Per trainable p with gradient g: g ← g·max_norm/‖g‖ when ‖g‖ ≥ max_norm
     (the norm over trainable gradients only); μ ← b1·μ + (1 − b1)·g;
     ν ← b2·ν + (1 − b2)·g²; u = μ/(1 − b1ⁿ) / (sqrt(ν/(1 − b2ⁿ)) + eps);
-    p ← p − lr·(u + wd·p). Frozen parameters are never touched."""
+    p ← p − lr·(u + wd·p). Frozen parameters are never touched.
+
+    ``plan`` (``parallel/partition.ZeroPlan``, data parallelism): the moments
+    and the accumulator hold this rank's flat slice of each sharded array;
+    the rank updates that slice of the masters with the same elementwise
+    math, then the masters are all-gathered. ``state_dict`` gathers the
+    whole state to rank 0's host; ``load_state_dict`` takes any rank
+    count's."""
 
     STATE = ("mu", "nu")
+    BLOCK_STATE: tuple = ()       # per-block state (the 8-bit scales)
 
-    def __init__(self, config: TrainConfig, masters: Dict[str, torch.Tensor]):
+    def __init__(self, config: TrainConfig, masters: Dict[str, torch.Tensor], plan=None):
         self.config = config
+        self.plan = plan
         self.names = list(masters)
+        self.shapes = {n: tuple(p.shape) for n, p in masters.items()}
         self._init_moments(masters)
         self.count = 0
         self.k = config.gradient_accumulation_steps
         self.mini_step = 0
-        self.acc = ({n: torch.zeros_like(p) for n, p in masters.items()} if self.k > 1
-                    else None)
+        self.acc = ({n: torch.zeros_like(self.own(p, n)) for n, p in masters.items()}
+                    if self.k > 1 else None)
+
+    def own(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The part of a full-shaped tensor that this rank updates."""
+        return t if self.plan is None else self.plan.view(t, name)
 
     def _init_moments(self, masters: Dict[str, torch.Tensor]) -> None:
-        self.mu = {n: torch.zeros_like(p) for n, p in masters.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in masters.items()}
+        self.mu = {n: torch.zeros_like(self.own(p, n)) for n, p in masters.items()}
+        self.nu = {n: torch.zeros_like(self.own(p, n)) for n, p in masters.items()}
 
     def state_bytes(self) -> int:
-        """Bytes of the optimizer's moments (``STATE``)."""
+        """Bytes of this rank's optimizer moments (``STATE``)."""
         return sum(t.numel() * t.element_size() for key in self.STATE
                    for t in getattr(self, key).values())
+
+    def _finish(self, masters: Dict[str, torch.Tensor]) -> None:
+        """After an update: zero the accumulator; make the masters whole."""
+        if self.acc is not None:
+            for t in self.acc.values():
+                t.zero_()
+        if self.plan is not None:
+            self.plan.all_gather_(masters, self.names)
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]],
              masters: Dict[str, torch.Tensor]) -> bool:
         """Take one micro-step's gradients of the trainable parameters (any
-        dtype; None counts as zero). Returns whether the masters changed."""
+        dtype; None counts as zero; averaged over the data axis already).
+        Returns whether the masters changed."""
         cfg = self.config
         grads = accumulate(self, grads, masters)
         if grads is None:
             return False
-        clip = clip_factor(grads, cfg.max_grad_norm)
+        clip = clip_factor(grads, cfg.max_grad_norm, self.plan)
         self.count += 1
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-        for chunk in _chunks(self.names, masters):
+        for chunk in _chunks(self.names, grads):
             g = [grads[n].float() for n in chunk]
             if clip != 1.0:
                 g = torch._foreach_mul(g, clip)
             mu, nu = [self.mu[n] for n in chunk], [self.nu[n] for n in chunk]
-            p = [masters[n] for n in chunk]
+            p = [self.own(masters[n], n) for n in chunk]
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, g, alpha=1.0 - b1)
             torch._foreach_mul_(nu, b2)
@@ -236,37 +271,62 @@ class AdamW:
             if cfg.adam_weight_decay:
                 torch._foreach_add_(upd, p, alpha=cfg.adam_weight_decay)
             torch._foreach_add_(p, upd, alpha=-cfg.learning_rate)
-        if self.acc is not None:
-            for t in self.acc.values():
-                t.zero_()
+        self._finish(masters)
         return True
 
-    def state_dict(self) -> dict:
-        out = {key: getattr(self, key) for key in self.STATE}
-        out.update(count=self.count, mini_step=self.mini_step, acc=self.acc)
+    def state_dict(self) -> Optional[dict]:
+        """The state: the live tensors, or under a plan every rank's slices
+        gathered whole on rank 0's host (a collective: every rank calls it;
+        the other ranks get None)."""
+        if self.plan is None:
+            out = {key: getattr(self, key) for key in self.STATE}
+            out.update(count=self.count, mini_step=self.mini_step, acc=self.acc)
+            return out
+        keys = self.STATE + (("acc",) if self.acc is not None else ())
+        whole = self.plan.gather_to_main({
+            (key, n): (n, t, (-1,) if key in self.BLOCK_STATE else self.shapes[n],
+                       key in self.BLOCK_STATE)
+            for key in keys for n, t in getattr(self, key).items()})
+        if whole is None:
+            return None
+        out = {key: {n: whole[key, n] for n in self.names} for key in keys}
+        out.update(count=self.count, mini_step=self.mini_step, acc=out.get("acc"))
         return out
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Copy a ``state_dict`` into this optimizer's tensors (the same
-        names and shapes)."""
+        """Copy a ``state_dict`` (whole tensors, the same names and shapes,
+        written at any rank count) into this optimizer's tensors."""
+        def take(key, n, full):
+            if self.plan is None:
+                return full
+            if key in self.BLOCK_STATE:
+                return self.plan.block_view(full, n)
+            return self.plan.view(full.contiguous(), n)
+
         for key in self.STATE:
             for n, t in getattr(self, key).items():
-                t.copy_(state[key][n])
+                t.copy_(take(key, n, state[key][n]).reshape(t.shape))
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
         if self.acc is not None:
             for n, t in self.acc.items():
-                t.copy_(state["acc"][n])
+                t.copy_(take("acc", n, state["acc"][n]).reshape(t.shape))
 
 
-def make_optimizer(config: TrainConfig, masters: Dict[str, torch.Tensor]):
+def make_optimizer(config: TrainConfig, masters: Dict[str, torch.Tensor], mesh=None,
+                   min_shard_size: int = 2 ** 14):
     """AdamW, or the blockwise 8-bit AdamW under ``use_8bit_adam`` (JAX's
-    ``adamw_8bit``), on ``masters``."""
+    ``adamw_8bit``), on ``masters``; its state split over ``mesh``'s data
+    axis (``parallel/partition.zero_plan``: arrays under ``min_shard_size``
+    elements replicated) where a process group exists."""
+    from animate_anything_tpu_torch.parallel.partition import zero_plan
+
+    plan = zero_plan({n: p.numel() for n, p in masters.items()}, mesh, min_shard_size)
     if config.use_8bit_adam:
         from animate_anything_tpu_torch.ops.adam8bit import AdamW8bit
 
-        return AdamW8bit(config, masters)
-    return AdamW(config, masters)
+        return AdamW8bit(config, masters, plan)
+    return AdamW(config, masters, plan)
 
 
 @dataclasses.dataclass
@@ -285,16 +345,20 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, config: TrainConfig,
-                       path: Callable[[str, int], str] = flax_path) -> TrainState:
+                       path: Callable[[str, int], str] = flax_path, mesh=None,
+                       min_shard_size: int = 2 ** 14) -> TrainState:
     """fp32 masters of ``model``'s trainable parameters (exact where the
     module is still fp32, as ``cli.main`` makes them before the cast);
-    ``path`` names the parameters' flax paths for the labels."""
+    ``path`` names the parameters' flax paths for the labels; ``mesh``
+    (``core/mesh.create_mesh``) splits the optimizer state over its data
+    axis where a process group exists (``make_optimizer``)."""
     labels = trainable_label_tree(model, config.trainable_modules, config.not_trainable_modules,
                                   path)
     masters = master_params(model, [n for n, lab in labels.items() if lab == "train"])
     for p in model.parameters():        # frozen ones too: grad_norm counts every gradient
         p.requires_grad_(True)
-    return TrainState(model, masters, make_optimizer(config, masters), labels)
+    return TrainState(model, masters, make_optimizer(config, masters, mesh, min_shard_size),
+                      labels)
 
 
 def flatten_lora(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -309,7 +373,8 @@ def flatten_lora(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def create_lora_train_state(tree: dict, config: TrainConfig) -> TrainState:
+def create_lora_train_state(tree: dict, config: TrainConfig, mesh=None,
+                            min_shard_size: int = 2 ** 14) -> TrainState:
     """A state that trains ``tree`` ({"unet_lora": …, "text_lora": …} of
     fp32 adapter tensors, in place): labels by JAX's rule on JAX's paths,
     the optimizer on the 'train' ones. JAX's state is the bare UNet adapter
@@ -321,7 +386,8 @@ def create_lora_train_state(tree: dict, config: TrainConfig) -> TrainState:
     jax_paths = {n: n if "text_lora" in tree else n[len("unet_lora."):] for n in masters}
     labels = label_paths(jax_paths, config.trainable_modules, config.not_trainable_modules)
     train = {n: t for n, t in masters.items() if labels[n] == "train"}
-    return TrainState(None, masters, make_optimizer(config, train), labels, params=tree)
+    return TrainState(None, masters, make_optimizer(config, train, mesh, min_shard_size), labels,
+                      params=tree)
 
 
 def prepare_mask_for_latents(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -401,11 +467,16 @@ def apply_gradients(state: TrainState) -> float:
     """Hand the gradients to the optimizer, clear them; return the global
     norm of every gradient, frozen ones included (JAX's ``grad_norm``). Full
     finetune: the working module's gradients, updated masters rounded back
-    into it. LoRA: the adapter tensors' own, updated in place."""
+    into it. LoRA: the adapter tensors' own, updated in place. Under a ZeRO
+    plan every gradient is first averaged over the data axis, so each rank
+    holds the global batch's gradient."""
     named = (dict(state.model.named_parameters()) if state.model is not None
              else state.masters)
     grads = {n: p.grad for n, p in named.items()}
     present = [g for g in grads.values() if g is not None]
+    plan = getattr(state.optimizer, "plan", None)
+    if plan is not None and present:
+        plan.reduce_mean_(present)
     norm = global_norm(present) if present else torch.zeros(())
     changed = state.optimizer.step({n: grads.get(n) for n in state.optimizer.names},
                                    state.masters)
@@ -430,6 +501,32 @@ def draw_inputs(schedule: DiffusionSchedule, config: TrainConfig, shape: tuple,
     return noise, t, drop
 
 
+def rows_of(mesh, b: int) -> slice:
+    """This rank's rows of a global batch of ``b`` rows (all of them without
+    a mesh)."""
+    if mesh is None:
+        return slice(0, b)
+    from animate_anything_tpu_torch.core.mesh import row_range
+
+    return slice(*row_range(b, mesh))
+
+
+def global_rows(mesh, b_local: int) -> int:
+    """The global batch's rows: every data rank holds ``b_local``."""
+    return b_local * (1 if mesh is None else mesh.size("data"))
+
+
+def mean_metrics(metrics: dict, state: TrainState) -> dict:
+    """The step's metrics as floats, averaged over the data axis under a
+    ZeRO plan (equal rows a rank, so the mean of the ranks' means is the
+    global batch's)."""
+    plan = getattr(state.optimizer, "plan", None)
+    if plan is None:
+        return {k: float(v.detach()) for k, v in metrics.items()}
+    vals = plan.all_reduce_sum_(torch.stack([v.detach().float() for v in metrics.values()]))
+    return {k: float(v) for k, v in zip(metrics, (vals / plan.ranks).tolist())}
+
+
 def _on_device(batch: dict, device, vae) -> dict:
     batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
     batch["latents"] = batch_latents(batch, vae)
@@ -443,22 +540,39 @@ def _check_device(device, who: str) -> torch.device:
     return device
 
 
+def draw_rows(schedule: DiffusionSchedule, config: TrainConfig, shape: tuple,
+              generator: torch.Generator, device, mesh=None) -> tuple:
+    """``draw_inputs`` for the global batch (every data rank draws the same
+    values from the same generator), then this rank's rows of the noise and
+    t; the dropout flag is one for the batch."""
+    b = global_rows(mesh, shape[0])
+    noise, t, drop = draw_inputs(schedule, config, (b,) + tuple(shape[1:]), generator, device)
+    rows = rows_of(mesh, b)
+    return noise[rows], t[rows], drop
+
+
 def make_train_step(schedule: DiffusionSchedule, config: TrainConfig,
                     vae: Optional[nn.Module] = None, text_encoder: Optional[nn.Module] = None,
-                    device="cuda") -> Callable:
+                    device="cuda", mesh=None) -> Callable:
     """``train_step(state, batch, generator) → metrics`` (floats: loss,
     mse_loss, motion_loss, grad_norm). Draws noise, t and the text-dropout
     flag from ``generator`` (on ``device``), then runs ``loss_fn``, the
-    backward and the optimizer. Runs on the card unless ``device="cpu"``."""
+    backward and the optimizer. Runs on the card unless ``device="cpu"``.
+
+    ``mesh`` (data parallelism; the state made with the same mesh): the
+    batch is this rank's rows of the global batch; the draws are the global
+    batch's, sliced, so the step is the single-device step on the global
+    batch, as JAX's sharded ``make_train_step`` is."""
     device = _check_device(device, "make_train_step")
     loss_fn = make_loss_fn(schedule, config, vae, text_encoder)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         batch = _on_device(batch, device, vae)
-        noise, t, drop = draw_inputs(schedule, config, batch["latents"].shape, generator, device)
+        noise, t, drop = draw_rows(schedule, config, batch["latents"].shape, generator, device,
+                                   mesh)
         _, metrics = loss_fn(state.model, batch, noise, t, drop)
         metrics["loss"].backward()
-        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out = mean_metrics(metrics, state)
         out["grad_norm"] = apply_gradients(state)
         return out
 
@@ -470,7 +584,7 @@ def make_lora_train_step(schedule: DiffusionSchedule, config: TrainConfig, unet:
                          text_encoder: Optional[nn.Module] = None,
                          text_base: Optional[Dict[str, torch.Tensor]] = None,
                          text_lora_config=None, vae: Optional[nn.Module] = None,
-                         device="cuda") -> Callable:
+                         device="cuda", mesh=None) -> Callable:
     """``train_step(state, batch, generator) → metrics`` for a LoRA state
     (``create_lora_train_state``): the adapter(s) with rank dropout, merged
     into ``base`` / ``text_base`` (flax path → the adapted kernels' base,
@@ -478,7 +592,8 @@ def make_lora_train_step(schedule: DiffusionSchedule, config: TrainConfig, unet:
     dtypes substituted for their parameters through the forward and the
     backward; then the optimizer on the adapter. Either model may be left
     unadapted: its config None and no key for it in ``state.params``. Runs
-    on the card unless ``device="cpu"``."""
+    on the card unless ``device="cpu"``; ``mesh`` as in ``make_train_step``
+    (the rank-dropout draws are the adapter's, one for every rank)."""
     from animate_anything_tpu_torch.models import lora
 
     device = _check_device(device, "make_lora_train_step")
@@ -495,14 +610,15 @@ def make_lora_train_step(schedule: DiffusionSchedule, config: TrainConfig, unet:
             text_lora = lora.dropout_lora(state.params["text_lora"], text_lora_config, generator)
             text_weights = lora.merged_weights(text_encoder, text_base, text_lora,
                                                text_lora_config, naming="text")
-        noise, t, drop = draw_inputs(schedule, config, batch["latents"].shape, generator, device)
+        noise, t, drop = draw_rows(schedule, config, batch["latents"].shape, generator, device,
+                                   mesh)
         with contextlib.ExitStack() as stack:
             stack.enter_context(lora.substituted(unet, weights))
             if text:
                 stack.enter_context(lora.substituted(text_encoder, text_weights))
             _, metrics = loss_fn(unet, batch, noise, t, drop)
             metrics["loss"].backward()
-        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out = mean_metrics(metrics, state)
         out["grad_norm"] = apply_gradients(state)
         return out
 

@@ -2,7 +2,7 @@
 
 ``unet3d_state_dict`` / ``vae_state_dict`` / ``clip_text_state_dict`` /
 ``svd_unet_state_dict`` / ``clip_vision_state_dict`` / ``unet384_state_dict`` /
-``offset_encoder_state_dict`` take the JAX package's
+``offset_encoder_state_dict`` / ``lama_state_dict`` take the JAX package's
 param trees (nested dicts of numpy-convertible arrays, optionally under
 ``"params"``) and return the port's state dicts in the diffusers / HF key
 layout. They are a numpy-only copy of
@@ -18,7 +18,7 @@ conv_in2 surgery of ``expand_conv_in_channels``), the keys otherwise kept
 as they are: the port's modules carry diffusers names.
 
 ``init_unet3d_`` / ``init_vae_`` / ``init_clip_text_`` / ``init_svd_unet_`` /
-``init_clip_vision_`` / ``init_unet384_`` / ``init_offset_encoder_`` draw
+``init_clip_vision_`` / ``init_unet384_`` / ``init_offset_encoder_`` / ``init_lama_`` draw
 fresh weights the way the flax modules initialise theirs (lecun-normal
 kernels, zero biases, unit norm scales, the zero-initialised last temporal
 conv and LayerDiffuse convs, normal embeddings, the SVD mixers' 0.5), from
@@ -440,4 +440,105 @@ def init_clip_text_(module: torch.nn.Module, generator: torch.Generator) -> torc
             p.fill_(1.0)
         else:
             _lecun_normal_(p, p.shape[1], generator)
+    return module
+
+
+def _fourier_order(c2: int) -> np.ndarray:
+    """JAX's grouped Fourier-unit channels (re…, im…) → the published
+    interleaved ones (c0_re, c0_im, …): interleaved[i] = grouped[order[i]]
+    (the inverse of JAX's ``_fourier_perm``)."""
+    c = c2 // 2
+    grouped = np.asarray([ci * 2 + ri for ri in (0, 1) for ci in range(c)])
+    return np.argsort(grouped)
+
+
+def lama_state_dict(params: Dict[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX ``LargeMaskInpainting`` params → the port's state dict in the
+    published ``model.N.*`` layout (the inverse of JAX's
+    ``import_lama_torch_state``): conv kernels HWIO → OIHW, the
+    ConvTranspose kernel un-flipped with in/out swapped back, the Fourier
+    units' grouped channels interleaved again, BatchNorm ``scale / bias /
+    mean / var`` → ``weight / bias / running_mean / running_var`` (and a
+    zero ``num_batches_tracked``)."""
+    from animate_anything_tpu_torch.models.lama import LamaConfig
+
+    cfg = cfg or LamaConfig()
+    tree = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, w):
+        out[key] = _to_torch(w)
+
+    def conv(key, p):
+        put(f"{key}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def bn(key, p, order=None):
+        for src, dst in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                         ("var", "running_var")):
+            v = np.asarray(p[src])
+            put(f"{key}.{dst}", v if order is None else v[order])
+        out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+    def ffc_bn_act(key, p):
+        ffc = p["ffc"]
+        for name in ("convl2l", "convl2g", "convg2l"):
+            if name in ffc:
+                conv(f"{key}.ffc.{name}", ffc[name])
+        if "convg2g" in ffc:
+            st, sk = ffc["convg2g"], f"{key}.ffc.convg2g"
+            conv(f"{sk}.conv1.0", st["conv1"])
+            bn(f"{sk}.conv1.1", st["bn1"])
+            w = np.asarray(st["fu"]["conv"]["kernel"])            # (1, 1, in2, out2)
+            oi, oo = _fourier_order(w.shape[2]), _fourier_order(w.shape[3])
+            put(f"{sk}.fu.conv_layer.weight", w[:, :, oi][:, :, :, oo].transpose(3, 2, 0, 1))
+            bn(f"{sk}.fu.bn", st["fu"]["bn"], oo)
+            conv(f"{sk}.conv2", st["conv2"])
+        for name in ("bn_l", "bn_g"):
+            if name in p:
+                bn(f"{key}.{name}", p[name])
+
+    idx, seq = 0, 1                     # model.0 is the reflection pad
+    for _ in range(1 + cfg.n_downsampling):
+        ffc_bn_act(f"model.{seq}", tree[f"model_{idx}"])
+        idx += 1
+        seq += 1
+    for _ in range(cfg.n_blocks):
+        for half in ("conv1", "conv2"):
+            ffc_bn_act(f"model.{seq}.{half}", tree[f"model_{idx}"][half])
+        idx += 1
+        seq += 1
+    seq += 1                            # ConcatTupleLayer
+    for i in range(cfg.n_downsampling):
+        k = np.asarray(tree[f"up_{i}_conv"]["kernel"])          # flipped HWIO
+        put(f"model.{seq}.weight", k[::-1, ::-1].transpose(2, 3, 0, 1))
+        put(f"model.{seq}.bias", tree[f"up_{i}_conv"]["bias"])
+        bn(f"model.{seq + 1}", tree[f"up_{i}_bn"])
+        seq += 3                        # ConvTranspose2d, BatchNorm2d, ReLU
+    seq += 1                            # reflection pad
+    conv(f"model.{seq}", tree["conv_out"])
+    put(f"model.{seq}.bias", tree["conv_out"]["bias"])
+    return out
+
+
+@torch.no_grad()
+def init_lama_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw LaMa's weights as the flax modules do (lecun-normal conv kernels,
+    the ConvTranspose's fan-in in·kh·kw, zero biases, unit BatchNorm scales),
+    then randomize every BatchNorm's running statistics (mean N(0, 0.1²),
+    variance U(0.5, 1.5)) so the inference BatchNorms do real work."""
+    dev = next(module.parameters()).device
+    for m in module.modules():
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            _lecun_normal_(m.weight, m.weight.shape[0] * m.weight[0, 0].numel(), generator)
+        elif isinstance(m, torch.nn.Conv2d):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=generator,
+                                                   device=dev))
+            m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=generator,
+                                                 device=dev))
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.BatchNorm2d)) \
+                and m.bias is not None:
+            m.bias.zero_()
     return module

@@ -41,3 +41,21 @@ class MetricLogger:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: the data-parallel ranks but rank 0."""
+
+    def log(self, step: int, metrics: Mapping[str, float], echo: bool = True) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def run_logger(output_dir: str, name: str = "train"):
+    """``MetricLogger`` on the process that writes (rank 0), else a
+    ``NullLogger``."""
+    from animate_anything_tpu_torch.core.mesh import is_main_process
+
+    return MetricLogger(output_dir, name) if is_main_process() else NullLogger()

@@ -80,12 +80,22 @@ def save_video(path: str, frames: np.ndarray, fps: int = 8) -> str:
     return save_gif(path, frames, fps=fps)
 
 
+def _pil_frames(path: str) -> np.ndarray:
+    from PIL import ImageSequence
+
+    with Image.open(path) as im:
+        return np.stack([np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(im)])
+
+
 def load_video_frames(path: str, max_frames: int | None = None) -> np.ndarray:
-    """Read frames from gif/webp/mp4 (backend permitting) → (f, h, w, 3)."""
+    """Read frames from gif/webp/mp4 (backend permitting) → (f, h, w, 3).
+    Without imageio, PIL reads the formats it knows (gif, webp)."""
     try:
         import imageio.v3 as iio
-
-        frames = iio.imread(path, index=None)
+    except ImportError:
+        iio = None
+    try:
+        frames = iio.imread(path, index=None) if iio is not None else _pil_frames(path)
     except Exception as e:
         raise RuntimeError(
             f"no decoder available for {path}: imageio or its ffmpeg backend is missing; "

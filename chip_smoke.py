@@ -149,6 +149,27 @@
    for the flash backward ``svd_train_*`` at the SVD training step's b·f =
    42), and last the device line.
 
+After step 11's SVD training a one-rank NCCL process group (a
+``FileStore`` in ``build/``) starts: ``run_zero_train_steps`` takes the full-width train step (batch 1,
+16 frames, 512 px, ``attn_impl="pallas"``) 3 times without a mesh, then 3
+times from the same weights through the ZeRO path on the ``{data: -1}``
+mesh: losses, fp32 masters and AdamW moments bit-equal, kernel launches
+equal (``launches_zero``), the collectives' time (none at one rank) and
+this rank's optimizer bytes printed; then ``run_zero_entry`` runs
+``train.py`` at the YAML's own ``mesh: {data: -1}`` inside that group (one
+8-bit step and its checkpoint through the ZeRO path, ``launches_zero_entry``);
+step 11's entry points run before the group, as a single-card user runs
+them. After them:
+LaMa at full width (``run_lama``: 16 frames at 512 px through
+``inpaint_video``, pixels outside the mask exact, frame 0 against the CPU,
+seconds, frames/s and peak memory, then the CLI on a gif with a
+``best.ckpt``-layout file, its gif byte-equal to ``inpaint_video``'s),
+``compress_video`` (``frames`` and ``folder_json`` on a gif, the shard read
+back bit-equal), and where two or more cards exist, 2 NCCL ranks for a
+global-batch-2 step and a sharded batch-2 request against one card's (the
+first update's sign and relative RMS, each side's s/step), then
+``dryrun_multichip(2)`` (``run_multi_gpu``; it prints what ran).
+
 Steps 3 and 4 also check kernel 9 against its plain version at the packed
 configuration's frame-attention shapes (summed over a packed CFG forward by
 the sites' counts), at JAX's ragged test shapes and at the edges of its
@@ -4163,6 +4184,468 @@ def run_ptp_forward(served: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The data axis (ZeRO-sharded data parallelism), LaMa and the dataset prep
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS = 3
+# A full-width global-batch-2 step on 2 ranks against the one-card batch-2
+# step: the loss, MSE loss and grad norm within 1e-3 relative (bf16
+# activations summed in another order; read 1.8e-5, 3.4e-5 and 9.4e-5 on
+# the H100 80GB HBM3 at 700 W; the grad norm is taken after the all-reduce,
+# so a missing or doubled reduction moves it), and the first AdamW update of
+# the checked masters: its sign equal on at least 99 % of the elements
+# (u = m/(√v + ε) ≈ sign(g) at the first step; a gradient within bf16
+# rounding of 0 can take either sign; read 0.9991) and its relative RMS
+# within 0.2 (a flipped sign moves an element by 2·lr: a share q of flips
+# gives 2·√q, 0.2 at q = 1 %).
+DP_LOSS_REL = 1e-3
+DP_SIGN_AGREE = 0.99
+DP_UPDATE_REL_RMS = 0.2
+DP_CHECKED_MASTERS = 16
+# Steps timed after the first, on 2 ranks and on one card alike.
+DP_TIMED_STEPS = 2
+# After those steps, the 2 ranks' AdamW first moments of the checked masters
+# gathered whole to rank 0 (``state_dict``, the checkpoint's gather) against
+# one card's: the sum-order noise of 3 steps' bf16 gradients, held as the
+# relative RMS; a slice gathered to the wrong place would read about 1.4.
+DP_MOMENT_REL_RMS = 5e-2
+# The 2-rank data-sharded request against the one-card batch-2 request: each
+# rank denoises its row at batch 1, where the kernels and cuBLAS tile another
+# M; held as the decode's relative RMS.
+DP_REQUEST_REL_RMS = DECODE_REL_RMS
+LAMA_FRAMES = 16
+LAMA_CHUNK = 8
+# LaMa frame 0 on the card against the CPU, fp32 with TF32 off on both: cuFFT
+# against pocketfft and cuDNN's conv algorithms against the CPU's add in
+# another order (~1e-6 relative a layer) through 18 FFC blocks and a sigmoid;
+# the output is in [0, 1].
+LAMA_CPU_ATOL = 1e-3
+
+
+def init_world_group(work: str) -> None:
+    """A one-rank NCCL process group on card 0 through a ``FileStore`` in
+    ``work`` (no network): what ``torchrun --nproc_per_node 1`` would start."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(work, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def run_zero_train_steps() -> dict:
+    """The full-width mask+motion train step (batch 1, 16 frames, 512 px,
+    ``attn_impl="pallas"``) ``ZERO_STEPS`` times without a mesh, then from
+    the same weights through the ZeRO path on the one-rank NCCL group's
+    ``{data: -1}`` mesh: its losses, fp32 masters and AdamW moments must be
+    bit-equal, and its kernel launches equal. → the ZeRO run's launches."""
+    from animate_anything_tpu_torch.core.mesh import COLLECTIVES, create_mesh
+    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
+                                                  mask_motion_finetune)
+
+    mesh = create_mesh({"data": -1})
+    unet, vae, text = build_models(gradient_checkpointing=True)
+    for module in (vae, text):
+        module.requires_grad_(False)
+    config, schedule = mask_motion_finetune()
+    start = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    batch = make_train_batch()
+
+    def run(m):
+        unet.load_state_dict(start)
+        state = create_train_state(unet, config, mesh=m)
+        step = make_train_step(schedule, config, vae=vae, text_encoder=text, mesh=m)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        gc.collect()
+        torch.cuda.synchronize()
+        reset_counts()
+        COLLECTIVES.ms()
+        t0 = time.perf_counter()
+        metrics = [step(state, batch, gen) for _ in range(ZERO_STEPS)]
+        torch.cuda.synchronize()
+        return state, metrics, read_counts(), time.perf_counter() - t0, COLLECTIVES.ms()
+
+    log(f"data axis: {ZERO_STEPS} full-width train steps (batch 1, {FRAMES} frames, {RES} px) "
+        f"without a mesh, then through the ZeRO path on mesh {mesh.axes} (one-rank NCCL group)")
+    plain, m_plain, n_plain, t_plain, _ = run(None)
+    COLLECTIVES.on = True
+    try:
+        zero, m_zero, n_zero, t_zero, comm_ms = run(mesh)
+    finally:
+        COLLECTIVES.on = False
+    log(f"  losses without a mesh {[m['loss'] for m in m_plain]}, "
+        f"ZeRO {[m['loss'] for m in m_zero]}")
+    log(f"  seconds: {t_plain:.3f} without a mesh, {t_zero:.3f} ZeRO ({ZERO_STEPS} steps); "
+        f"collectives {comm_ms:.3f} ms by events ({comm_ms / ZERO_STEPS:.3f} ms a step)")
+    log(f"  this rank's optimizer bytes: {zero.optimizer.state_bytes() / 1e9:.3f} GB (ZeRO) "
+        f"against {plain.optimizer.state_bytes() / 1e9:.3f} GB; "
+        f"{len(zero.optimizer.plan.chunks)} of {len(zero.masters)} arrays split")
+    log(f"  launches without a mesh {n_plain}; ZeRO {n_zero}")
+    if m_plain != m_zero:
+        raise AssertionError(f"ZeRO step metrics differ: {m_zero} against {m_plain}")
+    for name in plain.masters:
+        same = torch.equal(plain.masters[name], zero.masters[name]) and all(
+            torch.equal(getattr(plain.optimizer, k)[name].reshape(-1),
+                        getattr(zero.optimizer, k)[name].reshape(-1))
+            for k in plain.optimizer.STATE)
+        if not same:
+            raise AssertionError(f"ZeRO step: {name} is not bit-equal")
+    if n_plain != n_zero:
+        raise AssertionError(f"ZeRO step launches {n_zero} against {n_plain}")
+    require_only("ZeRO train step", n_zero, TRAIN_ENTRY_KERNELS)
+    log(f"  ZeRO path bit-equal to the one-device step: {len(plain.masters)} masters, "
+        f"their moments and {ZERO_STEPS} losses")
+    del plain, zero, start, unet, vae, text
+    return n_zero
+
+
+def run_zero_entry() -> dict:
+    """(f) ``cli`` (``train.py``) at ``configs/train_mask_motion.yaml``'s own
+    ``mesh: {data: -1}`` inside the one-rank NCCL group: batch 1, one step
+    with the 8-bit AdamW and the end-of-run checkpoint, on 2 synthetic clips.
+    It must take the ZeRO path (a plan over one rank), launch kernels 1-5 and
+    the flash backward and no other, and write the checkpoint; → its launch
+    counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from animate_anything_tpu_torch import cli
+
+    work = tempfile.mkdtemp(prefix="zero_entry_", dir="build")
+    try:
+        clips = write_clips(os.path.join(work, "clips"), n=2)
+        json_path = write_dataset_json(work, clips)["video_blip"]
+        argv = ["--config", TRAIN_FULL_CONFIG_PATH, f"train_data.json_path={json_path}",
+                "train_batch_size=1", "max_train_steps=1", "use_8bit_adam=true",
+                "save_pretrained_model=false"]
+        (f, launches, run_dir, _) = _train_run(
+            "(f) train.py in the one-rank group, the YAML's mesh {data: -1}, 8-bit AdamW",
+            cli.cli, argv, os.path.join(work, "run"))
+        plan = f["state"].optimizer.plan
+        if plan is None or plan.ranks != 1:
+            raise AssertionError(f"(f): not the ZeRO path (plan {plan})")
+        ckpt = os.path.join(run_dir, "ckpt", "step_00000001", "train_state.pt")
+        if not os.path.isfile(ckpt):
+            raise AssertionError(f"(f): no checkpoint at {ckpt}")
+        log(f"  (f): ZeRO plan over {plan.ranks} rank, {len(plan.chunks)} of "
+            f"{len(f['state'].masters)} arrays split; checkpoint "
+            f"{os.path.getsize(ckpt) / 1e9:.3f} GB")
+        require_only("(f) train.py in the group", launches, TRAIN_ENTRY_KERNELS)
+        del f
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def _dp_batch() -> dict:
+    """A global batch of two clips (``make_train_batch`` seeds 0 and 1)."""
+    a, b = make_train_batch(0), make_train_batch(1)
+    return {k: torch.cat([a[k], b[k]]) for k in a}
+
+
+def _dp_request_inputs(pipe, seed: int = 31) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.randn((2, 1, RES // 8, RES // 8, 4), generator=gen, device="cuda")
+    ts = pipe.get_timesteps(STEPS)
+    embeds, negative = pipe.encode_prompt(list(PROMPTS))
+    return dict(latents=pipe.prepare_init_latents(img, FRAMES, ts, gen),
+                condition_latent=img, prompt_embeds=embeds,
+                negative_prompt_embeds=negative,
+                mask=torch.ones((2, 1, RES // 8, RES // 8, 1), device="cuda"),
+                motion=[3.0, 5.0], timesteps=ts, guidance_scale=GUIDANCE)
+
+
+def _dp_step_and_request(mesh, out_path: Optional[str] = None) -> dict:
+    """The full-width global-batch-2 step and a batch-2 request with ``mesh``
+    (this rank's rows) or without it; → the first step's metrics and
+    updates of ``DP_CHECKED_MASTERS`` masters (fp32, host), the seconds a
+    step and the collectives' milliseconds a step over ``DP_TIMED_STEPS``
+    more steps, those masters' first moments from the optimizer's
+    ``state_dict`` (gathered to rank 0; None on the other rank) and its
+    seconds, and the video (host)."""
+    from animate_anything_tpu_torch.core.mesh import COLLECTIVES, shard_batch
+    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
+                                                  mask_motion_finetune)
+
+    unet, vae, text = build_models(gradient_checkpointing=True)
+    for module in (vae, text):
+        module.requires_grad_(False)
+    config, schedule = mask_motion_finetune()
+    state = create_train_state(unet, config, mesh=mesh)
+    names = sorted(state.masters, key=lambda n: -state.masters[n].numel())[:DP_CHECKED_MASTERS]
+    before = {n: state.masters[n].clone() for n in names}
+    step = make_train_step(schedule, config, vae=vae, text_encoder=text, mesh=mesh)
+    batch = _dp_batch() if mesh is None else shard_batch(_dp_batch(), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    metrics = step(state, batch, gen)
+    update = {n: (state.masters[n] - before[n]).to("cpu") for n in names}
+    del before
+    torch.cuda.synchronize()
+    COLLECTIVES.on = True
+    try:
+        COLLECTIVES.ms()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / DP_TIMED_STEPS
+        comm_ms = COLLECTIVES.ms() / DP_TIMED_STEPS
+    finally:
+        COLLECTIVES.on = False
+    t0 = time.perf_counter()
+    whole = state.optimizer.state_dict()      # a collective under the mesh
+    gather_s = time.perf_counter() - t0
+    moments = None if whole is None else {n: whole["mu"][n].to("cpu", copy=True) for n in names}
+    del state, step, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = LatentToVideoPipeline(unet.eval(), vae, text_encoder=text,
+                                 tokenizer=HashTokenizer(), mesh=mesh)
+    t0 = time.perf_counter()
+    video, _ = pipe(**_dp_request_inputs(pipe))
+    torch.cuda.synchronize()
+    out = {"metrics": metrics, "update": update, "step_s": step_s, "comm_ms": comm_ms,
+           "moments": moments, "gather_s": gather_s,
+           "video": video.float().cpu(), "request_s": time.perf_counter() - t0}
+    if out_path is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            torch.save(out, out_path)
+    return out
+
+
+def _dp_rank(out_path: str) -> None:
+    """One rank of the 2-card phase (``spawn_ranks`` target)."""
+    from animate_anything_tpu_torch.core.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _dp_step_and_request(create_mesh({"data": -1}), out_path)
+
+
+def run_multi_gpu() -> list:
+    """Where two or more cards exist: 2 NCCL ranks run the global-batch-2
+    step and a data-sharded batch-2 request against the one-card batch-2
+    step and request, then ``dryrun_multichip(2)``; → which of these ran."""
+    import os
+    import tempfile
+
+    from animate_anything_tpu_torch.dryrun import dryrun_multichip, spawn_ranks
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"multi-card phase: {n} card, skipped (the 2-rank step, the sharded request and "
+            "dryrun_multichip(2) need 2)")
+        return []
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dp_", dir="build") as work:
+        out = os.path.join(work, "rank0.pt")
+        t0 = time.perf_counter()
+        spawn_ranks("chip_smoke:_dp_rank", 2, "cuda", out, timeout=600)
+        log(f"2 NCCL ranks: step and sharded request in {time.perf_counter() - t0:.1f} s")
+        got = torch.load(out, weights_only=False)
+    want = _dp_step_and_request(None)
+    for k in ("loss", "mse_loss", "grad_norm"):
+        rel = abs(got["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-12)
+        log(f"  {k}: 2 ranks {got['metrics'][k]:.6g}, one card {want['metrics'][k]:.6g} "
+            f"(relative {rel:.3g}, limit {DP_LOSS_REL})")
+        if not rel <= DP_LOSS_REL:
+            raise AssertionError(f"2-rank step {k} off by {rel:.3g}")
+    agree = sum(int((got["update"][n].sign() == want["update"][n].sign()).sum())
+                for n in want["update"])
+    total = sum(t.numel() for t in want["update"].values())
+    diff = sum(float((got["update"][n].double() - want["update"][n].double()).square().sum())
+               for n in want["update"])
+    norm = sum(float(want["update"][n].double().square().sum()) for n in want["update"])
+    update_rel = (diff / norm) ** 0.5
+    log(f"  first update, {total} elements of {len(want['update'])} masters: sign equal on "
+        f"{agree / total:.6f} (limit {DP_SIGN_AGREE}), relative RMS {update_rel:.4g} "
+        f"(limit {DP_UPDATE_REL_RMS})")
+    if agree / total < DP_SIGN_AGREE:
+        raise AssertionError(f"2-rank step: update signs agree on {agree / total:.4f}")
+    if not update_rel <= DP_UPDATE_REL_RMS:
+        raise AssertionError(f"2-rank step: first update's relative RMS {update_rel:.4g}")
+    diff = sum(float((got["moments"][n].double() - want["moments"][n].double()).square().sum())
+               for n in want["moments"])
+    norm = sum(float(want["moments"][n].double().square().sum()) for n in want["moments"])
+    moment_rel = (diff / norm) ** 0.5
+    log(f"  AdamW first moments after {1 + DP_TIMED_STEPS} steps, gathered whole to rank 0 "
+        f"in {got['gather_s']:.3f} s (state_dict; one card's {want['gather_s']:.3f} s): "
+        f"relative RMS {moment_rel:.4g} (limit {DP_MOMENT_REL_RMS})")
+    if not moment_rel <= DP_MOMENT_REL_RMS:
+        raise AssertionError(f"2-rank state_dict: moments' relative RMS {moment_rel:.4g}")
+    log(f"  global batch 2, s/step over {DP_TIMED_STEPS} steps after the first: "
+        f"{got['step_s']:.3f} on 2 ranks (collectives {got['comm_ms']:.1f} ms a step on rank "
+        f"0), {want['step_s']:.3f} on one card")
+    rel = _rel_rms(got["video"], want["video"])
+    log(f"  sharded request ({got['request_s']:.3f} s on 2 ranks, {want['request_s']:.3f} s on "
+        f"one card): video relative RMS {rel:.4g} (limit {DP_REQUEST_REL_RMS})")
+    if not rel <= DP_REQUEST_REL_RMS:
+        raise AssertionError(f"2-rank sharded request: relative RMS {rel:.4g}")
+    del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result = dryrun_multichip(2)
+    log(f"  dryrun_multichip(2): {result} in {time.perf_counter() - t0:.1f} s")
+    return ["2-rank step", "2-rank sharded request", "dryrun_multichip(2)"]
+
+
+def _lama_video(seed: int = 21):
+    """A 16-frame 512 px clip: a smooth random image drifting 8 px a frame,
+    and a rectangular watermark mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.random((RES // 32, RES // 32, 3)).astype(np.float32)
+    base = np.kron(coarse, np.ones((32, 32, 1), np.float32))
+    video = np.stack([np.roll(base, 8 * i, axis=1) for i in range(LAMA_FRAMES)])
+    video = (video * 255).astype(np.uint8)
+    mask = np.zeros((RES, RES), np.uint8)
+    mask[RES * 5 // 16:RES * 11 // 16, RES * 3 // 16:RES * 13 // 16] = 255
+    return video, mask
+
+
+def run_lama() -> dict:
+    """LaMa at full width (``LamaConfig()``, seeded weights, randomized
+    BatchNorm statistics) on a 16-frame 512 px clip through ``inpaint_video``
+    on the card: unmasked pixels exact, frame 0 against the same module on
+    the CPU within ``LAMA_CPU_ATOL``; then the CLI on a gif and a mask PNG
+    with a ``best.ckpt``-layout file, its output equal to
+    ``inpaint_video``'s."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from animate_anything_tpu_torch.models import lama
+    from animate_anything_tpu_torch.utils import media
+    from animate_anything_tpu_torch.utils.convert import init_lama_
+
+    with torch.device("cuda"):
+        module = lama.LargeMaskInpainting()
+    init_lama_(module, torch.Generator(device="cuda").manual_seed(21)).eval()
+    n_params = sum(p.numel() for p in module.parameters())
+    video, mask = _lama_video()
+    lama.inpaint_video(video[:LAMA_CHUNK], mask, module, chunk=LAMA_CHUNK)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = lama.inpaint_video(video, mask, module, chunk=LAMA_CHUNK)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"LaMa (big-lama, {n_params / 1e6:.1f} M params, fp32): {LAMA_FRAMES} frames at "
+        f"{RES}x{RES} in {dt:.3f} s ({LAMA_FRAMES / dt:.2f} frames/s, chunk {LAMA_CHUNK}), "
+        f"peak {peak:.2f} GiB")
+    outside = mask < 128
+    if out.shape != video.shape or out.dtype != np.uint8:
+        raise AssertionError(f"LaMa: output {out.shape} {out.dtype}")
+    if not np.array_equal(out[:, outside], video[:, outside]):
+        raise AssertionError("LaMa: pixels outside the mask changed")
+    changed = float((out[:, ~outside] != video[:, ~outside]).mean())
+    log(f"  pixels outside the mask equal the input; {changed:.3f} of those inside changed")
+    if changed == 0.0:
+        raise AssertionError("LaMa: nothing inside the mask changed")
+
+    m = torch.as_tensor((mask / 255.0 >= 0.5).astype(np.float32))[None, None]
+    img = torch.as_tensor(video[:1]).float().div(255.0).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        card = module(img.cuda(), m.cuda()).cpu()
+        cpu = copy.deepcopy(module).cpu()(img, m)
+    err = float((card - cpu).abs().max())
+    log(f"  frame 0, card against CPU (fp32, TF32 off): max |diff| {err:.3g} "
+        f"(limit {LAMA_CPU_ATOL})")
+    if not err <= LAMA_CPU_ATOL:
+        raise AssertionError(f"LaMa frame 0: card against CPU {err:.3g}")
+
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lama_", dir="build")
+    try:
+        gif = media.save_gif(os.path.join(work, "clip.gif"), video, fps=8)
+        Image.fromarray(mask).save(os.path.join(work, "mask.png"))
+        ckpt = os.path.join(work, "best.ckpt")
+        torch.save({"state_dict": {f"generator.{k}": v.cpu()
+                                   for k, v in module.state_dict().items()}}, ckpt)
+        frames = media.load_video_frames(gif)
+        again = [lama.inpaint_video(frames, mask, module) for _ in range(2)]
+        differ = int((again[0] != again[1]).any(-1).sum())
+        log(f"  two inpaint_video calls on the same frames (cuDNN's default algorithms): "
+            f"{differ} pixels differ, max {int(np.abs(again[0].astype(int) - again[1]).max())} "
+            "level")
+        # the CLI's output against inpaint_video's, bit for bit: cuDNN's
+        # deterministic algorithms for both
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            t0 = time.perf_counter()
+            written = lama._main([gif, os.path.join(work, "mask.png"), ckpt,
+                                  "--out", os.path.join(work, "clip_inpainted.gif")])
+            cli_s = time.perf_counter() - t0
+            want = media.save_gif(os.path.join(work, "want.gif"),
+                                  lama.inpaint_video(frames, mask, module), fps=8)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        with open(written, "rb") as a, open(want, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("LaMa CLI: its gif differs from inpaint_video's")
+        log(f"  CLI (best.ckpt layout, strict load, gif in and out): {cli_s:.3f} s, its gif "
+            "byte-equal to inpaint_video's (cuDNN deterministic for both)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"seconds": dt, "frames_per_s": LAMA_FRAMES / dt, "peak_gib": peak,
+            "cpu_err": err, "cli_s": cli_s}
+
+
+def run_compress_video() -> None:
+    """``compress_video frames`` and ``folder_json`` on a generated gif; the
+    shard read back through ``VideoReader`` bit-equal to the gif's frames."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from animate_anything_tpu_torch import compress_video
+    from animate_anything_tpu_torch.data.video_io import VideoReader
+    from animate_anything_tpu_torch.utils import media
+
+    work = tempfile.mkdtemp(prefix="prep_", dir="build")
+    try:
+        video, _ = _lama_video(seed=22)
+        os.makedirs(os.path.join(work, "in"))
+        gif = media.save_gif(os.path.join(work, "in", "clip.gif"), video[:8, ::2, ::2], fps=8)
+        with open(os.path.join(work, "in", "clip.txt"), "w") as f:
+            f.write("a drifting pattern\n")
+        t0 = time.perf_counter()
+        compress_video.frames(os.path.join(work, "in"), os.path.join(work, "shards"))
+        compress_video.folder_json(os.path.join(work, "in"), os.path.join(work, "data.json"))
+        dt = time.perf_counter() - t0
+        vr = VideoReader(os.path.join(work, "shards", "clip"))
+        back = vr.get_batch(range(len(vr)))
+        if not np.array_equal(back, media.load_video_frames(gif)):
+            raise AssertionError("compress_video frames: the shard differs from the gif")
+        with open(os.path.join(work, "data.json")) as f:
+            items = _json.load(f)
+        if items != [{"video": gif, "caption": "a drifting pattern"}]:
+            raise AssertionError(f"compress_video folder_json: {items}")
+        log(f"compress_video: frames + folder_json on an 8-frame gif in {dt:.3f} s; the shard "
+            f"({len(vr)} PNGs, fps {vr.fps}) bit-equal to the gif's frames")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def run_serving_paths() -> dict:
     """The server, then PAB, the long video and ptp on the server's models;
     → each path's launches."""
@@ -4243,6 +4726,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     svd_train = run_svd_train_entry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    os.makedirs("build", exist_ok=True)
+    store = tempfile.mkdtemp(prefix="group_", dir="build")
+    t_new = time.perf_counter()
+    init_world_group(store)
+    zero = run_zero_train_steps()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_entry = run_zero_entry()
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+    t_new = time.perf_counter() - t_new
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_lama()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_compress_video()
+    t_new += time.perf_counter() - t0
+    log(f"the data axis, LaMa and compress_video phases took {t_new:.1f} s")
+    multi = run_multi_gpu()
+    log(f"multi-card phases run: {multi or 'none (one card)'}")
     own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS},
                 **{n: packed for n in PACKED_KERNELS}, **{n: entry for n in ENTRY_KERNELS}}
     for row in rows:
@@ -4254,7 +4767,8 @@ def main() -> int:
                               ("train", train),
                               ("train_entry", train_entry["lora"]),
                               ("train_full", train_entry["full"]), ("stage2", stage2),
-                              ("svd_train", svd_train), *serving.items()):
+                              ("svd_train", svd_train), ("zero", zero),
+                              ("zero_entry", zero_entry), *serving.items()):
             row[f"launches_{label}"] = counts.get(name, counts[counter])
 
     print(json.dumps({"kernels": rows}))
