@@ -32,6 +32,7 @@ import argparse
 import contextlib
 import os
 import random
+import tempfile
 import time
 from typing import Any, Optional
 
@@ -51,6 +52,7 @@ from animate_anything_tpu_torch.models.factory import build_models, resolve_devi
 from animate_anything_tpu_torch.models.lora import (LoraConfig, collapse_lora_, init_lora_params,
                                                     load_lora, lora_params, merged_weights,
                                                     save_lora, substituted)
+from animate_anything_tpu_torch.parallel.tensor import full_weights, mesh_group, shard_model
 from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
 from animate_anything_tpu_torch.train import (TrainConfig, create_lora_train_state,
                                               create_train_state, make_lora_train_step,
@@ -317,6 +319,11 @@ def main(*, device="cuda", **cfg_kw) -> str:
     tconf = train_config(cfg)
     lora_cfg, text_lora_cfg = lora_configs(cfg)
     use_lora = lora_cfg is not None or text_lora_cfg is not None
+    # the tensor axis slices the UNet's attention and feed-forward weights;
+    # a LoRA run keeps them whole, as JAX's rules match no adapter
+    tp = None if use_lora else mesh_group(mesh)
+    if tp is not None:
+        shard_model(unet, mesh)
     bases = {}
     for module in (unet, vae, text):
         module.requires_grad_(False)
@@ -337,7 +344,8 @@ def main(*, device="cuda", **cfg_kw) -> str:
         state = create_train_state(unet, tconf, mesh=mesh)
     save_pretrained = not use_lora and bool(cfg.get("save_pretrained_model", True))
     fp32 = {}
-    if save_pretrained and main_rank:   # what the cast rounds and the masters do not hold
+    # what the cast rounds and the masters do not hold (every tensor rank's slices)
+    if save_pretrained and (main_rank or tp is not None):
         fp32 = {name: {n: p.detach().to("cpu", copy=True) for n, p in m.named_parameters()
                        if n not in (state.masters if name == "unet" else ())}
                 for name, m in (("unet", unet), ("vae", vae), ("text", text))}
@@ -352,7 +360,8 @@ def main(*, device="cuda", **cfg_kw) -> str:
         from animate_anything_tpu_torch.data import CachedDataset
 
         cache_dir = os.path.join(run_dir, "cached_latents")
-        cache_dataset(dataset, vae, cache_dir, dev, mesh.rank(), mesh.size())
+        if mesh.rank("frame") == 0 and mesh.rank("tensor") == 0:   # a data rank's share once
+            cache_dataset(dataset, vae, cache_dir, dev, mesh.rank(), mesh.size())
         barrier()
         dataset = CachedDataset(cache_dir=cache_dir)
         print(f"cached {len(dataset)} latent items → {cache_dir}")
@@ -404,17 +413,22 @@ def main(*, device="cuda", **cfg_kw) -> str:
                     save_lora(os.path.join(
                         run_dir, f"lora_step_{global_step}.text_encoder.safetensors"),
                         state.params["text_lora"], text_lora_cfg, prefix="text_encoder")
+                unet_w = (full_weights(unet, {**fp32["unet"], **state.masters})
+                          if save_pretrained else None)
                 if save_pretrained and main_rank:
-                    with substituted(unet, {**fp32["unet"], **state.masters}), \
+                    with substituted(unet, unet_w), \
                             substituted(vae, fp32["vae"]), substituted(text, fp32["text"]):
                         save_pipeline(os.path.join(run_dir, f"pipeline_step_{global_step}"),
                                       unet, models["unet_config"], vae, models["vae_config"],
                                       text, models["text_config"])
-            if sample_preview and main_rank and (global_step % val_steps == 0
-                                                 or global_step == 5):
+            if sample_preview and (main_rank or tp is not None) and (
+                    global_step % val_steps == 0 or global_step == 5):
+                # a tensor-split UNet runs on every tensor rank; rank 0 writes
                 with (_lora_merged(models, state, bases, lora_cfg, text_lora_cfg) if use_lora
-                      else contextlib.nullcontext()):
-                    vm = run_validation(models, cfg.validation_data, run_dir, global_step,
+                      else contextlib.nullcontext()), \
+                        (contextlib.nullcontext(run_dir) if main_rank
+                         else tempfile.TemporaryDirectory()) as out_dir:
+                    vm = run_validation(models, cfg.validation_data, out_dir, global_step,
                                         motion_mask, motion_strength)
                 logger.log(global_step, {k: v for k, v in vm.items()
                                          if isinstance(v, (int, float))})

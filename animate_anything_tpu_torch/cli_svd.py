@@ -49,6 +49,7 @@ from animate_anything_tpu_torch.models.clip_vision import (CLIPVisionConfig,
                                                            preprocess_clip_image)
 from animate_anything_tpu_torch.models.factory import resolve_device
 from animate_anything_tpu_torch.models.lora import substituted
+from animate_anything_tpu_torch.parallel.tensor import full_weights, mesh_group, shard_model
 from animate_anything_tpu_torch.models.svd_unet import (SVDUNetConfig,
                                                         UNetSpatioTemporalConditionModel)
 from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -133,11 +134,15 @@ def main(*, device="cuda", **cfg_kw) -> str:
         motion_mask=motion_mask)
     for name in ("unet", "vae", "image_encoder"):
         models[name].requires_grad_(False)
+    tp = mesh_group(mesh)           # the tensor axis slices the UNet's attention and FF weights
+    if tp is not None:
+        shard_model(unet, mesh)
     state = create_train_state(unet, tconf, svd_flax_path, mesh)
-    save_pretrained = bool(cfg.get("save_pretrained_model", True)) and main_rank
-    # what the cast rounds and the masters do not hold
+    save_pretrained = bool(cfg.get("save_pretrained_model", True))
+    # what the cast rounds and the masters do not hold (every tensor rank's slices)
     fp32 = ({n: p.detach().to("cpu", copy=True) for n, p in unet.named_parameters()
-             if n not in state.masters} if save_pretrained else {})
+             if n not in state.masters} if save_pretrained and (main_rank or tp is not None)
+            else {})
     if policy.compute_dtype != torch.float32:
         for name in ("unet", "vae", "image_encoder"):
             cast_module_(models[name])
@@ -168,8 +173,9 @@ def main(*, device="cuda", **cfg_kw) -> str:
                        echo=global_step % int(cfg.get("log_every", 10)) == 0)
             if global_step % ckpt_steps == 0 or global_step >= max_steps:
                 save_checkpoint(os.path.join(run_dir, "ckpt"), state)
-                if save_pretrained:
-                    with substituted(unet, {**fp32, **state.masters}):
+                unet_w = full_weights(unet, {**fp32, **state.masters}) if save_pretrained else None
+                if save_pretrained and main_rank:
+                    with substituted(unet, unet_w):
                         _save_svd_pipeline(os.path.join(run_dir, f"pipeline_step_{global_step}"),
                                            unet, models["unet_config"])
     logger.close()

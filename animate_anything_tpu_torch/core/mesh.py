@@ -3,26 +3,30 @@
 
 JAX names three mesh axes: ``data`` (batch data parallelism), ``frame``
 (video frames sharded across devices) and ``tensor`` (attention heads and
-MLP columns). The port carries the data axis: one process a GPU under
-``torchrun``, NCCL between them (gloo for an explicit ``device="cpu"``),
-the batch split by rows. The frame and tensor axes reach into the fused
-kernels (kernel 3's Σ/Σ² and kernel 5's frame attention need every frame;
-kernels 2, 4 and 5 fuse the residual into the GEMM a row-parallel split
-would cut), so each needs its own design: an axis above 1 raises
-``NotImplementedError`` naming its ROADMAP item (queue F, 21b and 21c).
+MLP columns). The port runs one process a GPU under ``torchrun``, NCCL
+between them (gloo for an explicit ``device="cpu"``), and lays the ranks out
+as JAX lays out its devices: ``np.asarray(devices).reshape(sizes)``,
+row-major over the axes in the order the shape names them. Each axis has
+its own process subgroup (``Mesh.group``), the ranks that differ only in
+that axis's index.
 
 ``create_mesh(shape)`` resolves the axis sizes exactly as JAX does against
 the world size of the default process group (1 without one): by default
 everything on ``data``, one ``-1`` absorbing the rest, the same
 ``ValueError``s. With a process group it holds a
-``torch.distributed.device_mesh.DeviceMesh`` over the group's ranks; at
-world size 1 with no launcher there is no group and nothing communicates,
-so the one-card path stays as it was.
+``torch.distributed.device_mesh.DeviceMesh`` over the group's ranks with a
+named dimension for each of the three axes (an axis the shape leaves out
+has size 1); at world size 1 with no launcher there is no group and
+nothing communicates, so the one-card path stays as it was.
 
-In eager torch a value sharded over ``data`` is held as this rank's rows:
-``shard_batch`` takes them, ``gather_rows`` joins them again. JAX's
-``named_sharding``, ``constrain`` and ``local_mesh_axes`` place values on
-the frame and tensor axes and come with them (ROADMAP queue F, 21b / 21c).
+JAX places values with ``named_sharding`` and ``constrain`` and lets XLA
+insert the collectives. Eager torch holds a sharded value as this rank's
+part and moves the parts itself, so neither has a counterpart here:
+``shard_batch`` / ``gather_rows`` take and join a batch's rows over
+``data``, ``parallel/frame.py`` splits frames over ``frame`` and moves them
+around the temporal layers, and ``parallel/tensor.py`` slices the attention
+and feed-forward weights over ``tensor``. JAX's ``local_mesh_axes`` (axis
+name → size) is ``Mesh.axes``.
 """
 
 from __future__ import annotations
@@ -40,9 +44,7 @@ import torch.distributed as dist
 AXIS_DATA = "data"
 AXIS_FRAME = "frame"
 AXIS_TENSOR = "tensor"
-
-NOT_PORTED = {AXIS_FRAME: "ROADMAP queue F, item 21b (the frame axis)",
-              AXIS_TENSOR: "ROADMAP queue F, item 21c (the tensor axis)"}
+ALL_AXES = (AXIS_DATA, AXIS_FRAME, AXIS_TENSOR)
 
 # A collective that does not finish in this time fails instead of hanging.
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
@@ -127,20 +129,6 @@ def mesh_shape_from_config(mesh_cfg: Optional[Mapping[str, Any]], default_data: 
     return shape
 
 
-class AxisNotPorted(NotImplementedError, ValueError):
-    """A mesh axis the port does not run (a ``NotImplementedError``, and a
-    ``ValueError`` as every other bad mesh)."""
-
-
-def refuse_unported_axes(shape: Mapping[str, int]) -> None:
-    """Raise ``AxisNotPorted`` for a frame or tensor axis above 1."""
-    for ax, item in NOT_PORTED.items():
-        if int(shape.get(ax, 1)) > 1:
-            raise AxisNotPorted(
-                f"mesh {ax}={shape[ax]}: the {ax} axis is not ported ({item}); "
-                "only the data axis runs")
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Named axis sizes, and the ``DeviceMesh`` over the default group's ranks
@@ -170,18 +158,14 @@ class Mesh:
 
 def create_mesh(shape: Optional[Mapping[str, int]] = None) -> Mesh:
     """Build the mesh over the default process group's ranks (one device
-    without a group). Sizes resolve as in JAX; a frame or tensor axis above 1
-    raises ``NotImplementedError``; under a process group the mesh must use
-    every rank (a rank outside it would have no work)."""
+    without a group). Sizes resolve as in JAX; under a process group the
+    mesh must use every rank (a rank outside it would have no work)."""
     n = world_size()
-    if shape is not None:
-        refuse_unported_axes(shape)
     try:
         axes = resolve_mesh_shape(shape, n)
     except ValueError as e:
         raise ValueError(f"{e}: start one process a device, e.g. torchrun --nproc_per_node N "
                          "(ROADMAP queue F, item 21a)") from e
-    refuse_unported_axes(axes)
     want = math.prod(axes.values())
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(axes)
@@ -191,8 +175,11 @@ def create_mesh(shape: Optional[Mapping[str, int]] = None) -> Mesh:
 
     backend = dist.get_backend()
     device_type = "cuda" if backend == "nccl" else "cpu"
-    ranks = torch.arange(n).reshape(tuple(axes.values()))
-    return Mesh(axes, DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes)))
+    # JAX's row-major layout over the named axes; an axis left out is a
+    # trailing dimension of size 1, which changes no rank's place
+    names = tuple(axes) + tuple(a for a in ALL_AXES if a not in axes)
+    ranks = torch.arange(n).reshape(tuple(axes.values()) + (1,) * (len(names) - len(axes)))
+    return Mesh(axes, DeviceMesh(device_type, ranks, mesh_dim_names=names))
 
 
 def row_range(b: int, mesh: Mesh, axis: str = AXIS_DATA) -> tuple:

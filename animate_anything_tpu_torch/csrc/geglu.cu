@@ -57,23 +57,27 @@
 // the GEMM are in gemm.cuh, which kernel 5 shares.
 #include "gemm.cuh"
 
-// x, y: (n, c) bf16; w1: (8c, c) bf16 [val rows, then gate rows]; w2: (c, 4c)
-// bf16; ln_s, ln_b, b2: (c,) fp32; b1: (8c,) fp32; ln: (n, c) and act: (n, 4c)
-// bf16 scratch.  c % 8 == 0, c <= 4096; the LN statistics over the first cs
-// columns (cs <= c; the rest zero padding); all 16-byte aligned.  The launch
-// plan (ops/geglu.py::launch_plan): GEMM 1's tile width bn1 (128 or 256:
-// bn1/2 val and bn1/2 gate columns), ring stages, grid and dynamic shared
-// bytes; GEMM 2's likewise (bn2 in 64, 128, 160, 256); gate_row0 = 4c.
+// x, y: (n, c) bf16; w1: (2·inner, c) bf16 [val rows, then gate rows]; w2:
+// (c, inner) bf16; ln_s, ln_b, b2: (c,) fp32; b1: (2·inner,) fp32; ln: (n, c)
+// and act: (n, inner) bf16 scratch.  inner = 4c, or a tensor-parallel
+// rank's share of it (val columns and gate columns of one range, paired as
+// here); c % 8 == 0, c <= 4096, inner % 8 == 0; the LN statistics over the
+// first cs columns (cs <= c; the rest zero padding); all 16-byte aligned.
+// partial != 0: GEMM 2 without b2 and x (the rank's share of W2·act, which
+// the ranks sum before adding them once; b2 unread).  The launch plan
+// (ops/geglu.py::launch_plan): GEMM 1's tile width bn1 (128 or 256: bn1/2
+// val and bn1/2 gate columns), ring stages, grid and dynamic shared bytes;
+// GEMM 2's likewise (bn2 in 64, 128, 160, 256); gate_row0 = inner.
 AAT_EXPORT int aat_ln_geglu(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* y, void* ln,
-                            void* act, int n, int c, int cs, float eps, int bn1, int stages1,
-                            int grid1, int smem1, int bn2, int stages2, int grid2, int smem2,
-                            int gate_row0, void* stream) {
+                            void* act, int n, int c, int cs, int inner, int partial, float eps,
+                            int bn1, int stages1, int grid1, int smem1, int bn2, int stages2,
+                            int grid2, int smem2, int gate_row0, void* stream) {
   using namespace aat;
   using namespace aat::gemm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int inner = 4 * c;
-  if (n < 1 || c % 8 != 0 || c > 4096 || gate_row0 != inner)
+  if (n < 1 || c % 8 != 0 || c > 4096 || inner < 8 || inner % 8 != 0 || inner > 4 * c ||
+      gate_row0 != inner)
     return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_layer_norm<ln_geglu_ff>(x, ln_s, ln_b, ln, n, c, cs, eps, st);
   if (err) return err;
@@ -89,14 +93,16 @@ AAT_EXPORT int aat_ln_geglu(const void* x, const void* ln_s, const void* ln_b, c
   p1.tiles = row_tiles * p1.col_tiles;
   p1.stages = stages1;
   if (bn1 == 256)
-    err = launch_gemm<256, true, ln_geglu_ff>(p1, ln, w1, 8 * c, act, nullptr, grid1, smem1, st);
+    err = launch_gemm<256, true, ln_geglu_ff>(p1, ln, w1, 2 * inner, act, nullptr, grid1, smem1,
+                                              st);
   else if (bn1 == 128)
-    err = launch_gemm<128, true, ln_geglu_ff>(p1, ln, w1, 8 * c, act, nullptr, grid1, smem1, st);
+    err = launch_gemm<128, true, ln_geglu_ff>(p1, ln, w1, 2 * inner, act, nullptr, grid1, smem1,
+                                              st);
   else
     err = static_cast<int>(cudaErrorInvalidValue);
   if (err) return err;
 
-  // GEMM 2: y = act·W2ᵀ + b2 + x (bn2 in 256, 160, 128, 64)
-  return gemm_bias_residual<ln_geglu_ff>(act, w2, b2, x, y, n, c, inner, bn2, stages2, grid2,
-                                         smem2, st);
+  // GEMM 2: y = act·W2ᵀ + b2 + x, or act·W2ᵀ alone (bn2 in 256, 160, 128, 64)
+  return gemm_bias_residual<ln_geglu_ff>(act, w2, partial ? nullptr : b2, partial ? nullptr : x,
+                                         y, n, c, inner, bn2, stages2, grid2, smem2, st);
 }

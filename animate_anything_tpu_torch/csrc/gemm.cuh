@@ -419,6 +419,7 @@ struct GemmParams {
   CUtensorMap out[2];  // (n cols, m rows) bf16, boxes 64 and 32 columns x 64 rows
   CUtensorMap res[2];  // the residual, as `out` (the residual form only)
   const float* bias;   // GEGLU: b1 (8c, val then gate); else the output bias (n)
+  int partial;         // the residual form without bias and residual: y = a·wᵀ alone
   int m, n, k;         // rows, output columns (GEGLU: act's 4c), reduction
   int gate_row0;       // GEGLU: the W1 row (and b1 entry) of gate column 0, 4c
   int col_tiles, tiles, stages;
@@ -506,8 +507,10 @@ __device__ __forceinline__ float gelu_tanh(float g) {
 // GEGLU, act columns [j0, j0 + BN/2) from the val half and the gate half of
 // the accumulator (gate column x sits BN/2 after val column x: n8 block
 // jj + BN/16), + b1, val·gelu_tanh(gate); else y = acc + bias + residual
-// over the residual tile already in `out`, in place.  Rows are the thread's
-// two of the warpgroup's 64.
+// over the residual tile already in `out`, in place, or y = acc alone in the
+// partial form (a tensor-parallel rank's share, summed over the ranks before
+// the bias and the residual are added once).  Rows are the thread's two of
+// the warpgroup's 64.
 template <int BN, bool GEGLU>
 __device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, uint8_t* out,
                                          int r0, int j0, int t) {
@@ -519,7 +522,8 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, 
     // GEGLU: a last tile past 4c takes the last column's biases for the act
     // columns it does not store (no branch, no read past b1)
     const int bc = GEGLU ? min(j0 + col, p.n - 2) : j0 + col;
-    const float2 bv = *reinterpret_cast<const float2*>(p.bias + bc);
+    const float2 bv = (GEGLU || !p.partial) ? *reinterpret_cast<const float2*>(p.bias + bc)
+                                            : make_float2(0.f, 0.f);
     float2 bg;
     if constexpr (GEGLU) bg = *reinterpret_cast<const float2*>(p.bias + p.gate_row0 + bc);
 #pragma unroll
@@ -532,7 +536,9 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, 
         *dst = pack_bf16((v[0] + bv.x) * gelu_tanh(g[0] + bg.x),
                          (v[1] + bv.y) * gelu_tanh(g[1] + bg.y));
       } else {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dst));
+        const float2 x =
+            p.partial ? make_float2(0.f, 0.f)
+                      : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dst));
         *dst = pack_bf16(v[0] + bv.x + x.x, v[1] + bv.y + x.y);
       }
     }
@@ -625,14 +631,14 @@ tma_gemm_kernel(const __grid_constant__ GemmParams p) {
     if (lt == 0) {
       bulk_wait_read();  // the last tile's store has read the output tile
       if constexpr (!GEGLU) {  // the residual tile, in place of the output
-        if (me.on) {
+        if (me.on && !p.partial) {
           mbar_expect_tx(res_bar, L::OUT_BYTES);
 #pragma unroll
           for (int i = 0; i < Chunks::COUNT; ++i)
             tma_load_3d(out + Chunks::offset(i, 64), &p.res[Chunks::kind(i)], res_bar,
                         j0 + Chunks::col(i), row0, me.slab);
         } else {
-          mbar_arrive(res_bar);  // no sub-tile: complete the phase without bytes
+          mbar_arrive(res_bar);  // no sub-tile or no residual: complete the phase
         }
       }
     }
@@ -709,13 +715,16 @@ int launch_gemm(GemmParams& p, const void* a, const void* w, int w_rows, void* o
 }
 
 // y (m, n) = a (m, k)·wᵀ + bias + res, w (n, k): the residual form, tile
-// width bn in 256, 160, 128, 64 (the launch plan's, ops/geglu.py::gemm_plan).
+// width bn in 256, 160, 128, 64 (the launch plan's, ops/geglu.py::gemm_plan);
+// with bias and res both null, the partial form y = a·wᵀ.
 template <typename Owner>
 int gemm_bias_residual(const void* a, const void* w, const void* bias, const void* res, void* y,
                        int m, int n, int k, int bn, int stages, int grid, int smem,
                        cudaStream_t stream) {
+  if ((bias == nullptr) != (res == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   GemmParams p = {};
   p.bias = static_cast<const float*>(bias);
+  p.partial = res == nullptr;
   p.m = m;
   p.n = n;
   p.k = k;

@@ -78,10 +78,10 @@ __host__ __device__ constexpr int attention_smem(int stages, int chunks) {
 
 struct AttnParams {
   CUtensorMap ln;    // 3-D (c, s, b·f), box 64 x L x f
-  CUtensorMap om;    // o as ln: the store of a full 64-column chunk of a head
-  CUtensorMap w[3];  // wq, wk, wv: (c cols, c rows), box 64 x 64
-  bf16* o;           // (b, f, s, c)
-  int f, s, c, heads, d, L, chunks, nk, loc_tiles, items, stages;
+  CUtensorMap om;    // o (inner, s, b·f): the store of a full 64-column chunk of a head
+  CUtensorMap w[3];  // wq, wk, wv: (c cols, inner rows), box 64 x 64
+  bf16* o;           // (b, f, s, inner)
+  int f, s, c, inner, heads, d, L, chunks, nk, loc_tiles, items, stages;
   float scale_log2;  // log2(e) / √d
 };
 
@@ -298,7 +298,8 @@ temporal_block_attention_kernel(const __grid_constant__ AttnParams p) {
       for (int h = 0; h < 2; ++h) {
         const int sl = s0 + loc[h];
         if (r0 + 8 * h >= rows || sl >= p.s) continue;
-        bf16* dst = p.o + (((size_t)bi * p.f + frame[h]) * p.s + sl) * p.c + hd * p.d + 64 * j;
+        bf16* dst =
+            p.o + (((size_t)bi * p.f + frame[h]) * p.s + sl) * p.inner + hd * p.d + 64 * j;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int col = 8 * jj + 2 * t;
@@ -316,9 +317,13 @@ temporal_block_attention_kernel(const __grid_constant__ AttnParams p) {
 }  // namespace
 }  // namespace aat
 
-// x, y: (b, f, s, c) bf16; wq, wk, wv, wo: (c, c) bf16 in the torch Linear
-// layout (out, in); ln_s, ln_b, bo: (c,) fp32; ln, o: (b, f, s, c) bf16
-// scratch.  heads·d == c, d % 8 == 0, d <= 256, c <= 2048, 1 <= f <= 128.
+// x, y: (b, f, s, c) bf16; wq, wk, wv: (inner, c) and wo: (c, inner) bf16 in
+// the torch Linear layout (out, in); ln_s, ln_b, bo: (c,) fp32; ln: (b, f,
+// s, c) and o: (b, f, s, inner) bf16 scratch.  heads·d == inner: all of c,
+// or a tensor-parallel rank's slice of whole heads; d % 8 == 0, d <= 256,
+// c <= 2048, 1 <= f <= 128.  partial != 0: the out-projection without bo
+// and x (the rank's share of Wo·attn, which the ranks sum before adding
+// them once; bo unread).
 // The launch plan (ops/temporal_block.py::launch_plan): locations a tile L,
 // the attention kernel's ring stages, grid and shared bytes; the
 // out-projection's tile width, stages, grid and shared bytes (kernel 2's
@@ -326,14 +331,15 @@ temporal_block_attention_kernel(const __grid_constant__ AttnParams p) {
 AAT_EXPORT int aat_temporal_block(const void* x, const void* ln_s, const void* ln_b,
                                   const void* wq, const void* wk, const void* wv, const void* wo,
                                   const void* bo, void* ln, void* o, void* y, int b, int f, int s,
-                                  int c, int heads, float eps, int L, int stages, int grid,
-                                  int smem, int bn_out, int stages_out, int grid_out,
-                                  int smem_out, void* stream) {
+                                  int c, int inner, int heads, int partial, float eps, int L,
+                                  int stages, int grid, int smem, int bn_out, int stages_out,
+                                  int grid_out, int smem_out, void* stream) {
   using namespace aat;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b < 1 || s < 1 || f < 1 || f > ROWS || heads < 1 || c % heads != 0 || c > 2048)
+  if (b < 1 || s < 1 || f < 1 || f > ROWS || heads < 1 || inner % heads != 0 || c > 2048 ||
+      inner > c || c % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int d = c / heads, n = b * f * s;
+  const int d = inner / heads, n = b * f * s;
   const int chunks = (d + 63) / 64;
   if (d % 8 != 0 || chunks > MAX_CHUNKS || L < 1 || L * f > ROWS || stages < 2 || grid < 1 ||
       smem < attention_smem(stages, chunks) || smem > gemm::SMEM_LIMIT)
@@ -347,6 +353,7 @@ AAT_EXPORT int aat_temporal_block(const void* x, const void* ln_s, const void* l
   p.f = f;
   p.s = s;
   p.c = c;
+  p.inner = inner;
   p.heads = heads;
   p.d = d;
   p.L = L;
@@ -358,10 +365,12 @@ AAT_EXPORT int aat_temporal_block(const void* x, const void* ln_s, const void* l
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(d));
   const uint64_t ldims[3] = {(uint64_t)c, (uint64_t)s, (uint64_t)b * f};
   const uint32_t lbox[3] = {64, (uint32_t)L, (uint32_t)f};
+  const uint64_t odims[3] = {(uint64_t)inner, (uint64_t)s, (uint64_t)b * f};
   err = hopper::make_map(&p.ln, ln, 3, ldims, lbox);
-  if (!err) err = hopper::make_map(&p.om, o, 3, ldims, lbox);
+  if (!err) err = hopper::make_map(&p.om, o, 3, odims, lbox);
   const void* ws[3] = {wq, wk, wv};
-  for (int m = 0; m < 3 && !err; ++m) err = hopper::make_map_3d(&p.w[m], ws[m], c, c, 1, 64, 64);
+  for (int m = 0; m < 3 && !err; ++m)
+    err = hopper::make_map_3d(&p.w[m], ws[m], c, inner, 1, 64, 64);
   if (err) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(temporal_block_attention_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -370,6 +379,7 @@ AAT_EXPORT int aat_temporal_block(const void* x, const void* ln_s, const void* l
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
-  return gemm::gemm_bias_residual<temporal_block>(o, wo, bo, x, y, n, c, c, bn_out, stages_out,
-                                                  grid_out, smem_out, st);
+  return gemm::gemm_bias_residual<temporal_block>(o, wo, partial ? nullptr : bo,
+                                                  partial ? nullptr : x, y, n, c, inner, bn_out,
+                                                  stages_out, grid_out, smem_out, st);
 }

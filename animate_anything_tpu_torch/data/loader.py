@@ -40,7 +40,9 @@ class DataLoader:
     """Shuffled, batched, background-threaded loader over any indexable
     dataset of dicts. ``batch_size`` is the global batch; with a ``mesh``
     whose data axis is above 1 each rank decodes and yields only its rows
-    of every global batch, in the same order on every rank."""
+    of every global batch, in the same order on every rank; the ranks that
+    differ only on the ``frame`` and ``tensor`` axes read the same rows, as
+    JAX places the batch over ``data`` alone."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
@@ -119,10 +121,9 @@ class DataLoader:
 
 def check_mesh(mesh, default_data: int = -1) -> Mesh:
     """The mesh a config's ``mesh`` asks for (``data`` ``default_data`` when
-    absent), checked: the data axis must come to the world size (-1, or the
-    process count; 1 without a launcher), else ``ValueError``; a frame or
-    tensor axis above 1 raises ``AxisNotPorted`` (ROADMAP queue F, items
-    21b / 21c)."""
+    absent), checked: the axes must come to the world size (``data`` -1
+    absorbing what ``frame`` and ``tensor`` leave; 1 without a launcher),
+    else ``ValueError``."""
     return create_mesh(mesh_shape_from_config(mesh, default_data))
 
 

@@ -6,10 +6,13 @@ group (NCCL over ``n`` GPUs, or gloo processes for ``device="cpu"``; it
 raises when fewer than ``n`` GPUs are present and never drops to the CPU)
 and on each runs JAX's nano UNet (two blocks, 32/64 channels, motion mask
 and strength) through one ZeRO-sharded full-finetune step on a global batch
-split over ``data`` (a finite loss), then a 2-step data-sharded
-``LatentToVideoPipeline`` request with the tiny VAE (a finite video). The
-mesh is ``{data: n}``: JAX factors the count into tensor 2 (8 | n) and
-frame 2 (2 | n), which waits for those axes (ROADMAP queue F, item 22).
+split over ``data`` (a finite loss), then a 2-step ``LatentToVideoPipeline``
+request with the tiny VAE, its batch over ``data`` and its frames over
+``frame`` (a finite video). The mesh factors n as JAX's does
+(``mesh_factors``): tensor 2 where 8 | n, frame 2 where 2 | n, the rest
+data, so {data: n/2, frame: 2} at n = 4 and {data: 2, frame: 2, tensor: 2}
+at n = 8; the UNet is tensor-split (``parallel/tensor.shard_model``) for
+both the step and the request.
 
 ``spawn_ranks(target, n, device, *args)`` is the launcher the dry run, the
 tests and ``chip_smoke.py`` share: ``n`` fresh processes
@@ -92,9 +95,18 @@ def nano_unet_config():
                         norm_num_groups=8, motion_mask=True, motion_strength=True)
 
 
+def mesh_factors(n: int) -> dict:
+    """JAX's dry-run mesh over n devices (``__graft_entry__.py:97-101``):
+    tensor 2 when 8 | n, frame 2 when 2 | n·/tensor, the rest data."""
+    tensor = 2 if n % 8 == 0 else 1
+    frame = 2 if (n // tensor) % 2 == 0 else 1
+    return {"data": n // (tensor * frame), "frame": frame, "tensor": tensor}
+
+
 def _dryrun_rank(device: str, out_path: str) -> None:
     """One rank of the dry run: the ZeRO step, then the sharded request."""
     from animate_anything_tpu_torch.core.mesh import create_mesh, is_main_process, shard_batch
+    from animate_anything_tpu_torch.parallel.tensor import shard_model
     from animate_anything_tpu_torch.diffusion import make_schedule
     from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
     from animate_anything_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -104,11 +116,13 @@ def _dryrun_rank(device: str, out_path: str) -> None:
     from animate_anything_tpu_torch.utils.convert import init_unet3d_, init_vae_
 
     dev = torch.device(device)
-    n = dist.get_world_size()
-    mesh = create_mesh({"data": n})
+    axes = mesh_factors(dist.get_world_size())
+    mesh = create_mesh(axes)
+    data = axes["data"]
     unet = UNet3DConditionModel(nano_unet_config()).to(dev)
     init_unet3d_(unet, torch.Generator(dev).manual_seed(2))
-    b, f, hw = max(2, 2 * n), 4, 16
+    shard_model(unet, mesh)
+    b, f, hw = max(2, 2 * data), 4, 16
     host = torch.Generator().manual_seed(0)
     batch = {"latents": torch.randn((b, f, hw // 8, hw // 8, 4), generator=host),
              "mask": torch.full((b, hw, hw), 255.0),
@@ -124,7 +138,7 @@ def _dryrun_rank(device: str, out_path: str) -> None:
     vae = AutoencoderKL(VAEConfig.tiny()).to(dev)
     init_vae_(vae, torch.Generator(dev).manual_seed(4))
     pipe = LatentToVideoPipeline(unet.eval(), vae, schedule=make_schedule(), mesh=mesh)
-    bi, f_inf, hw_lat = max(2, n), 4, 8
+    bi, f_inf, hw_lat = max(2, data), 4, 8
     gen = torch.Generator(dev).manual_seed(5)
     img_latent = torch.randn((bi, 1, hw_lat, hw_lat, 4), generator=gen, device=dev)
     ts = pipe.get_timesteps(2)
@@ -139,21 +153,23 @@ def _dryrun_rank(device: str, out_path: str) -> None:
     if is_main_process():
         with open(out_path, "w") as fh:
             json.dump({"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
-                       "video": list(video.shape), "mesh": {"data": n},
+                       "video": list(video.shape), "mesh": axes,
                        "optimizer_bytes": state.optimizer.state_bytes()}, fh)
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", timeout: float = 600.0) -> dict:
-    """One ZeRO-sharded data-parallel train step and one data-sharded 2-step
-    request on ``n_devices`` ranks; → rank 0's {loss, grad_norm, video shape,
-    mesh, optimizer bytes}."""
+    """One ZeRO-sharded train step and one sharded 2-step request on
+    ``n_devices`` ranks of JAX's mesh (``mesh_factors``); → rank 0's {loss,
+    grad_norm, video shape, mesh, optimizer bytes}."""
     with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
         out = os.path.join(tmp, "result.json")
         spawn_ranks("animate_anything_tpu_torch.dryrun:_dryrun_rank", n_devices, device,
                     device, out, timeout=timeout)
         with open(out) as fh:
             result = json.load(fh)
-    print(f"dryrun_multichip({n_devices}) ok: mesh data={n_devices} loss={result['loss']:.4f}")
+    m = result["mesh"]
+    print(f"dryrun mesh: data={m['data']} frame={m['frame']} tensor={m['tensor']}")
+    print(f"dryrun_multichip({n_devices}) ok: loss={result['loss']:.4f}")
     print(f"dryrun_multichip({n_devices}) inference ok: video={tuple(result['video'])}")
     return result
 

@@ -23,6 +23,13 @@ Under ``attn_impl="pallas"``:
   kernel 2's tail: a shape gate on both devices, not a fallback. The
   output projection runs kernel 4.
 
+Under tensor parallelism (``parallel/tensor.shard_model``) an attention
+site whose heads the axis divides holds its rank's heads (``local_heads``)
+and a feed-forward its rank's hidden columns; their outputs are summed over
+the axis before the bias and the residual are added once (kernels 2 and 5
+in their ``partial`` mode). Kernels 1 and 9 and the flash backward run
+unchanged on the local heads.
+
 Under a PAB cache (``pab=``, ``models/pab.py``) both transformers return
 ``delta + x`` with the delta from the cache or from their body with a plain
 ``proj_out``, and no output sums, as JAX's ``pab_reuse`` branch does.
@@ -45,14 +52,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from animate_anything_tpu_torch.models.layers import FusedGroupNorm, Linear, layer_norm
+from animate_anything_tpu_torch.ops.group_norm import local_sums
 from animate_anything_tpu_torch.ops.attention import attention
 from animate_anything_tpu_torch.ops.geglu import ln_geglu_ff
 from animate_anything_tpu_torch.ops.proj_residual import proj_residual_stats
 from animate_anything_tpu_torch.ops.temporal_attention import temporal_attention
 from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, temporal_block
+from animate_anything_tpu_torch.parallel import frame
+from animate_anything_tpu_torch.parallel.tensor import add_once, copy_to, row_parallel
 
 
-class CrossAttention(nn.Module):
+class HeadsSite(nn.Module):
+    """An attention site: ``heads`` heads of ``head_dim``, of which this
+    rank holds ``local_heads`` under a tensor axis (``tp``)."""
+    tp = None
+
+    @property
+    def local_heads(self) -> int:
+        return self.heads // (1 if self.tp is None else self.tp.size)
+
+
+class CrossAttention(HeadsSite):
     """Multi-head attention; self-attention when context is None. Keys:
     to_q/to_k/to_v (no bias), to_out.0 (bias). ``path``: the module path a
     UNet gives it (``utils/ptp.tag_attention_paths``), tagged on every call
@@ -70,15 +90,16 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(inner, dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
+        x = copy_to(x, self.tp)
+        ctx = x if context is None else copy_to(context, self.tp)
         b, sq, _ = x.shape
         sk = ctx.shape[1]
-        q = self.to_q(x).reshape(b, sq, self.heads, self.head_dim)
-        k = self.to_k(ctx).reshape(b, sk, self.heads, self.head_dim)
-        v = self.to_v(ctx).reshape(b, sk, self.heads, self.head_dim)
+        heads = self.local_heads
+        q = self.to_q(x).reshape(b, sq, heads, self.head_dim)
+        k = self.to_k(ctx).reshape(b, sk, heads, self.head_dim)
+        v = self.to_v(ctx).reshape(b, sk, heads, self.head_dim)
         out = attention(q, k, v, impl=self.attn_impl, tag=(self.path, context is not None))
-        out = out.reshape(b, sq, self.heads * self.head_dim)
-        return self.to_out[0](out)
+        return row_parallel(self.to_out[0], out.reshape(b, sq, heads * self.head_dim), self.tp)
 
 
 class GEGLU(nn.Module):
@@ -89,7 +110,10 @@ class GEGLU(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU MLP (diffusers FeedForward, mult 4), exact-erf GELU. Keys
-    net.0.proj, net.2."""
+    net.0.proj, net.2. Under a tensor axis (``tp``) net.0.proj holds the
+    val and gate rows of its rank's hidden columns side by side, so the
+    halves of its output are the rank's values and their gates."""
+    tp = None
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -97,14 +121,21 @@ class GEGLUFeedForward(nn.Module):
                                   Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, gate = self.net[0].proj(x).chunk(2, dim=-1)
-        return self.net[2](h * F.gelu(gate))
+        h, gate = self.net[0].proj(copy_to(x, self.tp)).chunk(2, dim=-1)
+        return row_parallel(self.net[2], h * F.gelu(gate), self.tp)
 
     def fused_tail(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-        """x + FF(LayerNorm(x)) through kernel 2 (tanh GELU)."""
+        """x + FF(LayerNorm(x)) through kernel 2 (tanh GELU); under a
+        tensor axis its partial mode, summed over the axis."""
         proj, out = self.net[0].proj, self.net[2]
-        return ln_geglu_ff(x, norm.weight, norm.bias, proj.weight, proj.bias, out.weight,
-                           out.bias, eps=norm.eps)
+        if self.tp is None:
+            return ln_geglu_ff(x, norm.weight, norm.bias, proj.weight, proj.bias, out.weight,
+                               out.bias, eps=norm.eps)
+        # the fused LN's inputs, x and its affine, feed every rank's slice
+        x_in, s, b = (copy_to(t, self.tp) for t in (x, norm.weight, norm.bias))
+        y = ln_geglu_ff(x_in, s, b, proj.weight, proj.bias, out.weight, None, eps=norm.eps,
+                        partial=True)
+        return add_once(y, out.bias, x, self.tp)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -181,7 +212,7 @@ class SpatialTransformer(nn.Module):
         return self.proj_out(self._hidden(x, context, entry_sums)).reshape(x.shape)
 
 
-class TemporalSelfAttention(nn.Module):
+class TemporalSelfAttention(HeadsSite):
     """Self-attention over the FRAME axis of a (b, f, s, c) tensor, no layout
     transpose. Keys as CrossAttention."""
 
@@ -195,11 +226,27 @@ class TemporalSelfAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(inner, dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to(x, self.tp)
         b, f, s, _ = x.shape
-        shape = (b, f, s, self.heads, self.head_dim)
+        heads = self.local_heads
+        shape = (b, f, s, heads, self.head_dim)
         q, k, v = (proj(x).reshape(shape) for proj in (self.to_q, self.to_k, self.to_v))
         out = temporal_attention(q, k, v, impl=self.attn_impl).to(x.dtype)
-        return self.to_out[0](out.reshape(b, f, s, self.heads * self.head_dim))
+        return row_parallel(self.to_out[0], out.reshape(b, f, s, heads * self.head_dim), self.tp)
+
+    def fused_block(self, h: torch.Tensor, norm: nn.LayerNorm, kernel=None) -> torch.Tensor:
+        """h + attn(LN(h)) through kernel 5 (``kernel``: its wrapper as the
+        caller's module names it); under a tensor axis on the rank's heads
+        in its partial mode, summed over the axis."""
+        run = temporal_block if kernel is None else kernel
+        out = self.to_out[0]
+        w = (self.to_q.weight, self.to_k.weight, self.to_v.weight, out.weight)
+        if self.tp is None:
+            return run(h, norm.weight, norm.bias, *w, out.bias, heads=self.heads, eps=norm.eps)
+        # the fused LN's inputs, h and its affine, feed every rank's heads
+        h_in, s, b = (copy_to(t, self.tp) for t in (h, norm.weight, norm.bias))
+        y = run(h_in, s, b, *w, None, heads=self.local_heads, eps=norm.eps, partial=True)
+        return add_once(y, out.bias, h, self.tp)
 
 
 class TemporalBasicBlock(nn.Module):
@@ -224,10 +271,7 @@ class TemporalBasicBlock(nn.Module):
         if fused:
             for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
                 if kernel5:
-                    h = temporal_block(h.to(dt), norm.weight, norm.bias, attn.to_q.weight,
-                                       attn.to_k.weight, attn.to_v.weight,
-                                       attn.to_out[0].weight, attn.to_out[0].bias,
-                                       heads=attn.heads, eps=norm.eps)
+                    h = attn.fused_block(h.to(dt), norm)
                 else:
                     h = h + attn(layer_norm(h, norm, dt))
             return self.ff.fused_tail(h.to(dt), self.norm3)
@@ -273,18 +317,30 @@ class TemporalTransformer(nn.Module):
 
     def _hidden(self, x, num_frames: int, entry_sums=None):
         """The entry GroupNorm, proj_in and the blocks on the (b, f, h·w,
-        inner) view."""
+        inner) view. Under a frame split (``parallel/frame.active``) x holds
+        this rank's frames: the norm (its sums summed over the frame group),
+        proj_in and the blocks run on all frames of a slice of positions
+        between two all-to-alls, and the result is this rank's frames again."""
+        shard = frame.active()
+        nf = frame.local_frames(num_frames)
         bf, hh, ww, c = x.shape
-        b = bf // num_frames
-        h = self.norm(x.reshape(b, num_frames, hh, ww, c), sums=entry_sums)
-        h = self.proj_in(h.reshape(b, num_frames, hh * ww, c))
+        b, s = bf // nf, hh * ww
+        h = x.reshape(b, nf, s, c)
+        rows = None
+        if shard is not None:
+            h = shard.to_positions(h)
+            if entry_sums is None:
+                entry_sums = local_sums(h.reshape(b, -1, c))
+            entry_sums = shard.reduce(*entry_sums)
+            rows = num_frames * s
+        h = self.proj_in(self.norm(h, sums=entry_sums, rows=rows))
         inner = self.heads * self.head_dim
         fused = self.attn_impl == "pallas" and fused_ok(num_frames, inner, self.heads,
                                                         self.head_dim)
         kernel5 = kernel_ok(num_frames, inner, self.heads)
         for block in self.transformer_blocks:
             h = block(h, fused, kernel5)
-        return h
+        return h if shard is None else shard.to_frames(h, s)
 
     def _delta(self, x, num_frames: int, entry_sums=None):
         """The residual delta, ``proj_out`` a plain Linear (JAX's ``_delta``)."""

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from animate_anything_tpu_torch.ops.group_norm import group_norm_silu
+from animate_anything_tpu_torch.ops.group_norm import group_norm_silu, local_sums
+from animate_anything_tpu_torch.parallel import frame
 from animate_anything_tpu_torch.ops.spatial_conv import SPATIAL_CONV_OPTIN, gn_silu_spatial_conv
 from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv, pack_taps
 
@@ -78,9 +79,9 @@ class FusedGroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
 
-    def forward(self, x: torch.Tensor, sums=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sums=None, rows=None) -> torch.Tensor:
         return group_norm_silu(x, self.weight, self.bias, self.groups, self.eps, self.silu,
-                               stats=self.stats, sums=sums)
+                               stats=self.stats, sums=sums, rows=rows)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -224,28 +225,55 @@ class TemporalConvLayer(nn.Module):
         fp32 (Σy, Σy²) of the output, for the next module's GroupNorm (None
         off ``"pallas"``). ``in_sums``: the per-(b·f, c) sums of x from its
         producer, for stage 1's GroupNorm (its gradient flows back into the
-        producer's sums)."""
+        producer's sums). Under a frame split (``parallel/frame.active``) x
+        holds this rank's frames of ``num_frames``: the stages run on all
+        frames of a slice of positions between two all-to-alls, every
+        GroupNorm's sums and kernel 3's output sums summed over the frame
+        group."""
+        shard = frame.active()
+        nf = frame.local_frames(num_frames)
         bf, hh, ww, c = x.shape
-        b = bf // num_frames
-        h = x.reshape(b, num_frames, hh * ww, c)
-        identity = h
+        b, s = bf // nf, hh * ww
+        h = x.reshape(b, nf, s, c)
         sums = None if in_sums is None else tuple(
-            s.reshape(b, num_frames, c).sum(1) for s in in_sums)
+            t.reshape(b, nf, c).sum(1) for t in in_sums)
+        rows = None
+        if shard is not None:
+            h = shard.to_positions(h)
+            rows = num_frames * s
+        identity = h
+
+        def stage_sums(h, sums):
+            # per-(b, c) sums of h over the whole frame group's rows
+            if shard is None:
+                return sums
+            if sums is None:
+                sums = local_sums(h.reshape(b, -1, h.shape[-1]))
+            return shard.reduce(*sums)
+
         stages = (self.conv1, self.conv2, self.conv3, self.conv4)
         if self.impl != "pallas":
             for idx, seq in enumerate(stages, start=1):
                 norm, conv = seq[0], seq[-1]
                 h = group_norm_silu(h, norm.weight, norm.bias, self.groups, 1e-5,
-                                    sums=sums if idx == 1 else None)
+                                    sums=stage_sums(h, sums if idx == 1 else None), rows=rows)
                 h = conv(h)
-            return (identity + h).reshape(bf, hh, ww, c), None
+            h = identity + h
+            if shard is not None:
+                h = shard.to_frames(h, s)
+            return h.reshape(bf, hh, ww, c), None
         for idx, seq in enumerate(stages, start=1):
             norm, conv = seq[0], seq[-1]
             h, stats = gn_silu_tap_conv(
                 h.to(conv.weight.dtype), norm.weight, norm.bias, conv.weight, conv.bias,
                 groups=self.groups, eps=1e-5, residual=identity if idx == 4 else None,
-                sums=sums)
+                sums=stage_sums(h, sums) if idx == 1 else sums, rows=rows)
+            if shard is not None:   # kernel 3's per-(b, f, c) sums over this rank's positions
+                stats = shard.reduce(*stats)
             sums = (stats[0].sum(1), stats[1].sum(1))   # per-(b, c) for the next GN
+        if shard is not None:
+            h = shard.to_frames(h, s)
+            stats = tuple(t[:, shard.lo:shard.hi] for t in stats)
         return h.reshape(bf, hh, ww, c), (stats[0].reshape(bf, c), stats[1].reshape(bf, c))
 
 

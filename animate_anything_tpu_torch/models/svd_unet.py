@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from animate_anything_tpu_torch.models.attention import (BasicTransformerBlock, GEGLUFeedForward,
-                                                         TemporalSelfAttention)
+                                                         HeadsSite, TemporalSelfAttention)
 from animate_anything_tpu_torch.models.layers import (Conv2d, Downsample2D, Linear,
                                                       ResnetBlock2D, TemporalTapConv,
                                                       TimestepEmbedding, Upsample2D, layer_norm,
@@ -60,6 +60,7 @@ from animate_anything_tpu_torch.models.unet3d_blocks import run_layer
 from animate_anything_tpu_torch.ops.group_norm import group_norm_silu
 from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, temporal_block
 from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv
+from animate_anything_tpu_torch.parallel.tensor import copy_to, row_parallel
 from animate_anything_tpu_torch.utils.ptp import tag_attention_paths
 
 
@@ -174,7 +175,7 @@ class SpatioTemporalResBlock(nn.Module):
         return h
 
 
-class BroadcastCrossAttention(nn.Module):
+class BroadcastCrossAttention(HeadsSite):
     """Cross-attention from (b, f, s, c) queries to a per-batch context
     (b, L, ctx): every frame and location of batch b attends to b's L
     tokens, fp32 scores and softmax, probabilities in v's dtype. Plain torch,
@@ -192,15 +193,16 @@ class BroadcastCrossAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(inner, dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x, context = copy_to(x, self.tp), copy_to(context, self.tp)
         b, f, s, _ = x.shape
-        hd = (self.heads, self.head_dim)
+        hd = (self.local_heads, self.head_dim)
         q = self.to_q(x).reshape(b, f, s, *hd)
         k = self.to_k(context).reshape(b, -1, *hd)
         v = self.to_v(context).reshape(b, -1, *hd)
         scores = torch.einsum("bfshd,blhd->bfshl", q.float(), k.float()) * self.head_dim ** -0.5
         probs = scores.softmax(dim=-1).to(v.dtype)
         out = torch.einsum("bfshl,blhd->bfshd", probs.float(), v.float()).to(x.dtype)
-        return self.to_out[0](out.reshape(b, f, s, -1))
+        return row_parallel(self.to_out[0], out.reshape(b, f, s, -1), self.tp)
 
 
 class TemporalBasicTransformerBlock(nn.Module):
@@ -235,9 +237,7 @@ class TemporalBasicTransformerBlock(nn.Module):
         inner = a1.heads * a1.head_dim
         if pallas and fused_ok(f, inner, a1.heads, a1.head_dim) and inner == c \
                 and kernel_ok(f, c, a1.heads):
-            x = temporal_block(x.to(dt), self.norm1.weight, self.norm1.bias, a1.to_q.weight,
-                               a1.to_k.weight, a1.to_v.weight, a1.to_out[0].weight,
-                               a1.to_out[0].bias, heads=a1.heads, eps=self.norm1.eps)
+            x = a1.fused_block(x.to(dt), self.norm1, temporal_block)
         else:
             x = x + a1(layer_norm(x, self.norm1, dt))
         x = x + self.attn2(layer_norm(x, self.norm2, dt), context)

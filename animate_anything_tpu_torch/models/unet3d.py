@@ -14,7 +14,12 @@ Conditioning as in the reference:
 - text states are repeated per frame for cross-attention.
 
 Layout: input (b, f, h, w, c); the fused (b·(f+1), h, w, c) spatial batch
-inside. CFG is an ordinary batch doubling by the caller.
+inside. CFG is an ordinary batch doubling by the caller. Under a frame split
+(``parallel/frame.sharded_frames``, the pipeline's frame axis) the input is
+this rank's frames: rank 0 prepends the condition frame (9 + 8 of 17 over
+two ranks) and strips it from the output, the time embedding, context and
+mask are repeated for the local frames, and the temporal modules take the
+whole count.
 
 ``UNet3DConfig.attn_impl`` picks JAX's configuration: ``"pallas"`` (kernels
 1–5, the GroupNorm sums threaded between them), ``"xla"`` (the composite
@@ -38,6 +43,7 @@ from animate_anything_tpu_torch.models.layers import (Conv2d, FusedGroupNorm, Ti
 from animate_anything_tpu_torch.models.unet3d_blocks import (CrossAttnDownBlock3D,
                                                              CrossAttnUpBlock3D, DownBlock3D,
                                                              UNetMidBlock3DCrossAttn, UpBlock3D)
+from animate_anything_tpu_torch.parallel import frame
 from animate_anything_tpu_torch.utils.ptp import tag_attention_paths
 
 
@@ -165,22 +171,42 @@ class UNet3DConditionModel(nn.Module):
         (b, seq, cross_dim), condition_latent (b, 1, h, w, c_in), mask
         (b, 1, h, w, 1) with 1 = may move, motion (b,) → (b, f, h, w, c_out).
         ``pab``: this step's ``models/pab.PABStep`` (``{"spatial",
-        "temporal"}`` flags), or None for the exact forward."""
+        "temporal"}`` flags), or None for the exact forward. Under a frame
+        split (``parallel/frame.sharded_frames``) ``sample`` holds this
+        rank's frames and so does the result."""
+        cfg = self.config
+        frame_concat = cfg.condition_mode == "frame_concat"
+        shard = frame.active()
+        if shard is not None:
+            if sample.shape[1] != shard.local:
+                raise ValueError(f"sample holds {sample.shape[1]} frames, the frame split "
+                                 f"{shard.counts} gives this rank {shard.local}")
+            # the condition frame joins rank 0's frames
+            shard = shard.leading(1) if frame_concat else shard
+        with frame.sharded_frames(shard):
+            return self._forward(sample, timestep, encoder_hidden_states, condition_latent, mask,
+                                 motion, pab, shard)
+
+    def _forward(self, sample, timestep, encoder_hidden_states, condition_latent, mask, motion,
+                 pab, shard):
         cfg = self.config
         ch0 = cfg.block_out_channels[0]
         dt = self.time_embedding.linear_1.weight.dtype
         dev = sample.device
 
         # 1. frame-axis condition concat: f → f+1, the output strips frame 0;
-        # or the condition broadcast over the frames, channels first
+        # or the condition broadcast over the frames, channels first. Under a
+        # frame split the condition frame is rank 0's first.
         frame_concat = cfg.condition_mode == "frame_concat"
-        if frame_concat:
+        lead = frame_concat and (shard is None or shard.rank == 0)
+        if lead:
             sample = torch.cat([condition_latent.to(sample.dtype), sample], dim=1)
-        elif condition_latent is not None:
+        elif not frame_concat and condition_latent is not None:
             cond = condition_latent.to(sample.dtype).expand(*sample.shape[:-1],
                                                             condition_latent.shape[-1])
             sample = torch.cat([cond, sample], dim=-1)
-        b, nf, hh, ww, _ = sample.shape
+        b, nf, hh, ww, _ = sample.shape      # this rank's frames
+        nf_all = nf if shard is None else shard.total
 
         # 2. time (+ motion-strength) embedding, fp32 sinusoids
         timesteps = torch.as_tensor(timestep, device=dev).reshape(-1).expand(b)
@@ -203,22 +229,23 @@ class UNet3DConditionModel(nn.Module):
         else:
             x = self.conv_in(sample.reshape(b * nf, hh, ww, -1))
 
+        # the temporal modules take the whole count; each rank holds nf of them
         cur_sums = None
-        if nf > 1:
-            x, cur_sums = self.transformer_in(x, nf, None, pab)
+        if nf_all > 1:
+            x, cur_sums = self.transformer_in(x, nf_all, None, pab)
 
         # 4. down
         skips, skip_sums = [x], [cur_sums]
         for blk in self.down_blocks:
             if isinstance(blk, CrossAttnDownBlock3D):
-                x, outs, outs_sums, cur_sums = blk(x, emb, context, nf, cur_sums, pab)
+                x, outs, outs_sums, cur_sums = blk(x, emb, context, nf_all, cur_sums, pab)
             else:
-                x, outs, outs_sums, cur_sums = blk(x, emb, nf, cur_sums)
+                x, outs, outs_sums, cur_sums = blk(x, emb, nf_all, cur_sums)
             skips.extend(outs)
             skip_sums.extend(outs_sums)
 
         # 5. mid
-        x, cur_sums = self.mid_block(x, emb, context, nf, cur_sums, pab)
+        x, cur_sums = self.mid_block(x, emb, context, nf_all, cur_sums, pab)
 
         # 6. up; the upsample size follows the skip stack
         n_layers = cfg.layers_per_block + 1
@@ -227,12 +254,12 @@ class UNet3DConditionModel(nn.Module):
             del skips[-n_layers:], skip_sums[-n_layers:]
             size = tuple(skips[-1].shape[1:3]) if skips else None
             if isinstance(blk, CrossAttnUpBlock3D):
-                x, cur_sums = blk(x, block_skips, emb, context, nf, cur_sums, block_sums, size,
-                                 pab)
+                x, cur_sums = blk(x, block_skips, emb, context, nf_all, cur_sums, block_sums,
+                                  size, pab)
             else:
-                x, cur_sums = blk(x, block_skips, emb, nf, cur_sums, block_sums, size)
+                x, cur_sums = blk(x, block_skips, emb, nf_all, cur_sums, block_sums, size)
 
         # 7. out
         x = self.conv_out(self.conv_norm_out(x, cur_sums))
         x = x.reshape(b, nf, x.shape[1], x.shape[2], cfg.out_channels)
-        return x[:, 1:] if frame_concat else x
+        return x[:, 1:] if lead else x

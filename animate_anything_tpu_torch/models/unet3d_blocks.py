@@ -38,12 +38,16 @@ from torch.utils.checkpoint import checkpoint
 from animate_anything_tpu_torch.models.attention import SpatialTransformer, TemporalTransformer
 from animate_anything_tpu_torch.models.layers import (Downsample2D, ResnetBlock2D,
                                                       TemporalConvLayer, Upsample2D)
+from animate_anything_tpu_torch.parallel import frame
 
 
 def _fold_frames(sums, nf: int):
-    """Per-(b·f, c) (Σ, Σ²) → per-(b, c)."""
+    """Per-(b·f, c) (Σ, Σ²) → per-(b, c), over this rank's frames of ``nf``
+    under a frame split (``parallel/frame.py``; the temporal transformer sums
+    them over the group)."""
     if sums is None:
         return None
+    nf = frame.local_frames(nf)
     s1, s2 = sums
     n, c = s1.shape
     return s1.reshape(n // nf, nf, c).sum(1), s2.reshape(n // nf, nf, c).sum(1)

@@ -98,7 +98,7 @@ class AdamW8bit(AdamW):
         grads = accumulate(self, grads, masters)
         if grads is None:
             return False
-        clip = clip_factor(grads, cfg.max_grad_norm, self.plan)
+        clip = clip_factor(grads, cfg.max_grad_norm, self.plan, self.tp, self.tp_names)
         self.count += 1
         c1, c2 = self._bias_corrections()
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2

@@ -32,10 +32,10 @@ _SIGNATURES = {
     # q, k, v, o, dout, lse, rows, qhat, dq, dk, dv, b, sq, sk, heads, d, scale, stream
     "aat_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _P],
-    # x, ln_s, ln_b, w1, b1, w2, b2, y, ln, act, n, c, cs, eps, bn1, stages1, grid1, smem1,
-    # bn2, stages2, grid2, smem2, gate_row0, stream
-    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _P],
+    # x, ln_s, ln_b, w1, b1, w2, b2, y, ln, act, n, c, cs, inner, partial, eps, bn1, stages1,
+    # grid1, smem1, bn2, stages2, grid2, smem2, gate_row0, stream
+    "aat_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a, b, w, bias, res, y, s1, s2, part, tickets, bsz, f, s, cin, cout, bn, stages, grid,
     # smem, stream
     "aat_tap_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -43,10 +43,10 @@ _SIGNATURES = {
     # h, w, bias, res, y, s1, s2, part, tickets, n, s, k, c, bn, stages, grid, smem, stream
     "aat_proj_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P],
-    # x, ln_s, ln_b, wq, wk, wv, wo, bo, ln, o, y, b, f, s, c, heads, eps, L, stages, grid,
-    # smem, bn_out, stages_out, grid_out, smem_out, stream
-    "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, ln_s, ln_b, wq, wk, wv, wo, bo, ln, o, y, b, f, s, c, inner, heads, partial, eps, L,
+    # stages, grid, smem, bn_out, stages_out, grid_out, smem_out, stream
+    "aat_temporal_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, work, tickets, s1, s2, n, s, c, ct, threads, chunks, rows, stream
     "aat_channel_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, r, y, work, tickets, s1, s2, n, s, c, ct, threads, chunks, rows, stream

@@ -18,6 +18,13 @@ machine.
 Weights arrive in the torch Linear layout: ``w1`` (8c, c) with the val rows
 first and the gate rows second (diffusers ``GEGLU.proj``), ``w2`` (c, 4c).
 
+Tensor parallelism (``parallel/tensor.py``): a rank holds the val rows and
+the gate rows of one range of the 4c hidden columns, paired as the kernel
+pairs them (``w1`` (2·inner, c), ``b1`` (2·inner,), ``w2`` (c, inner), inner
+= 4c/T), and ``partial=True`` runs GEMM 2 without b2 and the residual: the
+rank's share of W2·act in x's dtype, which the caller sums over the ranks
+before adding b2 and x once.
+
 Gradients: ``ops/autograd.Recompute`` saves the inputs and differentiates
 ``ln_geglu_twin``, the torch twin of JAX's ``_reference_lean`` (the
 custom_vjp's remat target), as JAX has no backward kernel here either.
@@ -39,6 +46,7 @@ OUT_BN = (256, 160, 128, 64)  # GEMM 2 tile widths the kernel instantiates
 MAX_STAGES = 4
 
 launches = 0  # ln_geglu_ff calls on the card (each: the LN pass and two GEMMs)
+partial_launches = 0  # those of them in the partial mode (a tensor-parallel rank's share)
 
 
 def _gemm_smem(bn: int, stages: int, out: int) -> int:
@@ -103,24 +111,28 @@ def padded_width(c: int) -> int:
     return -(-c // 8) * 8
 
 
-def launch_plan(n: int, c: int, sms: int = 132) -> dict:
+def launch_plan(n: int, c: int, sms: int = 132, inner: int = None) -> dict:
     """The kernels' tiles for (n, c) rows on a card of ``sms`` SMs, without
     the card, at the padded width ``cp``: GEMM 1 (``bn1`` accumulator
     columns, ``bn1 / 2`` of act a tile: val columns [j, j + bn1/2) from W1
     rows j.. and the gate columns from rows ``gate_row0`` + j..; the last
     tile's columns past 4·cp are not stored), GEMM 2 (``bn2`` output
     columns), each with its ring depth, persistent grid and shared-memory
-    bytes."""
+    bytes. ``inner``: the hidden columns a call computes (4·cp, or a
+    tensor-parallel rank's share, a multiple of 8)."""
     if not kernel_ok(c) or n < 1:
         raise ValueError(f"ln_geglu_ff: c={c} must be in (0, {MAX_C}], n={n} ≥ 1")
     cp = padded_width(c)
-    inner = 4 * cp
+    if inner is None:
+        inner = 4 * cp
+    elif inner % 8 or not 8 <= inner <= 4 * cp:
+        raise ValueError(f"ln_geglu_ff: inner={inner} must be a multiple of 8 up to 4c")
     row_tiles = -(-n // GEMM_BM)
     bn1 = min(GEGLU_BN, key=lambda bn: (-(-inner // (bn // 2)) * (bn // 2), -bn))
     tiles1 = row_tiles * -(-inner // (bn1 // 2))
     st1 = _stages(bn1, bn1 // 2)
     g2 = gemm_plan(n, cp, inner, sms)
-    return dict(cp=cp, bn1=bn1, stages1=st1, grid1=min(tiles1, sms),
+    return dict(cp=cp, inner=inner, bn1=bn1, stages1=st1, grid1=min(tiles1, sms),
                 smem1=_gemm_smem(bn1, st1, bn1 // 2),
                 bn2=g2["bn"], stages2=g2["stages"], grid2=g2["grid"], smem2=g2["smem"],
                 gate_row0=inner, tiles1=tiles1, tiles2=g2["tiles"])
@@ -139,10 +151,11 @@ def pad_operands(x2, s, b, w1, b1, w2, b2, cp: int) -> tuple:
             F.pad(w2, (0, 4 * p, 0, p)), F.pad(b2, (0, p)))
 
 
-def ln_geglu_reference(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+def ln_geglu_reference(x2, s, b, w1, b1, w2, b2, eps: float, partial: bool = False):
     """Plain version on (n, c) rows, the arithmetic of the kernel: LN in fp32
     stored in x's dtype, both products with fp32 accumulation, the GEGLU
-    product rounded to x's dtype before the down-projection."""
+    product rounded to x's dtype before the down-projection; ``partial``:
+    without b2 and x."""
     xf = x2.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
@@ -150,11 +163,13 @@ def ln_geglu_reference(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     h = ln.float() @ w1.float().t() + b1.float()
     val, gate = h.chunk(2, dim=-1)
     act = (val * F.gelu(gate, approximate="tanh")).to(x2.dtype)
-    y = act.float() @ w2.float().t() + b2.float() + xf
+    y = act.float() @ w2.float().t()
+    if not partial:
+        y = y + b2.float() + xf
     return y.to(x2.dtype)
 
 
-def ln_geglu_twin(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+def ln_geglu_twin(x2, s, b, w1, b1, w2, b2, eps: float, partial: bool = False):
     """Differentiable twin of JAX's ``_reference_lean`` in x2's dtype: LN in
     fp32 stored in x's dtype; both products on x-dtype operands with fp32
     accumulation; the (n, 8c) hidden h stored in x's dtype; tanh GELU in
@@ -167,53 +182,64 @@ def ln_geglu_twin(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     h = F.linear(ln, w1, b1.to(dt))
     val, gate = h.chunk(2, dim=-1)
     act = (val.float() * F.gelu(gate.float(), approximate="tanh")).to(dt)
-    y = F.linear(act, w2).float() + b2.float() + xf
+    y = F.linear(act, w2).float()
+    if not partial:
+        y = y + b2.float() + xf
     return y.to(dt)
 
 
-def _launch(x2, s, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+def _launch(x2, s, b, w1, b1, w2, b2, eps: float, partial: bool = False) -> torch.Tensor:
     n, c = x2.shape
     bf, f32 = torch.bfloat16, torch.float32
     cuda_lib.check_cuda("ln_geglu x", x2, bf, (n, c))
-    plan = launch_plan(n, c, cuda_lib.sm_count(x2.device))
-    cp = plan["cp"]
+    inner = w1.shape[0] // 2
+    if partial and (c % 8 or inner % 8):
+        raise ValueError(f"ln_geglu_ff partial: c={c} and inner={inner} must be multiples of 8")
+    plan = launch_plan(n, c, cuda_lib.sm_count(x2.device),
+                       inner=None if inner == 4 * c else inner)
+    cp, inner = plan["cp"], plan["inner"]
     if cp != c:
         x2, s, b, w1, b1, w2, b2 = pad_operands(x2, s, b, w1, b1, w2, b2, cp)
     cuda_lib.check_cuda("ln_geglu ln scale", s, f32, (cp,))
     cuda_lib.check_cuda("ln_geglu ln bias", b, f32, (cp,))
-    cuda_lib.check_cuda("ln_geglu w1", w1, bf, (8 * cp, cp))
-    cuda_lib.check_cuda("ln_geglu b1", b1, f32, (8 * cp,))
-    cuda_lib.check_cuda("ln_geglu w2", w2, bf, (cp, 4 * cp))
-    cuda_lib.check_cuda("ln_geglu b2", b2, f32, (cp,))
+    cuda_lib.check_cuda("ln_geglu w1", w1, bf, (2 * inner, cp))
+    cuda_lib.check_cuda("ln_geglu b1", b1, f32, (2 * inner,))
+    cuda_lib.check_cuda("ln_geglu w2", w2, bf, (cp, inner))
+    if not partial:
+        cuda_lib.check_cuda("ln_geglu b2", b2, f32, (cp,))
     y = torch.empty_like(x2)
     ln = torch.empty_like(x2)                          # LN(x) in bf16
-    act = torch.empty((n, 4 * cp), device=x2.device, dtype=bf)  # val ⊙ gelu(gate) in bf16
+    act = torch.empty((n, inner), device=x2.device, dtype=bf)  # val ⊙ gelu(gate) in bf16
     cuda_lib.call("aat_ln_geglu", x2.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(),
-                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), ln.data_ptr(),
-                  act.data_ptr(), n, cp, c, eps, plan["bn1"], plan["stages1"], plan["grid1"],
+                  b1.data_ptr(), w2.data_ptr(), None if partial else b2.data_ptr(), y.data_ptr(),
+                  ln.data_ptr(), act.data_ptr(), n, cp, c, inner, int(partial), eps, plan["bn1"],
+                  plan["stages1"], plan["grid1"],
                   plan["smem1"], plan["bn2"], plan["stages2"], plan["grid2"], plan["smem2"],
                   plan["gate_row0"])
-    global launches
+    global launches, partial_launches
     launches += 1
+    partial_launches += int(partial)
     return y if cp == c else y[:, :c].contiguous()
 
 
-def ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5) -> torch.Tensor:
+def ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5,
+                partial: bool = False) -> torch.Tensor:
     """``x + GEGLU_FF(LayerNorm(x))`` over the last axis of x (..., c): kernel
     2 for a CUDA tensor up to ``MAX_C``, past it ``ln_geglu_twin`` in x's
     dtype, JAX's lean composite at those widths; the plain version for a
-    CPU tensor."""
+    CPU tensor. ``partial``: a tensor-parallel rank's W2·act alone (no b2,
+    no x; module docstring)."""
     shape = x.shape
     c = shape[-1]
     x2 = x.reshape(-1, c)
     dt = x.dtype
     args = (x2, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
             w1.to(dt).contiguous(), b1.float().contiguous(), w2.to(dt).contiguous(),
-            b2.float().contiguous())
+            None if partial else b2.float().contiguous())
     if x.device.type == "cpu":
         run = ln_geglu_reference
     elif kernel_ok(c):
         run = _launch
     else:
-        return ln_geglu_twin(*args, eps).reshape(shape)
-    return Recompute.apply(run, ln_geglu_twin, *args, eps).reshape(shape)
+        return ln_geglu_twin(*args, eps, partial).reshape(shape)
+    return Recompute.apply(run, ln_geglu_twin, *args, eps, partial).reshape(shape)

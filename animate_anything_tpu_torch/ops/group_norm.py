@@ -189,23 +189,30 @@ def stream_channel_sums(x2: torch.Tensor):
     return s1, s2
 
 
-def group_affine(x2, scale, bias, groups: int, eps: float, stats=None, sums=None):
+def local_sums(x2, stats=None):
+    """Per-(n, c) fp32 (Σx, Σx²) of x2 (n, s, c): kernel 6 when
+    ``stats="pallas"`` or the stats switch admits x2, else the composite
+    reduction."""
+    _, s, c = x2.shape
+    force = stats == "pallas" and _stats_chunk(s, c, x2.element_size()) >= 8
+    if force or stats_ok(x2):
+        return stream_channel_sums(x2)
+    return channel_sums(x2)
+
+
+def group_affine(x2, scale, bias, groups: int, eps: float, stats=None, sums=None,
+                 rows=None):
     """fp32 (a, b), each (n, c), such that ``a·x + b`` is GroupNorm(+scale,
     bias) of x2 (n, s, c), statistics pooled over s and each group's
-    channels. ``sums``: the producer's per-(n, c) (Σx, Σx²); else kernel 6
-    when ``stats="pallas"`` or the stats switch admits x2, else the
-    composite reduction."""
+    channels. ``sums``: the producer's per-(n, c) (Σx, Σx²); else
+    ``local_sums``. ``rows``: the rows the sums pool (default s; a
+    position-sharded norm's sums are over the whole frame group's rows,
+    ``parallel/frame.py``)."""
     n, s, c = x2.shape
-    force = stats == "pallas" and _stats_chunk(s, c, x2.element_size()) >= 8
-    if sums is not None:
-        s1, s2 = sums[0].float(), sums[1].float()
-    elif force or stats_ok(x2):
-        s1, s2 = stream_channel_sums(x2)
-    else:
-        s1, s2 = channel_sums(x2)
+    s1, s2 = (sums[0].float(), sums[1].float()) if sums is not None else local_sums(x2, stats)
     g1 = s1.reshape(n, groups, c // groups).sum(-1)
     g2 = s2.reshape(n, groups, c // groups).sum(-1)
-    cnt = float(s * (c // groups))
+    cnt = float((s if rows is None else rows) * (c // groups))
     mean = g1 / cnt
     var = g2 / cnt - mean * mean
     inv = torch.rsqrt(var.clamp_min(0.0) + eps)
@@ -228,11 +235,11 @@ def streaming_ok(x2, groups: int, impl: str, sums) -> bool:
 
 def group_norm_silu(x, scale, bias, groups: int, eps: float = 1e-5, silu: bool = True,
                     impl: str | None = None, stats: str | None = None,
-                    sums=None) -> torch.Tensor:
+                    sums=None, rows=None) -> torch.Tensor:
     """GroupNorm over the last axis of x (n, ..., c), statistics pooled over
     every non-batch axis (torch GroupNorm semantics), optionally with SiLU.
     Past ``streaming_ok``, kernel 7; else the composite form, whose affine
-    is applied in x's dtype."""
+    is applied in x's dtype. ``rows``: as in ``group_affine``."""
     impl = impl or _DEFAULT_IMPL
     shape = x.shape
     x2 = x.reshape(shape[0], -1, shape[-1])
@@ -240,7 +247,7 @@ def group_norm_silu(x, scale, bias, groups: int, eps: float = 1e-5, silu: bool =
         from animate_anything_tpu_torch.ops.streaming_group_norm import group_norm_stream
 
         return group_norm_stream(x2, scale, bias, groups, eps, silu).reshape(shape)
-    a, b = group_affine(x2, scale, bias, groups, eps, stats=stats, sums=sums)
+    a, b = group_affine(x2, scale, bias, groups, eps, stats=stats, sums=sums, rows=rows)
     y = x2 * a[:, None, :].to(x2.dtype) + b[:, None, :].to(x2.dtype)
     if silu:
         # the JAX package's tanh identity y·(1 + tanh(y/2))/2 has the same

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from animate_anything_tpu_torch.ops import cuda_lib, geglu, group_norm
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.group_norm import group_affine
+from animate_anything_tpu_torch.parallel import frame
 
 CIN_MULTIPLE = 32   # the kernel's reach: cin % 32 == 0, cout % 8 == 0
 SUB_ROWS = 64       # a sub-tile: 64 rows of one (batch, frame) slab, one warpgroup's
@@ -34,6 +35,7 @@ MAX_STAGES = 4
 SMEM_LIMIT = geglu.SMEM_LIMIT
 
 launches = 0  # kernel launches by tap_conv
+frame_launches = 0  # those of them on a slice of positions under a frame split
 
 
 # Output columns a tile → those of one accumulator (``TapLayout``'s NB).
@@ -143,8 +145,9 @@ def _launch(x, a, b, w, bias, residual):
                   y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
                   None if part is None else part.data_ptr(), tk.data_ptr(), bsz, f, s, cin,
                   cout, plan["bn"], plan["stages"], plan["grid"], plan["smem"])
-    global launches
+    global launches, frame_launches
     launches += 1
+    frame_launches += frame.active() is not None
     return y, (s1.view(bsz, f, cout), s2.view(bsz, f, cout))
 
 
@@ -160,15 +163,17 @@ def tap_conv(x, a, b, w, bias, residual=None):
 
 
 def gn_silu_tap_conv(x, gn_scale, gn_bias, w, bias, *, groups: int, eps: float = 1e-5,
-                     residual=None, sums=None):
+                     residual=None, sums=None, rows=None):
     """One TemporalConvLayer stage: GroupNorm(+affine) → SiLU → 3-tap frame
     conv (zero frames past the ends) → + residual.
 
     x (bsz, f, s, cin); w the Conv3d weight (cout, cin, 3, 1, 1); GroupNorm
     statistics per (bsz, group) over (f, s, cin/groups). ``sums``: optional
-    per-(bsz, cin) fp32 (Σx, Σx²) of x from its producer. Returns
-    ``(y, (Σy, Σy²))`` with the sums per (bsz, f, cout) of the stored y."""
+    per-(bsz, cin) fp32 (Σx, Σx²) of x from its producer; ``rows``: the
+    rows they pool (``group_affine``; a position-sharded x's sums are the
+    frame group's). Returns ``(y, (Σy, Σy²))`` with the sums per
+    (bsz, f, cout) of the stored y."""
     bsz, f, s, cin = x.shape
     a, b = group_affine(x.reshape(bsz, f * s, cin), gn_scale, gn_bias, groups, eps,
-                        sums=sums)
+                        sums=sums, rows=rows)
     return tap_conv(x, a, b, pack_taps(w), bias, residual)

@@ -20,9 +20,11 @@ their scales and the 8-bit update equals the unsharded one. Rank r owns
 ``[r·c, (r+1)·c)`` of an array of n elements (clipped to n) with
 ``c = ⌈⌈n/256⌉/ranks⌉·256``; the last ranks may own less, or nothing.
 
-Tensor parallelism (JAX's ``param_partition_spec``) is not ported: a mesh
-with a tensor axis above 1 is refused by ``core/mesh.create_mesh`` (ROADMAP
-queue F, item 21c).
+- **TP**: ``param_partition_spec`` is JAX's rule (``_TP_RULES``) on the
+  port's diffusers parameter names; ``parallel/tensor.py`` places the
+  parameters by it, with the whole-head and GEGLU-pairing differences its
+  docstring names. The ZeRO plan then runs over the ``data`` subgroup on
+  each rank's local (tensor-sliced) arrays.
 """
 
 from __future__ import annotations
@@ -36,6 +38,30 @@ import torch.distributed as dist
 from animate_anything_tpu_torch.core.mesh import AXIS_DATA, COLLECTIVES, Mesh
 
 MIN_SHARD_SIZE = 2 ** 14
+
+# name suffix → the torch dim JAX's rule splits over 'tensor'. A flax Dense
+# kernel is (in, out) and a torch Linear weight (out, in): JAX's columns
+# (-1) are torch dim 0 and its rows (0) torch dim 1.
+_TP_RULES = (
+    ("to_q.weight", 0),
+    ("to_k.weight", 0),
+    ("to_v.weight", 0),
+    ("to_out.0.weight", 1),
+    ("net.0.proj.weight", 0),
+    ("net.2.weight", 1),
+)
+
+
+def param_partition_spec(name: str, shape, tensor: int) -> Optional[int]:
+    """JAX's ``param_partition_spec`` for the parameter ``name`` of
+    ``shape`` on a tensor axis of ``tensor``: the torch dim it splits, or
+    None (replicated). It splits wherever a rule matches and the dim
+    divides."""
+    if tensor > 1:
+        for pat, dim in _TP_RULES:
+            if name.endswith(pat) and shape[dim] % tensor == 0:
+                return dim
+    return None
 BLOCK = 256                 # the 8-bit AdamW's quantization block
 BUCKET = 1 << 26            # elements a rank sends in one collective
 

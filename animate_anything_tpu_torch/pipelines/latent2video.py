@@ -16,7 +16,13 @@ prompt) through the pipeline's tokenizer and CLIP text encoder
 divides is denoised and decoded row-wise, each rank its rows, then
 all-gathered, so every rank returns the whole batch (JAX returns a global
 array); a batch that the axis does not divide runs whole on every rank, as
-JAX replicates it. A frame axis is not ported (ROADMAP queue F, item 21b).
+JAX replicates it. Frames that the frame axis divides are split over it
+(``parallel/frame.mesh_shard``, JAX's ``shard()`` rule; otherwise they stay
+whole on every rank): the start latents are drawn whole from the request's
+generator on every rank and sliced, so the video does not depend on the
+mesh; each rank denoises and decodes its own frames, and the frames are
+all-gathered before the rows. A mesh with a tensor axis runs the UNet as
+``parallel/tensor.shard_model`` left it.
 
 ``pab``: Pyramid-Attention-Broadcast step caching (``models/pab.py``),
 ``{"spatial_rate": 2, "temporal_rate": 3, "warmup": 4, "tail": 1}``: each
@@ -40,6 +46,7 @@ from animate_anything_tpu_torch.models.layers import resize_nearest
 from animate_anything_tpu_torch.models.pab import PABCache, PABStep, unet3d_flags
 from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
 from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, encode_video
+from animate_anything_tpu_torch.parallel import frame
 
 
 class LatentToVideoPipeline:
@@ -50,7 +57,7 @@ class LatentToVideoPipeline:
         """tokenizer: ``models/tokenizers.py::HashTokenizer`` or
         ``models/clip_tokenizer.py::CLIPBPETokenizer`` (called as HF's);
         sampler: ``"dpmpp"`` or ``"ddim"``; pab: the PAB config or None;
-        mesh: the data-sharded batch, or None."""
+        mesh: the data- and frame-sharded request, or None."""
         if sampler not in ("dpmpp", "ddim"):
             raise ValueError(f"unknown sampler {sampler}")
         self.pab = dict(pab) if pab else None
@@ -128,6 +135,9 @@ class LatentToVideoPipeline:
                                                      negative_prompt_embeds[rows])
             mask = None if mask is None else mask[rows]
             motion = None if motion is None else motion[rows]
+        fshard = frame.mesh_shard(self.mesh, latents.shape[1])
+        if fshard is not None:  # this rank's frames of the (whole) start latents
+            latents = latents[:, fshard.lo:fshard.hi]
         b = latents.shape[0]
         dev = latents.device
         embeds = torch.cat([negative_prompt_embeds, prompt_embeds]).to(dev)
@@ -141,18 +151,22 @@ class LatentToVideoPipeline:
             uncond, cond = out[:b], out[b:]
             return uncond.float() + gs * (cond - uncond).float()
 
-        if self.pab is None:
-            latents = sample_loop(self.schedule, latents, timesteps, guided, self.sampler)
-        else:
-            sflags, tflags = unet3d_flags(self.pab, len(timesteps))
+        with frame.sharded_frames(fshard):
+            if self.pab is None:
+                latents = sample_loop(self.schedule, latents, timesteps, guided, self.sampler)
+            else:
+                sflags, tflags = unet3d_flags(self.pab, len(timesteps))
 
-            def model_fn(x, t, i, cache):
-                flags = {"spatial": bool(sflags[i]), "temporal": bool(tflags[i])}
-                return guided(x, t, PABStep(cache, flags)), cache
+                def model_fn(x, t, i, cache):
+                    flags = {"spatial": bool(sflags[i]), "temporal": bool(tflags[i])}
+                    return guided(x, t, PABStep(cache, flags)), cache
 
-            latents = sample_loop(self.schedule, latents, timesteps, model_fn, self.sampler,
-                                  model_state=PABCache())
+                latents = sample_loop(self.schedule, latents, timesteps, model_fn, self.sampler,
+                                      model_state=PABCache())
         video = None if output_type == "latent" else decode_video(self.vae, latents)
+        if fshard is not None:
+            latents = fshard.gather(latents)
+            video = None if video is None else fshard.gather(video)
         if sharded:
             latents = gather_rows(latents, self.mesh)
             video = None if video is None else gather_rows(video, self.mesh)

@@ -130,6 +130,38 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.stack(norms).square().sum().sqrt()
 
 
+def _split_sq(sq: Dict[str, torch.Tensor], tp_names) -> torch.Tensor:
+    """[Σ‖g‖² of the arrays the tensor axis replicates, Σ‖g‖² of those it
+    splits], fp32 on the first tensor's device."""
+    dev = next(iter(sq.values())).device
+    rep = [v for n, v in sq.items() if n not in tp_names]
+    split = [v for n, v in sq.items() if n in tp_names]
+    zero = torch.zeros((), device=dev)
+    return torch.stack([torch.stack(rep).sum() if rep else zero,
+                        torch.stack(split).sum() if split else zero])
+
+
+def tensor_norm(sq: torch.Tensor, tp=None) -> torch.Tensor:
+    """sqrt of ``_split_sq``'s pair with the split arrays' part summed over
+    the tensor axis: each slice counted once, each replicated array once."""
+    if tp is not None:
+        from animate_anything_tpu_torch.parallel.tensor import reduce_from
+
+        sq = torch.stack([sq[0], reduce_from(sq[1:], tp)[0]])
+    return sq.sum().sqrt()
+
+
+def sharded_global_norm(grads: Dict[str, torch.Tensor], tp=None, tp_names=()) -> torch.Tensor:
+    """``global_norm`` of whole-on-this-rank gradients, those of arrays split
+    over the tensor axis counted once a slice."""
+    if not grads:
+        return torch.zeros(())
+    if tp is None:
+        return global_norm(grads.values())
+    sq = {n: torch.linalg.vector_norm(g, dtype=torch.float32).square() for n, g in grads.items()}
+    return tensor_norm(_split_sq(sq, tp_names), tp)
+
+
 def accumulate(opt, grads: Dict[str, Optional[torch.Tensor]],
                masters: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
     """One micro-step's gradients for ``opt.names`` (None counts as zero), the
@@ -152,20 +184,26 @@ def accumulate(opt, grads: Dict[str, Optional[torch.Tensor]],
     return opt.acc
 
 
-def clip_factor(grads: Dict[str, torch.Tensor], max_norm: float, plan=None) -> float:
+def clip_factor(grads: Dict[str, torch.Tensor], max_norm: float, plan=None, tp=None,
+                tp_names=()) -> float:
     """optax's ``clip_by_global_norm`` as a factor on every gradient. Under a
     ZeRO plan ``grads`` are this rank's parts, and the norm is taken over the
     whole gradient: each array's ‖part‖² (a replicated array's on rank 0
-    alone), all-reduced over the data axis, summed."""
+    alone), all-reduced over the data axis, summed. Under a tensor axis
+    (``tp``) the arrays in ``tp_names`` are this rank's slices, summed over
+    the axis as well, so each slice counts once."""
     if not grads:
         return 1.0
-    if plan is None:
+    if plan is None and tp is None:
         norm = float(global_norm(grads.values()))
     else:
-        norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
-                 if plan.sharded(n) or plan.rank == 0 else g.new_zeros((), dtype=torch.float32)
-                 for n, g in grads.items()]
-        norm = float(plan.all_reduce_sum_(torch.stack(norms).square()).sum().sqrt())
+        sq = {n: torch.linalg.vector_norm(g, dtype=torch.float32).square()
+              if plan is None or plan.sharded(n) or plan.rank == 0
+              else g.new_zeros((), dtype=torch.float32) for n, g in grads.items()}
+        pair = _split_sq(sq, tp_names)
+        if plan is not None:
+            plan.all_reduce_sum_(pair)
+        norm = float(tensor_norm(pair, tp))
     return 1.0 if norm < max_norm else max_norm / norm
 
 
@@ -201,14 +239,18 @@ class AdamW:
     the rank updates that slice of the masters with the same elementwise
     math, then the masters are all-gathered. ``state_dict`` gathers the
     whole state to rank 0's host; ``load_state_dict`` takes any rank
-    count's."""
+    count's. ``tp`` and ``tp_names`` (tensor parallelism): the masters in
+    ``tp_names`` are this rank's slices (``parallel/tensor.py``), which the
+    clipping norm counts once each."""
 
     STATE = ("mu", "nu")
     BLOCK_STATE: tuple = ()       # per-block state (the 8-bit scales)
 
-    def __init__(self, config: TrainConfig, masters: Dict[str, torch.Tensor], plan=None):
+    def __init__(self, config: TrainConfig, masters: Dict[str, torch.Tensor], plan=None,
+                 tp=None, tp_names=()):
         self.config = config
         self.plan = plan
+        self.tp, self.tp_names = tp, frozenset(tp_names)
         self.names = list(masters)
         self.shapes = {n: tuple(p.shape) for n, p in masters.items()}
         self._init_moments(masters)
@@ -249,7 +291,7 @@ class AdamW:
         grads = accumulate(self, grads, masters)
         if grads is None:
             return False
-        clip = clip_factor(grads, cfg.max_grad_norm, self.plan)
+        clip = clip_factor(grads, cfg.max_grad_norm, self.plan, self.tp, self.tp_names)
         self.count += 1
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
@@ -314,19 +356,23 @@ class AdamW:
 
 
 def make_optimizer(config: TrainConfig, masters: Dict[str, torch.Tensor], mesh=None,
-                   min_shard_size: int = 2 ** 14):
+                   min_shard_size: int = 2 ** 14, model: Optional[nn.Module] = None):
     """AdamW, or the blockwise 8-bit AdamW under ``use_8bit_adam`` (JAX's
     ``adamw_8bit``), on ``masters``; its state split over ``mesh``'s data
     axis (``parallel/partition.zero_plan``: arrays under ``min_shard_size``
-    elements replicated) where a process group exists."""
+    elements replicated) where a process group exists, on the local slices
+    of a ``parallel/tensor.shard_model``-ed ``model``."""
     from animate_anything_tpu_torch.parallel.partition import zero_plan
+    from animate_anything_tpu_torch.parallel.tensor import model_plan
 
     plan = zero_plan({n: p.numel() for n, p in masters.items()}, mesh, min_shard_size)
+    tp, tplan = model_plan(model)
+    tensor = (tp, [n for n in masters if n in tplan])
     if config.use_8bit_adam:
         from animate_anything_tpu_torch.ops.adam8bit import AdamW8bit
 
-        return AdamW8bit(config, masters, plan)
-    return AdamW(config, masters, plan)
+        return AdamW8bit(config, masters, plan, *tensor)
+    return AdamW(config, masters, plan, *tensor)
 
 
 @dataclasses.dataclass
@@ -357,8 +403,8 @@ def create_train_state(model: nn.Module, config: TrainConfig,
     masters = master_params(model, [n for n, lab in labels.items() if lab == "train"])
     for p in model.parameters():        # frozen ones too: grad_norm counts every gradient
         p.requires_grad_(True)
-    return TrainState(model, masters, make_optimizer(config, masters, mesh, min_shard_size),
-                      labels)
+    return TrainState(model, masters,
+                      make_optimizer(config, masters, mesh, min_shard_size, model), labels)
 
 
 def flatten_lora(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -469,7 +515,8 @@ def apply_gradients(state: TrainState) -> float:
     finetune: the working module's gradients, updated masters rounded back
     into it. LoRA: the adapter tensors' own, updated in place. Under a ZeRO
     plan every gradient is first averaged over the data axis, so each rank
-    holds the global batch's gradient."""
+    holds the global batch's gradient; under a tensor axis the norm counts
+    each slice of a split array once."""
     named = (dict(state.model.named_parameters()) if state.model is not None
              else state.masters)
     grads = {n: p.grad for n, p in named.items()}
@@ -477,7 +524,15 @@ def apply_gradients(state: TrainState) -> float:
     plan = getattr(state.optimizer, "plan", None)
     if plan is not None and present:
         plan.reduce_mean_(present)
-    norm = global_norm(present) if present else torch.zeros(())
+    tp = getattr(state.optimizer, "tp", None)
+    if tp is None:
+        norm = global_norm(present) if present else torch.zeros(())
+    else:
+        from animate_anything_tpu_torch.parallel.tensor import model_plan
+
+        split = model_plan(state.model)[1]
+        norm = sharded_global_norm({n: g for n, g in grads.items() if g is not None}, tp,
+                                   [n for n in grads if n in split])
     changed = state.optimizer.step({n: grads.get(n) for n in state.optimizer.names},
                                    state.masters)
     if changed and state.model is not None:

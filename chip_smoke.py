@@ -147,7 +147,11 @@
    ``svd_bound_ms``, ``svd_forward_ms`` and ``svd_forward_bound_ms``, for
    kernels 1-5 the same ``stage2_*`` numbers at the stage-2 request's sites,
    for the flash backward ``svd_train_*`` at the SVD training step's b·f =
-   42), and last the device line.
+   42; under ``modes`` the frame and tensor axes' kernel modes, each beside
+   its plain version, bound and launches: kernel 3 on one rank's half of
+   the positions with all 17 frames (``positions``), kernel 2's row-parallel
+   GEMM without bias and residual (``partial``), kernel 5 on half the heads
+   in that mode (``heads``)), and last the device line.
 
 After step 11's SVD training a one-rank NCCL process group (a
 ``FileStore`` in ``build/``) starts: ``run_zero_train_steps`` takes the full-width train step (batch 1,
@@ -168,7 +172,16 @@ seconds, frames/s and peak memory, then the CLI on a gif with a
 back bit-equal), and where two or more cards exist, 2 NCCL ranks for a
 global-batch-2 step and a sharded batch-2 request against one card's (the
 first update's sign and relative RMS, each side's s/step), then
-``dryrun_multichip(2)`` (``run_multi_gpu``; it prints what ran).
+``dryrun_multichip(2)`` (``run_multi_gpu``; it prints what ran). The frame
+and tensor axes: inside the one-rank group the default
+request on a ``{data: 1, frame: 1, tensor: 1}`` mesh, through the frame
+path's all-to-alls and sums, bit-equal to the request without a mesh
+(``run_axes_one_rank``); where two or more cards exist the default request
+on ``{frame: 2}`` and the full-width batch-1 train step on ``{tensor: 2}``
+against one card's, timed, the mesh's two same-seed requests bit-equal;
+with four, the request on ``{frame: 2, tensor: 2}`` and
+``dryrun_multichip(4)``; with eight, ``dryrun_multichip(8)``
+(``run_axes_multi_gpu``; at one card it logs that they were skipped).
 
 Steps 3 and 4 also check kernel 9 against its plain version at the packed
 configuration's frame-attention shapes (summed over a packed CFG forward by
@@ -380,6 +393,18 @@ class Tally:
         lib = "" if library is None else f"  library {library:.3f} ms"
         log(f"  {tag}: max|err| {err:.3g}  kernel {ms:.3f} ms  plain {plain:.3f} ms  "
             f"bound {bound:.3f} ms ({by}, {bound / ms:.0%} of it){lib}")
+
+
+MODE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def attach_mode(row: dict, mode: str, tally: Tally, counter: str) -> None:
+    """A kernel mode's numbers (its own ``Tally``, summed over its shapes)
+    under the kernel's row as ``row["modes"][mode]``; its launches are read
+    from ``counter`` (``kernel_counters``) on the paths that take the mode,
+    after they ran (``fill_mode_launches``)."""
+    row.setdefault("modes", {})[mode] = {**{k: tally.row[k] for k in MODE_KEYS},
+                                         "counter": counter, "launches": 0}
 
 
 def _sdpa(q, k, v):
@@ -647,7 +672,43 @@ def check_geglu(gen) -> dict:
         _assert_close(f"ln_geglu n={n} c={c}", got, want, Y_ATOL, Y_RTOL)
         log(f"  ln_geglu_ff n={n} c={c}: max|err| {_err(got, want):.3g}")
     tally.row["composite_ms"] = composite_ms
+    attach_mode(tally.row, "partial", check_geglu_partial(gen), "ln_geglu_ff.partial")
     return tally.row
+
+
+def check_geglu_partial(gen) -> Tally:
+    """Kernel 2's partial mode (tensor parallelism, ``parallel/tensor.py``)
+    at the five shapes on rank 0's slice of a tensor-2 split: the val and
+    gate rows of half the hidden columns side by side, their half of W2, no
+    b2 and no residual; called twice (bit for bit)."""
+    from animate_anything_tpu_torch.ops import geglu
+    from animate_anything_tpu_torch.parallel.tensor import TPGroup, local_slice
+
+    tally = Tally("ln_geglu_ff.partial", "animate_anything_tpu_torch/csrc/geglu.cu",
+                  "animate_anything_tpu/ops/geglu.py:116")
+    tp = TPGroup(2, 0)
+    for n, c in GEGLU_SHAPES:
+        x, s, b, w1, b1, w2, _ = _geglu_args(gen, n, c)
+        args = (x, s, b, local_slice(w1, 0, True, tp).contiguous(),
+                local_slice(b1, 0, True, tp).contiguous(),
+                local_slice(w2, 1, False, tp).contiguous(), None)
+        del w1, w2
+        tag = f"ln_geglu_ff partial n={n} c={c} inner={2 * c}"
+        got = geglu.ln_geglu_ff(*args, partial=True)
+        again = geglu.ln_geglu_ff(*args, partial=True)
+        want = geglu.ln_geglu_reference(*args, 1e-5, partial=True)
+        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        ms = cuda_ms(lambda: geglu.ln_geglu_ff(*args, partial=True))
+        plain = cuda_ms(lambda: geglu.ln_geglu_reference(*args, 1e-5, partial=True), warmup=1,
+                        iters=3)
+        inner = 2 * c
+        nbytes = 2 * n * c * 2 + 3 * inner * c * 2 + (2 * inner + 2 * c) * 4
+        tally.add(tag, _err(got, want), ms, plain, 6 * n * c * inner, nbytes)
+        del args, got, again, want
+        torch.cuda.empty_cache()
+    return tally
 
 
 # Kernel 3 at the UNet's four temporal-conv sites (``utils/kernel_sites.
@@ -746,7 +807,35 @@ def check_tap_conv(gen) -> dict:
                   for r in (None, res))
         log(f"  {tag}: max|err| {err:.3g}")
     tally.row["composite_ms"] = composite_ms
+    attach_mode(tally.row, "positions", check_tap_conv_positions(gen), "tap_conv.positions")
     return tally.row
+
+
+def check_tap_conv_positions(gen) -> Tally:
+    """Kernel 3 as a frame split runs it (``parallel/frame.py``): every one
+    of the 17 frames of rank 0's share of the positions of a frame-2 split
+    (⌈s/2⌉), its Σ/Σ² per (b, f) over those positions (the caller sums them
+    over the group), at the four sites, with the residual, called twice."""
+    from animate_anything_tpu_torch.ops import temporal_conv as tc
+    from animate_anything_tpu_torch.parallel.frame import split_counts
+    from animate_anything_tpu_torch.utils.kernel_sites import TAP_CONV_SITES
+
+    tally = Tally("tap_conv.positions", "animate_anything_tpu_torch/csrc/temporal_conv.cu",
+                  "animate_anything_tpu/ops/temporal_conv.py:159")
+    bsz, f = 2, FRAMES + 1
+    for s_all, c in TAP_CONV_SITES:
+        s = split_counts(s_all, 2)[0]
+        x, a, b, w, bias, res = _tap_conv_args(gen, bsz, f, s, c, c)
+        tag = f"tap_conv positions bsz={bsz} f={f} s={s} of {s_all} c={c}"
+        err = _tap_conv_case(tag, x, a, b, w, bias, res)
+        ms = cuda_ms(lambda: tc.tap_conv(x, a, b, w, bias, res))
+        plain = cuda_ms(lambda: tc.tap_conv_reference(x, a, b, w, bias, res), warmup=1, iters=3)
+        rows = bsz * f * s
+        nbytes = 3 * rows * c * 2 + 3 * c * c * 2 + 2 * bsz * f * c * 4
+        tally.add(tag, err, ms, plain, 2 * bsz * s * (3 * f - 2) * c * c, nbytes)
+        del x, res
+        torch.cuda.empty_cache()
+    return tally
 
 
 # Beyond kernel 4's sites (``utils/kernel_sites.PROJ_SITES``): ragged s, the
@@ -962,7 +1051,49 @@ def check_temporal_block(gen) -> dict:
         err = _temporal_block_case(tag, _temporal_block_args(gen, b_, f_, s_, c), heads)
         log(f"  {tag}: max|err| {err:.3g}")
     tally.row["composite_ms"] = composite_ms
+    attach_mode(tally.row, "heads", check_temporal_block_heads(gen), "temporal_block.heads")
     return tally.row
+
+
+def check_temporal_block_heads(gen) -> Tally:
+    """Kernel 5 on rank 0's heads of a tensor-2 split in its partial mode
+    (``parallel/tensor.py``): the q/k/v rows and Wo columns of half the
+    heads, the out-projection without bo and x, at the sites whose heads 2
+    divides (c = 512, 640, 1280; the 5-head 320 sites stay whole); called
+    twice (bit for bit)."""
+    from animate_anything_tpu_torch.ops import temporal_block as tb
+    from animate_anything_tpu_torch.parallel.tensor import TPGroup, local_slice
+
+    tally = Tally("temporal_block.heads", "animate_anything_tpu_torch/csrc/temporal_block.cu",
+                  "animate_anything_tpu/ops/temporal_block.py:408")
+    tp = TPGroup(2, 0)
+    b, f = 2, FRAMES + 1
+    for s, c in TEMPORAL_SITES:
+        heads = c // 64
+        if heads % 2:
+            continue
+        x, ln_s, ln_b, wq, wk, wv, wo, _ = _temporal_block_args(gen, b, f, s, c)
+        args = (x, ln_s, ln_b, *(local_slice(w, 0, False, tp).contiguous() for w in (wq, wk, wv)),
+                local_slice(wo, 1, False, tp).contiguous(), None)
+        del wq, wk, wv, wo
+        local = heads // 2
+        tag = f"temporal_block heads b={b} f={f} s={s} c={c} heads={local} of {heads}"
+        got = tb.temporal_block(*args, heads=local, partial=True)
+        again = tb.temporal_block(*args, heads=local, partial=True)
+        want = tb.temporal_block_reference(*args, heads=local, partial=True)
+        _assert_close(tag, got, want, Y_ATOL, Y_RTOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        ms = cuda_ms(lambda: tb.temporal_block(*args, heads=local, partial=True))
+        plain = cuda_ms(lambda: tb.temporal_block_reference(*args, heads=local, partial=True),
+                        warmup=1, iters=3)
+        rows, inner = b * f * s, c // 2
+        flop = 8 * rows * c * inner + 4 * b * s * local * f * f * 64
+        nbytes = 2 * rows * c * 2 + 4 * c * inner * 2 + 2 * c * 4
+        tally.add(tag, _err(got, want), ms, plain, flop, nbytes)
+        del args, got, again, want
+        torch.cuda.empty_cache()
+    return tally
 
 
 def check_channel_sums(gen) -> dict:
@@ -1608,7 +1739,11 @@ def kernel_counters() -> dict:
             "spatial_conv": (spatial_conv, "launches"),
             "temporal_attention": (temporal_attention, "launches"),
             "add_with_stats": (add_stats, "launches"),
-            "ln_qkv_attention": (ln_qkv_attention, "launches")}
+            "ln_qkv_attention": (ln_qkv_attention, "launches"),
+            # the modes of the frame and tensor axes, counted within their kernel's count
+            "tap_conv.positions": (temporal_conv, "frame_launches"),
+            "ln_geglu_ff.partial": (geglu, "partial_launches"),
+            "temporal_block.heads": (temporal_block, "partial_launches")}
 
 
 def reset_counts() -> None:
@@ -4500,6 +4635,268 @@ def run_multi_gpu() -> list:
     return ["2-rank step", "2-rank sharded request", "dryrun_multichip(2)"]
 
 
+# -- the frame and tensor axes ---------------------------------------------
+# The frame-2 request (16 frames: 9 + 8 of the UNet's 17 on the two ranks,
+# every temporal layer between two all-to-alls, its GroupNorm sums summed
+# over the pair) and the {frame: 2, tensor: 2} request against the one-card
+# request on the same seed (the start noise drawn whole on every rank): bf16
+# activations go through other tile shapes at half the positions or heads
+# and the sums add in another order; held as the decode's relative RMS.
+FRAME_REQUEST_REL_RMS = DECODE_REL_RMS
+# The tensor-2 full-width batch-1 step against the one-card step: the data
+# axis's limits (the row-parallel products' bf16 partials summed in fp32).
+TP_LOSS_REL, TP_SIGN_AGREE, TP_UPDATE_REL_RMS = DP_LOSS_REL, DP_SIGN_AGREE, DP_UPDATE_REL_RMS
+FRAME_PATH_KERNELS = FORWARD_KERNELS + ("tap_conv.positions",)
+TENSOR_PATH_KERNELS = FORWARD_KERNELS + ("ln_geglu_ff.partial", "temporal_block.heads")
+
+
+def _axes_request(mesh, out_path: Optional[str] = None) -> dict:
+    """The full-width default request (``make_requests()[0]``: 16 frames,
+    512 px, 25 DPM-Solver++ steps, CFG 9, ``attn_impl="pallas"``, the VAE
+    decode) under ``mesh`` (its tensor axis splitting the UNet) or on one
+    card, twice on the same seed; → the video (host), both walls, whether
+    the two videos are bit-equal, the launches of the first, the frame and
+    tensor axes' collectives a CFG forward, the peak memory."""
+    from animate_anything_tpu_torch.models.tokenizers import HashTokenizer
+    from animate_anything_tpu_torch.parallel import frame, tensor
+    from animate_anything_tpu_torch.pipelines import LatentToVideoPipeline
+
+    unet, vae, text = build_models()
+    tensor.shard_model(unet, mesh)
+    pipe = LatentToVideoPipeline(unet, vae, text_encoder=text, tokenizer=HashTokenizer(),
+                                 mesh=mesh)
+    req = make_requests()[0]
+    videos, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        if i == 0:
+            reset_counts()
+            frame.COLLECTIVES.on = tensor.COLLECTIVES.on = True
+            frame.COLLECTIVES.ms(), tensor.COLLECTIVES.ms()
+        t0 = time.perf_counter()
+        video, _ = pipe.animate_image(num_frames=FRAMES, num_inference_steps=STEPS,
+                                      guidance_scale=GUIDANCE, generator=gen, **req)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = read_counts()
+            comm = (frame.COLLECTIVES.ms() / STEPS, tensor.COLLECTIVES.ms() / STEPS)
+            frame.COLLECTIVES.on = tensor.COLLECTIVES.on = False
+        if tuple(video.shape) != (1, FRAMES, RES, RES, 3) or not torch.isfinite(video).all():
+            raise AssertionError(f"axes request: video {tuple(video.shape)}, or not finite")
+        videos.append(video.float().cpu())
+    out = {"video": videos[0], "walls": walls, "same": torch.equal(videos[0], videos[1]),
+           "counts": counts, "frame_ms": comm[0], "tensor_ms": comm[1],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if out_path is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            torch.save(out, out_path)
+    return out
+
+
+def _axes_step(mesh, out_path: Optional[str] = None) -> dict:
+    """The full-width batch-1 train step (``make_train_batch``, per-sub-layer
+    checkpointing, AdamW on fp32 masters) with the UNet split over ``mesh``'s
+    tensor axis, or on one card; → the first step's metrics, the first
+    update of ``DP_CHECKED_MASTERS`` masters whole (gathered to rank 0),
+    s/step over ``DP_TIMED_STEPS`` more steps, the tensor axis's collectives
+    a step, the peak memory and the launches of the timed steps."""
+    from animate_anything_tpu_torch.parallel import tensor
+    from animate_anything_tpu_torch.train import (create_train_state, make_train_step,
+                                                  mask_motion_finetune)
+
+    unet, vae, text = build_models(gradient_checkpointing=True)
+    for module in (vae, text):
+        module.requires_grad_(False)
+    names = sorted((n for n, _ in unet.named_parameters()),
+                   key=lambda n: -unet.get_parameter(n).numel())[:DP_CHECKED_MASTERS]
+    tensor.shard_model(unet, mesh)
+    config, schedule = mask_motion_finetune()
+    state = create_train_state(unet, config, mesh=mesh)
+    before = {n: state.masters[n].clone() for n in names}
+    step = make_train_step(schedule, config, vae=vae, text_encoder=text, mesh=mesh)
+    batch = make_train_batch()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    metrics = step(state, batch, gen)
+    update = tensor.full_weights(unet, {n: state.masters[n] - before[n] for n in names})
+    update = None if update is None else {n: t.to("cpu") for n, t in update.items()}
+    del before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tensor.COLLECTIVES.on = True
+    try:
+        tensor.COLLECTIVES.ms()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / DP_TIMED_STEPS
+        comm_ms = tensor.COLLECTIVES.ms() / DP_TIMED_STEPS
+    finally:
+        tensor.COLLECTIVES.on = False
+    out = {"metrics": metrics, "update": update, "step_s": step_s, "comm_ms": comm_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "counts": read_counts()}
+    if out_path is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            torch.save(out, out_path)
+    return out
+
+
+AXES_MESHES = {"frame2": {"data": 1, "frame": 2}, "tensor2": {"data": 1, "tensor": 2},
+               "frame2_tensor2": {"data": 1, "frame": 2, "tensor": 2}}
+
+
+def _axes_rank(kind: str, out_path: str) -> None:
+    """One rank of a multi-card axes phase (``spawn_ranks`` target)."""
+    from animate_anything_tpu_torch.core.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(AXES_MESHES[kind])
+    (_axes_step if kind == "tensor2" else _axes_request)(mesh, out_path)
+
+
+def run_axes_one_rank() -> dict:
+    """Inside the one-rank NCCL group: the full-width default request on a
+    ``{data: 1, frame: 1, tensor: 1}`` mesh (the frame path with its
+    all-to-alls, sums reductions and gather over one rank; the tensor axis
+    of 1 splits nothing, as JAX's rule) against the same request without a
+    mesh: the videos bit-equal. → the mesh request's launches."""
+    from animate_anything_tpu_torch.core.mesh import create_mesh
+
+    mesh = create_mesh({"data": 1, "frame": 1, "tensor": 1})
+    log(f"frame and tensor axes: the default request on mesh {mesh.axes} (one-rank NCCL "
+        "group) against the same request without a mesh")
+    plain = _axes_request(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = _axes_request(mesh)
+    log(f"  walls: {plain['walls'][0]:.3f} s without a mesh, {split['walls'][0]:.3f} s on the "
+        f"mesh (all-to-alls and sums {split['frame_ms']:.3f} ms a CFG forward by events)")
+    if not torch.equal(plain["video"], split["video"]):
+        raise AssertionError(f"one-rank mesh request differs: relative RMS "
+                             f"{_rel_rms(split['video'], plain['video']):.3g}")
+    require_only("one-rank mesh request", split["counts"], FRAME_PATH_KERNELS)
+    log(f"  bit-equal; launches {split['counts']}")
+    return split["counts"]
+
+
+def _axes_spawn(kind: str, ranks: int) -> dict:
+    import os
+    import tempfile
+
+    from animate_anything_tpu_torch.dryrun import spawn_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="axes_", dir="build") as work:
+        out = os.path.join(work, "rank0.pt")
+        t0 = time.perf_counter()
+        spawn_ranks("chip_smoke:_axes_rank", ranks, "cuda", kind, out, timeout=900)
+        log(f"{ranks} NCCL ranks, mesh {AXES_MESHES[kind]}: {time.perf_counter() - t0:.1f} s "
+            "with the model build")
+        return torch.load(out, weights_only=False)
+
+
+def _check_axes_request(tag: str, got: dict, want: dict) -> None:
+    rel = _rel_rms(got["video"], want["video"])
+    log(f"  {tag} request: video relative RMS {rel:.4g} against one card (limit "
+        f"{FRAME_REQUEST_REL_RMS}); wall {got['walls'][0]:.3f} s (again {got['walls'][1]:.3f} s) "
+        f"against {want['walls'][0]:.3f} s on one card; frame-axis collectives "
+        f"{got['frame_ms']:.3f} ms and tensor-axis {got['tensor_ms']:.3f} ms a CFG forward on "
+        f"rank 0 (events); peak {got['peak_gib']:.2f} GiB on rank 0, {want['peak_gib']:.2f} "
+        f"on one card; two same-seed requests bit-equal: {got['same']}")
+    if not rel <= FRAME_REQUEST_REL_RMS:
+        raise AssertionError(f"{tag} request: relative RMS {rel:.4g}")
+    if not got["same"]:
+        raise AssertionError(f"{tag} request: two same-seed requests differ")
+
+
+def run_axes_multi_gpu() -> dict:
+    """Where two or more cards exist: the frame-2 request and the tensor-2
+    step against one card; with four, the {frame: 2, tensor: 2} request and
+    ``dryrun_multichip(4)``; with eight, ``dryrun_multichip(8)``. → each
+    phase's launch counts on rank 0."""
+    from animate_anything_tpu_torch.dryrun import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"frame and tensor axes, multi-card phases: {n} card, skipped (the frame-2 request "
+            "and the tensor-2 step need 2 cards, the {frame: 2, tensor: 2} request and "
+            "dryrun_multichip(4) 4, dryrun_multichip(8) 8)")
+        return {}
+    counts = {}
+    frame2 = _axes_spawn("frame2", 2)
+    step2 = _axes_spawn("tensor2", 2)
+    both = _axes_spawn("frame2_tensor2", 4) if n >= 4 else None
+    want = _axes_request(None)
+    _check_axes_request("frame 2", frame2, want)
+    require_only("frame-2 request", frame2["counts"], FRAME_PATH_KERNELS)
+    counts["frame2"] = frame2["counts"]
+    if both is not None:
+        _check_axes_request("{frame: 2, tensor: 2}", both, want)
+        require_only("{frame: 2, tensor: 2} request", both["counts"],
+                     FRAME_PATH_KERNELS + TENSOR_PATH_KERNELS[len(FORWARD_KERNELS):])
+        counts["frame2_tensor2"] = both["counts"]
+    del want, frame2, both
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = _axes_step(None)
+    for k in ("loss", "mse_loss", "grad_norm"):
+        rel = abs(step2["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-12)
+        log(f"  tensor 2 step {k}: {step2['metrics'][k]:.6g} against {want['metrics'][k]:.6g} "
+            f"on one card (relative {rel:.3g}, limit {TP_LOSS_REL})")
+        if not rel <= TP_LOSS_REL:
+            raise AssertionError(f"tensor-2 step {k} off by {rel:.3g}")
+    got_u, want_u = step2["update"], want["update"]
+    agree = sum(int((got_u[k].sign() == want_u[k].sign()).sum()) for k in want_u)
+    total = sum(t.numel() for t in want_u.values())
+    diff = sum(float((got_u[k].double() - want_u[k].double()).square().sum()) for k in want_u)
+    norm = sum(float(want_u[k].double().square().sum()) for k in want_u)
+    update_rel = (diff / norm) ** 0.5
+    log(f"  tensor 2 first update, {total} elements of {len(want_u)} masters gathered whole: "
+        f"sign equal on {agree / total:.6f} (limit {TP_SIGN_AGREE}), relative RMS "
+        f"{update_rel:.4g} (limit {TP_UPDATE_REL_RMS})")
+    if agree / total < TP_SIGN_AGREE or not update_rel <= TP_UPDATE_REL_RMS:
+        raise AssertionError(f"tensor-2 step: first update off ({agree / total:.4f}, "
+                             f"{update_rel:.4g})")
+    log(f"  tensor 2 step: {step2['step_s']:.3f} s/step (tensor-axis collectives "
+        f"{step2['comm_ms']:.1f} ms a step on rank 0), peak {step2['peak_gib']:.2f} GiB on rank "
+        f"0; one card {want['step_s']:.3f} s/step, peak {want['peak_gib']:.2f} GiB")
+    require_only("tensor-2 step", step2["counts"],
+                 TENSOR_PATH_KERNELS + ("flash_attention_bwd",))
+    counts["tensor2"] = step2["counts"]
+    del want, step2
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ranks in (4, 8):
+        if n >= ranks:
+            t0 = time.perf_counter()
+            result = dryrun_multichip(ranks)
+            log(f"  dryrun_multichip({ranks}): {result} in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def fill_mode_launches(rows: list[dict], paths: dict) -> None:
+    """Each kernel mode's launches: its counter on every path that ran it
+    (``launches_<path>``); ``launches`` the first of the one-rank mesh
+    request, the frame-2 request and the tensor-2 step that ran it."""
+    for row in rows:
+        for mode in row.get("modes", {}).values():
+            counter = mode["counter"]
+            for label, counts in paths.items():
+                mode[f"launches_{label}"] = counts.get(counter, 0)
+            mode["launches"] = next((counts[counter] for counts in paths.values()
+                                     if counts.get(counter, 0)), 0)
+
+
 def _lama_video(seed: int = 21):
     """A 16-frame 512 px clip: a smooth random image drifting 8 px a frame,
     and a rectangular watermark mask."""
@@ -4742,6 +5139,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     zero_entry = run_zero_entry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    axes_one = run_axes_one_rank()
     dist.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
     t_new = time.perf_counter() - t_new
@@ -4756,6 +5156,12 @@ def main() -> int:
     log(f"the data axis, LaMa and compress_video phases took {t_new:.1f} s")
     multi = run_multi_gpu()
     log(f"multi-card phases run: {multi or 'none (one card)'}")
+    axes_multi = run_axes_multi_gpu()
+    fill_mode_launches(rows, {"mesh_one_rank": axes_one, **axes_multi})
+    for row in rows:
+        for mode, m in row.get("modes", {}).items():
+            if m["launches"] == 0 and not (mode != "positions" and not axes_multi):
+                raise AssertionError(f"{row['name']}.{mode}: launched on no path")
     own_path = {"flash_attention_bwd": train, **{n: opt_in for n in OPT_IN_KERNELS},
                 **{n: packed for n in PACKED_KERNELS}, **{n: entry for n in ENTRY_KERNELS}}
     for row in rows:

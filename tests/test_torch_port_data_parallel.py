@@ -3,8 +3,8 @@
 request.
 
 - ``resolve_mesh_shape`` against JAX's ``create_mesh`` over 1-8 of the
-  conftest's virtual devices (sizes and errors alike); a frame or tensor
-  axis above 1 refused with its ROADMAP item;
+  conftest's virtual devices (sizes and errors alike); at world size 1 a
+  frame or tensor axis above 1 wants more processes, as any bad mesh;
 - the ZeRO plan: every element in exactly one rank's 256-aligned slice,
   arrays under 2**14 elements replicated, each rank's optimizer bytes about
   1/n of the whole;
@@ -97,15 +97,19 @@ def test_create_mesh_runs_the_data_axis_alone():
     m = mesh.create_mesh({"data": -1})
     assert m.axes == {"data": 1} and m.device_mesh is None and m.group() is None
     assert mesh.create_mesh().axes == {"data": 1}
-    for shape, item in (({"data": 1, "frame": 2}, "21b"), ({"tensor": 2}, "21c")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            mesh.create_mesh(shape)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            check_mesh(shape)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            next(device_prefetch(iter([{"x": np.zeros(2)}]), device="cpu", mesh=shape))
-    with pytest.raises(ValueError, match="item 21a"):
-        mesh.create_mesh({"data": 2})
+    # the frame and tensor axes run: at world size 1 an axis above 1 needs
+    # more processes, as every bad mesh, and nothing is refused as unported
+    for shape in ({"data": 1, "frame": 2}, {"tensor": 2}, {"data": 2}):
+        for make in (mesh.create_mesh, check_mesh,
+                     lambda s: next(device_prefetch(iter([{"x": np.zeros(2)}]), device="cpu",
+                                                    mesh=s))):
+            with pytest.raises(ValueError, match="item 21a") as e:
+                make(shape)
+            assert not isinstance(e.value, NotImplementedError)
+    assert not hasattr(mesh, "AxisNotPorted")
+    three = mesh.create_mesh({"data": 1, "frame": 1, "tensor": 1})
+    assert three.axes == {"data": 1, "frame": 1, "tensor": 1} and three.device_mesh is None
+    assert [three.size(a) for a in ("data", "frame", "tensor")] == [1, 1, 1]
     check_mesh({"data": -1, "frame": 1})
     x = torch.arange(12).reshape(6, 2)
     assert mesh.shard_batch({"x": x, "s": ["a"] * 6}, m)["x"] is x
