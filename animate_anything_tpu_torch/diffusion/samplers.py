@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from animate_anything_tpu_torch.diffusion.schedule import DiffusionSchedule, pred_x0
+from animate_anything_tpu_torch.utils.tracing import span, traced
 
 
 def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int,
@@ -106,6 +107,7 @@ def dpmpp_step(schedule: DiffusionSchedule, tables: DpmppTables, state: SamplerS
     return SamplerState(sample=prev.to(dt), aux=x0.to(dt))
 
 
+@traced("denoise")
 def sample_loop(schedule: DiffusionSchedule, latents: torch.Tensor, timesteps: np.ndarray,
                 model_fn: Callable, sampler: str = "dpmpp", model_state=None) -> torch.Tensor:
     """Run the denoise loop; model_fn(latents, t) → model output. DDIM steps
@@ -129,12 +131,14 @@ def sample_loop(schedule: DiffusionSchedule, latents: torch.Tensor, timesteps: n
         tables = dpmpp_init(schedule, ts)
         state = SamplerState(sample=latents, aux=torch.zeros_like(latents))
         for i in range(len(ts)):
-            state = dpmpp_step(schedule, tables, state, call(state.sample, i), i)
+            with span("step"):
+                state = dpmpp_step(schedule, tables, state, call(state.sample, i), i)
         return state.sample
     if sampler == "ddim":
         step_gap = schedule.num_train_timesteps // len(ts) if len(ts) else 0
         sample = latents
         for i, t in enumerate(ts):
-            sample = ddim_step(schedule, sample, call(sample, i), int(t), int(t) - step_gap)
+            with span("step"):
+                sample = ddim_step(schedule, sample, call(sample, i), int(t), int(t) - step_gap)
         return sample
     raise ValueError(f"unknown sampler {sampler}")

@@ -62,6 +62,7 @@ from animate_anything_tpu_torch.ops.temporal_block import fused_ok, kernel_ok, t
 from animate_anything_tpu_torch.ops.temporal_conv import gn_silu_tap_conv
 from animate_anything_tpu_torch.parallel.tensor import copy_to, row_parallel
 from animate_anything_tpu_torch.utils.ptp import tag_attention_paths
+from animate_anything_tpu_torch.utils.tracing import traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,6 +373,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         other.load_state_dict(self.state_dict(), strict=True, assign=True)
         return other.train(self.training)
 
+    @traced("unet")
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 added_time_ids: torch.Tensor, pab=None) -> torch.Tensor:
         """sample (b, f, h, w, in_channels), timestep () or (b,) continuous

@@ -45,6 +45,7 @@ from animate_anything_tpu_torch.models.unet3d_blocks import (CrossAttnDownBlock3
                                                              UNetMidBlock3DCrossAttn, UpBlock3D)
 from animate_anything_tpu_torch.parallel import frame
 from animate_anything_tpu_torch.utils.ptp import tag_attention_paths
+from animate_anything_tpu_torch.utils.tracing import traced
 
 
 ATTN_IMPLS = ("pallas", "xla", "packed")
@@ -164,6 +165,7 @@ class UNet3DConditionModel(nn.Module):
         other.load_state_dict(self.state_dict(), strict=True, assign=True)
         return other.train(self.training)
 
+    @traced("unet")
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 condition_latent: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 motion: Optional[torch.Tensor] = None, pab=None) -> torch.Tensor:

@@ -21,6 +21,7 @@ from torch import nn
 
 from animate_anything_tpu_torch.models.layers import Conv1x1, Conv2d, FusedGroupNorm, Linear
 from animate_anything_tpu_torch.ops.attention import attention
+from animate_anything_tpu_torch.utils.tracing import traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +206,7 @@ class AutoencoderKL(nn.Module):
         return self.decode(self.encode_moments(x)[0])
 
 
+@traced("encode")
 def encode_video(vae: AutoencoderKL, pixels: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """(b, f, h, w, 3) in [-1, 1] → (b, f, h/8, w/8, 4) scaled latents."""
@@ -213,6 +215,7 @@ def encode_video(vae: AutoencoderKL, pixels: torch.Tensor,
     return z.reshape(b, f, h // 8, w // 8, z.shape[-1])
 
 
+@traced("decode")
 def decode_video(vae: AutoencoderKL, latents: torch.Tensor,
                  chunk_size: Optional[int] = None) -> torch.Tensor:
     """(b, f, h, w, 4) scaled latents → (b, f, 8h, 8w, 3) pixels in [-1, 1].

@@ -18,6 +18,7 @@ import torch
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.group_norm import sums_args
+from animate_anything_tpu_torch.utils.tracing import traced
 
 launches = 0  # kernel launches by add_with_stats
 
@@ -49,6 +50,7 @@ def _launch(x, r):
     return y, (s1, s2)
 
 
+@traced("op.add_with_stats")
 def add_with_stats(x: torch.Tensor, r: torch.Tensor, impl: str | None = None):
     """``y = x + r`` over (n, s, c), with the per-(n, c) fp32 (Σy, Σy²) under
     ``impl="pallas"`` (kernel 10 for CUDA tensors, the plain version for CPU

@@ -31,6 +31,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from animate_anything_tpu_torch.ops import cuda_lib
+from animate_anything_tpu_torch.utils.tracing import traced
 
 HEAD_DIMS = tuple(range(16, 257, 16))   # the forward kernel's
 BWD_HEAD_DIMS = HEAD_DIMS                # the backward kernels'
@@ -93,6 +94,7 @@ def _check(q, k, v, head_dims=HEAD_DIMS):
     return b, sq, sk, h, d
 
 
+@traced("op.flash_forward_with_lse")
 def flash_forward_with_lse(q, k, v, with_lse: bool = True, prescaled: bool = False):
     """Kernel 1 on CUDA tensors, returning ``(o, lse)``: with ``with_lse``
     it also stores each row's log-sum-exp (fp32 (b, h, sq), log2 domain of
@@ -113,6 +115,7 @@ def flash_forward_with_lse(q, k, v, with_lse: bool = True, prescaled: bool = Fal
     return out, lse
 
 
+@traced("op.flash_attention_backward")
 def flash_attention_backward(q, k, v, o, do, lse=None):
     """(dq, dk, dv) of non-causal attention for the cotangent ``do``: the
     plain version for CPU tensors, the dq and dk/dv kernels for CUDA tensors
@@ -160,6 +163,7 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_backward(q, k, v, o, do.to(q.dtype).contiguous(), lse)
 
 
+@traced("op.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Non-causal attention, q (B, Sq, H, D), k/v (B, Sk, H, D) → (B, Sq, H, D)."""
     return FlashAttention.apply(q, k, v)

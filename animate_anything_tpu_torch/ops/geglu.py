@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute
+from animate_anything_tpu_torch.utils.tracing import traced
 
 MAX_C = 4096              # the LayerNorm pass holds a row in a warp's registers
 SMEM_LIMIT = 232448        # dynamic shared memory a block may use on the H100
@@ -222,6 +223,7 @@ def _launch(x2, s, b, w1, b1, w2, b2, eps: float, partial: bool = False) -> torc
     return y if cp == c else y[:, :c].contiguous()
 
 
+@traced("op.ln_geglu_ff")
 def ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5,
                 partial: bool = False) -> torch.Tensor:
     """``x + GEGLU_FF(LayerNorm(x))`` over the last axis of x (..., c): kernel

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute
+from animate_anything_tpu_torch.utils.tracing import traced
 
 _DEFAULT_IMPL = "xla"
 _DEFAULT_STATS = "xla"
@@ -180,6 +181,7 @@ def _launch_channel_sums(x2):
     return s1, s2
 
 
+@traced("op.stream_channel_sums")
 def stream_channel_sums(x2: torch.Tensor):
     """Per-(n, c) fp32 (Σx, Σx²) of x2 (n, s, c): kernel 6 for a CUDA
     tensor, ``channel_sums`` for a CPU tensor. The gradient is JAX's custom
@@ -233,6 +235,7 @@ def streaming_ok(x2, groups: int, impl: str, sums) -> bool:
             and _pick_chunk(s, c) >= 8)
 
 
+@traced("op.group_norm_silu")
 def group_norm_silu(x, scale, bias, groups: int, eps: float = 1e-5, silu: bool = True,
                     impl: str | None = None, stats: str | None = None,
                     sums=None, rows=None) -> torch.Tensor:

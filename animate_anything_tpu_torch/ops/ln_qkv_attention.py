@@ -33,6 +33,7 @@ from animate_anything_tpu_torch.ops.autograd import Recompute
 from animate_anything_tpu_torch.ops.flash_attention import (LOG2E, attention_reference,
                                                             flash_forward_with_lse)
 from animate_anything_tpu_torch.ops.geglu import pick_width
+from animate_anything_tpu_torch.utils.tracing import traced
 
 HEAD_DIM = 64
 MIN_SEQ = 256
@@ -122,6 +123,7 @@ def _launch(x, ln_scale, ln_bias, wq, wk, wv, heads: int, head_dim: int, eps: fl
     return out.reshape(b, s, hd)
 
 
+@traced("op.ln_qkv_attention")
 def ln_qkv_attention(x, ln_scale, ln_bias, wq, wk, wv, *, heads: int, head_dim: int,
                      eps: float = 1e-5, impl: str | None = None) -> torch.Tensor:
     """norm1 → to_q/k/v → self-attention of x (b, s, c); returns (b, s,

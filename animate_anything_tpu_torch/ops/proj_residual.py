@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from animate_anything_tpu_torch.ops import cuda_lib, geglu
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.temporal_conv import sums_scratch
+from animate_anything_tpu_torch.utils.tracing import traced
 
 SUB_ROWS = 64  # a sub-tile: 64 rows of one slab, one warpgroup's; two make a tile
 TILE_WIDTHS = geglu.OUT_BN  # output columns a tile: the residual GEMM's instantiations
@@ -90,6 +91,7 @@ def _launch(h, w, bias, residual):
     return y, (s1, s2)
 
 
+@traced("op.proj_residual_stats")
 def proj_residual_stats(h, w, bias, residual):
     """h (n, s, k), w (c, k), bias (c,), residual (n, s, c) →
     ``(y, (Σy, Σy²))`` with the sums per (n, c) in fp32."""

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from animate_anything_tpu_torch.ops import cuda_lib, geglu
 from animate_anything_tpu_torch.ops import group_norm as gn
 from animate_anything_tpu_torch.ops.autograd import Recompute
+from animate_anything_tpu_torch.utils.tracing import traced
 
 CIN_MULTIPLE = 16   # the kernel's reach: cin % 16 == 0, cout % 8 == 0, any H, W
 SUB_PIXELS = 64     # a sub-tile: 64 pixels of one image, one warpgroup's
@@ -189,6 +190,7 @@ def _launch(x, a, b, w, bias, residual, silu: bool):
     return y
 
 
+@traced("op.spatial_conv")
 def spatial_conv(x, a, b, w, bias, residual=None, silu: bool = True) -> torch.Tensor:
     """One fused stage on the folded affine: see ``spatial_conv_reference``.
     A channels_last ``w`` goes to the kernel as it is; any other is copied
@@ -201,6 +203,7 @@ def spatial_conv(x, a, b, w, bias, residual=None, silu: bool = True) -> torch.Te
     return Recompute.apply(run, spatial_conv_reference, *args)
 
 
+@traced("op.gn_silu_spatial_conv")
 def gn_silu_spatial_conv(x, gn_scale, gn_bias, w, bias, *, groups: int, eps: float = 1e-5,
                          silu: bool = True, extra_bias=None, residual=None) -> torch.Tensor:
     """One resnet stage: GroupNorm → SiLU → conv3×3 (+ per-sample bias,

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.group_norm import channel_sums, group_affine, tickets
+from animate_anything_tpu_torch.utils.tracing import traced
 
 launches = 0  # kernel-7 launches (one a call)
 
@@ -112,6 +113,7 @@ def _launch(x2, scale, bias, groups: int, eps: float, silu: bool):
     return y
 
 
+@traced("op.group_norm_stream")
 def group_norm_stream(x2, scale, bias, groups: int, eps: float = 1e-5,
                       silu: bool = True) -> torch.Tensor:
     """GroupNorm (+SiLU) of x2 (n, s, c) with per-channel scale and bias:

@@ -27,6 +27,7 @@ import torch
 
 from animate_anything_tpu_torch.ops import cuda_lib
 from animate_anything_tpu_torch.ops.autograd import Recompute
+from animate_anything_tpu_torch.utils.tracing import traced
 
 MAX_FRAMES = 128   # JAX's _LANE: the most frames one packed tile holds
 MIN_LOCS = 512     # below this many b·s·h locations JAX keeps the einsum form
@@ -135,6 +136,7 @@ def _launch(q, k, v) -> torch.Tensor:
     return o
 
 
+@traced("op.packed_temporal_attention")
 def packed_temporal_attention(q, k, v) -> torch.Tensor:
     """Kernel 9 for CUDA tensors, its plain version for CPU tensors; the
     gradient is that of ``temporal_attention_reference``."""

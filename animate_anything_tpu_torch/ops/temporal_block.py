@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from animate_anything_tpu_torch.ops import cuda_lib, geglu
 from animate_anything_tpu_torch.ops.autograd import Recompute
+from animate_anything_tpu_torch.utils.tracing import traced
 
 MAX_FRAMES = 128    # a row tile holds one location's frames at least
 MAX_HEAD_DIM = 256  # four 64-column chunks of q, k, v in shared memory
@@ -226,6 +227,7 @@ def _launch(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads: int, eps: float,
     return y
 
 
+@traced("op.temporal_block")
 def temporal_block(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads: int,
                    eps: float = 1e-5, partial: bool = False) -> torch.Tensor:
     """``x + bo + Wo·attn(LN(x))`` on x (b, f, s, c), attention over the f

@@ -27,6 +27,7 @@ from animate_anything_tpu_torch.ops import cuda_lib, geglu, group_norm
 from animate_anything_tpu_torch.ops.autograd import Recompute, flat_stats
 from animate_anything_tpu_torch.ops.group_norm import group_affine
 from animate_anything_tpu_torch.parallel import frame
+from animate_anything_tpu_torch.utils.tracing import traced
 
 CIN_MULTIPLE = 32   # the kernel's reach: cin % 32 == 0, cout % 8 == 0
 SUB_ROWS = 64       # a sub-tile: 64 rows of one (batch, frame) slab, one warpgroup's
@@ -151,6 +152,7 @@ def _launch(x, a, b, w, bias, residual):
     return y, (s1.view(bsz, f, cout), s2.view(bsz, f, cout))
 
 
+@traced("op.tap_conv")
 def tap_conv(x, a, b, w, bias, residual=None):
     """One fused stage on the folded affine: see ``tap_conv_reference``.
     ``w`` is packed (cout, 3, cin)."""
@@ -162,6 +164,7 @@ def tap_conv(x, a, b, w, bias, residual=None):
     return y, (s1, s2)
 
 
+@traced("op.gn_silu_tap_conv")
 def gn_silu_tap_conv(x, gn_scale, gn_bias, w, bias, *, groups: int, eps: float = 1e-5,
                      residual=None, sums=None, rows=None):
     """One TemporalConvLayer stage: GroupNorm(+affine) → SiLU → 3-tap frame

@@ -47,6 +47,7 @@ from animate_anything_tpu_torch.models.pab import PABCache, PABStep, unet3d_flag
 from animate_anything_tpu_torch.models.unet3d import UNet3DConditionModel
 from animate_anything_tpu_torch.models.vae import AutoencoderKL, decode_video, encode_video
 from animate_anything_tpu_torch.parallel import frame
+from animate_anything_tpu_torch.utils.tracing import traced, traced_request
 
 
 class LatentToVideoPipeline:
@@ -74,6 +75,7 @@ class LatentToVideoPipeline:
         return next(self.unet.parameters()).device
 
     @torch.no_grad()
+    @traced("encode")
     def encode_prompt(self, prompt, negative_prompt=""):
         """Prompt(s) → (prompt_embeds, negative_prompt_embeds), each (n, seq,
         hidden) fp32: one text-encoder call on the prompts and then the
@@ -173,6 +175,7 @@ class LatentToVideoPipeline:
         return video, latents
 
     @torch.no_grad()
+    @traced_request
     def animate_image(self, image: np.ndarray, prompt: str, *,
                       mask_img: Optional[np.ndarray] = None,
                       motion_strength: Optional[float] = None, num_frames: int = 16,

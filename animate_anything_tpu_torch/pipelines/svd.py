@@ -36,6 +36,7 @@ from animate_anything_tpu_torch.diffusion.euler_edm import (euler_step, make_eul
 from animate_anything_tpu_torch.models.clip_vision import preprocess_clip_image
 from animate_anything_tpu_torch.models.pab import PABCache, PABStep, svd_flags
 from animate_anything_tpu_torch.models.vae import decode_video, encode_video
+from animate_anything_tpu_torch.utils.tracing import span, traced, traced_request
 
 
 class MaskStableVideoDiffusionPipeline:
@@ -53,6 +54,7 @@ class MaskStableVideoDiffusionPipeline:
         return next(self.unet.parameters()).device
 
     @torch.no_grad()
+    @traced("encode")
     def encode_image_embedding(self, image_uint8: np.ndarray) -> torch.Tensor:
         """(h, w, 3) uint8 → (1, 1, projection_dim)."""
         if self.image_encoder is None:
@@ -62,6 +64,7 @@ class MaskStableVideoDiffusionPipeline:
         return emb[:, None, :]
 
     @torch.no_grad()
+    @traced("encode")
     def encode_text_embedding(self, prompt: str) -> torch.Tensor:
         """prompt → (1, 77, hidden), the text encoder's last hidden state."""
         if self.tokenizer is None or self.text_encoder is None:
@@ -71,6 +74,7 @@ class MaskStableVideoDiffusionPipeline:
         return self.text_encoder(torch.as_tensor(np.asarray(ids), device=self.device))
 
     @torch.no_grad()
+    @traced_request
     def __call__(self, image: Optional[np.ndarray] = None, *,
                  image_embeddings: Optional[torch.Tensor] = None,
                  condition_latent: Optional[torch.Tensor] = None,
@@ -129,15 +133,18 @@ class MaskStableVideoDiffusionPipeline:
         x = (noise.to(dev, torch.float32) * es.init_noise_sigma).to(cond.dtype)
         flags = None if self.pab is None else svd_flags(self.pab, num_inference_steps)
         cache = None if self.pab is None else PABCache()
-        for i in range(num_inference_steps):
-            sigma, sigma_next = es.sigmas[i], es.sigmas[i + 1]
-            inp = torch.cat([scale_model_input(torch.cat([x, x]), sigma), cond2], dim=-1)
-            if mask2 is not None:
-                inp = torch.cat([mask2, inp], dim=-1)
-            pab = None if cache is None else PABStep(cache, bool(flags[i]))
-            out = self.unet(inp, es.timesteps[i], embeds2, added, pab=pab)
-            uncond, cnd = out[:b], out[b:]
-            x = euler_step(x, uncond + guidance * (cnd - uncond), sigma, sigma_next)
+        with span("denoise"):
+            for i in range(num_inference_steps):
+                with span("step"):
+                    sigma, sigma_next = es.sigmas[i], es.sigmas[i + 1]
+                    inp = torch.cat([scale_model_input(torch.cat([x, x]), sigma), cond2],
+                                    dim=-1)
+                    if mask2 is not None:
+                        inp = torch.cat([mask2, inp], dim=-1)
+                    pab = None if cache is None else PABStep(cache, bool(flags[i]))
+                    out = self.unet(inp, es.timesteps[i], embeds2, added, pab=pab)
+                    uncond, cnd = out[:b], out[b:]
+                    x = euler_step(x, uncond + guidance * (cnd - uncond), sigma, sigma_next)
         if output_type == "latent":
             return None, x
         return decode_video(self.vae, x, chunk_size=decode_chunk_size), x

@@ -37,6 +37,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from animate_anything_tpu_torch.utils import tracing
+
 
 @dataclass
 class Job:
@@ -110,7 +112,8 @@ class VideoServer:
             job = self.jobs[job_id]
             job.status, job.started = "running", time.time()
             try:
-                job.result_path = self.generate_fn(job.request)
+                with tracing.serving(int(job.id, 16)):   # the job's id on its request span
+                    job.result_path = self.generate_fn(job.request)
                 job.status = "done"
                 with self._lock:
                     self.done_count += 1

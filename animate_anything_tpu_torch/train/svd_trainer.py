@@ -44,6 +44,7 @@ from animate_anything_tpu_torch.train.trainer import (TrainConfig, _check_device
                                                       apply_gradients, global_rows,
                                                       mean_metrics, prepare_mask_for_latents,
                                                       rows_of)
+from animate_anything_tpu_torch.utils.tracing import span, sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +117,7 @@ def make_svd_loss_fn(config: SVDTrainConfig, vae: nn.Module,
         else:
             with torch.no_grad():
                 embeds = image_encoder(batch["clip_pixel_values"])[:, None, :]
-        if bool(draws.drop):
+        if sync(bool, draws.drop):
             embeds = torch.zeros_like(embeds)
 
         c = edm_precondition(draws.sigma)
@@ -172,13 +173,19 @@ def make_svd_train_step(config: SVDTrainConfig, vae: nn.Module,
     channels = vae.config.latent_channels
 
     def train_step(state, batch: dict, generator: torch.Generator) -> dict:
-        batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
-        draws = draw_svd_rows(config, tuple(batch["pixel_values"].shape), channels,
-                              generator, device, mesh)
-        _, metrics = loss_fn(state.model, batch, draws)
-        metrics["loss"].backward()
-        out = mean_metrics(metrics, state)
-        out["grad_norm"] = apply_gradients(state)
-        return out
+        with span("train_step"):
+            with span("inputs"):
+                batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                         for k, v in batch.items()}
+                draws = draw_svd_rows(config, tuple(batch["pixel_values"].shape), channels,
+                                      generator, device, mesh)
+            with span("loss"):
+                _, metrics = loss_fn(state.model, batch, draws)
+            with span("backward"):
+                metrics["loss"].backward()
+            with span("metrics"):
+                out = mean_metrics(metrics, state)
+            out["grad_norm"] = apply_gradients(state)
+            return out
 
     return train_step

@@ -54,6 +54,7 @@ from animate_anything_tpu_torch.metrics.motion import latent_motion_score
 from animate_anything_tpu_torch.models.layers import resize_nearest
 from animate_anything_tpu_torch.models.vae import encode_video
 from animate_anything_tpu_torch.utils.convert import flax_path
+from animate_anything_tpu_torch.utils.tracing import span, sync, traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,16 +195,17 @@ def clip_factor(grads: Dict[str, torch.Tensor], max_norm: float, plan=None, tp=N
     the axis as well, so each slice counts once."""
     if not grads:
         return 1.0
-    if plan is None and tp is None:
-        norm = float(global_norm(grads.values()))
-    else:
-        sq = {n: torch.linalg.vector_norm(g, dtype=torch.float32).square()
-              if plan is None or plan.sharded(n) or plan.rank == 0
-              else g.new_zeros((), dtype=torch.float32) for n, g in grads.items()}
-        pair = _split_sq(sq, tp_names)
-        if plan is not None:
-            plan.all_reduce_sum_(pair)
-        norm = float(tensor_norm(pair, tp))
+    with span("norm"):
+        if plan is None and tp is None:
+            norm = sync(float, global_norm(grads.values()))
+        else:
+            sq = {n: torch.linalg.vector_norm(g, dtype=torch.float32).square()
+                  if plan is None or plan.sharded(n) or plan.rank == 0
+                  else g.new_zeros((), dtype=torch.float32) for n, g in grads.items()}
+            pair = _split_sq(sq, tp_names)
+            if plan is not None:
+                plan.all_reduce_sum_(pair)
+            norm = sync(float, tensor_norm(pair, tp))
     return 1.0 if norm < max_norm else max_norm / norm
 
 
@@ -485,7 +487,7 @@ def make_loss_fn(schedule: DiffusionSchedule, config: TrainConfig,
             with torch.set_grad_enabled(text_grad and torch.is_grad_enabled()):
                 embeds = text_encoder(batch["prompt_ids"])
                 uncond = text_encoder(batch["uncond_ids"])
-        embeds = uncond if bool(drop) else embeds
+        embeds = uncond if sync(bool, drop) else embeds
 
         pred = model(noisy, t, embeds, condition_latent,
                      mask if config.motion_mask else None,
@@ -509,6 +511,7 @@ def make_loss_fn(schedule: DiffusionSchedule, config: TrainConfig,
     return loss_fn
 
 
+@traced("optimizer")
 def apply_gradients(state: TrainState) -> float:
     """Hand the gradients to the optimizer, clear them; return the global
     norm of every gradient, frozen ones included (JAX's ``grad_norm``). Full
@@ -525,22 +528,25 @@ def apply_gradients(state: TrainState) -> float:
     if plan is not None and present:
         plan.reduce_mean_(present)
     tp = getattr(state.optimizer, "tp", None)
-    if tp is None:
-        norm = global_norm(present) if present else torch.zeros(())
-    else:
-        from animate_anything_tpu_torch.parallel.tensor import model_plan
+    with span("norm"):
+        if tp is None:
+            norm = global_norm(present) if present else torch.zeros(())
+        else:
+            from animate_anything_tpu_torch.parallel.tensor import model_plan
 
-        split = model_plan(state.model)[1]
-        norm = sharded_global_norm({n: g for n, g in grads.items() if g is not None}, tp,
-                                   [n for n in grads if n in split])
-    changed = state.optimizer.step({n: grads.get(n) for n in state.optimizer.names},
-                                   state.masters)
+            split = model_plan(state.model)[1]
+            norm = sharded_global_norm({n: g for n, g in grads.items() if g is not None}, tp,
+                                       [n for n in grads if n in split])
+    with span("update"):
+        changed = state.optimizer.step({n: grads.get(n) for n in state.optimizer.names},
+                                       state.masters)
     if changed and state.model is not None:
-        copy_masters_(state.model, state.masters)
+        with span("masters"):
+            copy_masters_(state.model, state.masters)
     for p in named.values():
         p.grad = None
     state.step += 1
-    return float(norm)
+    return sync(float, norm)
 
 
 def draw_inputs(schedule: DiffusionSchedule, config: TrainConfig, shape: tuple,
@@ -577,9 +583,9 @@ def mean_metrics(metrics: dict, state: TrainState) -> dict:
     global batch's)."""
     plan = getattr(state.optimizer, "plan", None)
     if plan is None:
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        return {k: sync(float, v.detach()) for k, v in metrics.items()}
     vals = plan.all_reduce_sum_(torch.stack([v.detach().float() for v in metrics.values()]))
-    return {k: float(v) for k, v in zip(metrics, (vals / plan.ranks).tolist())}
+    return {k: float(v) for k, v in zip(metrics, sync((vals / plan.ranks).tolist))}
 
 
 def _on_device(batch: dict, device, vae) -> dict:
@@ -622,14 +628,19 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig,
     loss_fn = make_loss_fn(schedule, config, vae, text_encoder)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
-        batch = _on_device(batch, device, vae)
-        noise, t, drop = draw_rows(schedule, config, batch["latents"].shape, generator, device,
-                                   mesh)
-        _, metrics = loss_fn(state.model, batch, noise, t, drop)
-        metrics["loss"].backward()
-        out = mean_metrics(metrics, state)
-        out["grad_norm"] = apply_gradients(state)
-        return out
+        with span("train_step"):
+            with span("inputs"):
+                batch = _on_device(batch, device, vae)
+                noise, t, drop = draw_rows(schedule, config, batch["latents"].shape, generator,
+                                           device, mesh)
+            with span("loss"):
+                _, metrics = loss_fn(state.model, batch, noise, t, drop)
+            with span("backward"):
+                metrics["loss"].backward()
+            with span("metrics"):
+                out = mean_metrics(metrics, state)
+            out["grad_norm"] = apply_gradients(state)
+            return out
 
     return train_step
 
@@ -656,25 +667,31 @@ def make_lora_train_step(schedule: DiffusionSchedule, config: TrainConfig, unet:
     loss_fn = make_loss_fn(schedule, config, vae, text_encoder, text_grad=text)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
-        batch = _on_device(batch, device, vae)
-        weights, text_weights = {}, {}
-        if lora_config is not None:
-            unet_lora = lora.dropout_lora(state.params["unet_lora"], lora_config, generator)
-            weights = lora.merged_weights(unet, base, unet_lora, lora_config)
-        if text:
-            text_lora = lora.dropout_lora(state.params["text_lora"], text_lora_config, generator)
-            text_weights = lora.merged_weights(text_encoder, text_base, text_lora,
-                                               text_lora_config, naming="text")
-        noise, t, drop = draw_rows(schedule, config, batch["latents"].shape, generator, device,
-                                   mesh)
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(lora.substituted(unet, weights))
-            if text:
-                stack.enter_context(lora.substituted(text_encoder, text_weights))
-            _, metrics = loss_fn(unet, batch, noise, t, drop)
-            metrics["loss"].backward()
-        out = mean_metrics(metrics, state)
-        out["grad_norm"] = apply_gradients(state)
-        return out
+        with span("train_step"):
+            with span("inputs"):
+                batch = _on_device(batch, device, vae)
+                weights, text_weights = {}, {}
+                if lora_config is not None:
+                    unet_lora = lora.dropout_lora(state.params["unet_lora"], lora_config, generator)
+                    weights = lora.merged_weights(unet, base, unet_lora, lora_config)
+                if text:
+                    text_lora = lora.dropout_lora(state.params["text_lora"], text_lora_config,
+                                                  generator)
+                    text_weights = lora.merged_weights(text_encoder, text_base, text_lora,
+                                                       text_lora_config, naming="text")
+                noise, t, drop = draw_rows(schedule, config, batch["latents"].shape, generator,
+                                           device, mesh)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(lora.substituted(unet, weights))
+                if text:
+                    stack.enter_context(lora.substituted(text_encoder, text_weights))
+                with span("loss"):
+                    _, metrics = loss_fn(unet, batch, noise, t, drop)
+                with span("backward"):
+                    metrics["loss"].backward()
+            with span("metrics"):
+                out = mean_metrics(metrics, state)
+            out["grad_norm"] = apply_gradients(state)
+            return out
 
     return train_step

@@ -10,12 +10,15 @@ the empty negative, 77 tokens each) and, last, one training step of the
 flagship finetune (``train.mask_motion_finetune``: one 16-frame 512 px clip,
 VAE encode and text inside the step, per-sub-layer checkpointing, AdamW on
 fp32 masters) with ``torch.profiler``. For each it prints the wall time (the
-median of three calls), the device kernel time, the device idle share (1 −
-kernel time / wall time; one stream, so kernels do not overlap), the kernel
-time by group, the largest kernels, and the host's self time in the
-profiled call by operation (inflated by the profiler's own cost; read it as
-shares). The first line is the card's name and power limit, the last one
-JSON object with those numbers.
+median of three calls), the device kernel time, the device idle share of the
+profiled call (1 − the union of its device operations' intervals over the
+call's own interval in the trace), the kernel time by group, the largest
+kernels, the port's spans (``utils/tracing.py``: each ``aat.*`` name's
+count, the device time launched inside it and the device's idle time
+inside it), and the host's self time in the profiled call by operation
+(inflated by the profiler's own cost; read it as shares). The first line is
+the card's name and power limit, the last one JSON object with those
+numbers.
 
 ``--opt-in`` (``profile_opt_in``) profiles instead one CFG UNet forward and
 one 16-frame VAE decode in the JAX package's opt-in GroupNorm and resnet-conv
@@ -36,6 +39,7 @@ and one CLIP vision encode.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import json
 import time
@@ -74,17 +78,88 @@ def kernel_group(name: str) -> str:
     return "elementwise/other"
 
 
+CALL = "device_profile.call"   # the profiler range around the profiled call
+
+
+def _union(intervals) -> list:
+    """Sorted, merged [start, end) pairs."""
+    merged = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def _overlap_ns(a: list, b: list) -> int:
+    """The length of the intersection of two unions of intervals."""
+    total, j = 0, 0
+    for s, e in a:
+        while j < len(b) and b[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(b) and b[k][0] < e:
+            total += max(0, min(e, b[k][1]) - max(s, b[k][0]))
+            k += 1
+    return total
+
+
+def trace_spans(events, window: str = CALL) -> Dict:
+    """From a profile's kineto events: the ``window`` range's idle share of
+    the device (1 − the union of the device operations' intervals inside it
+    over its length; 1.0 where no device operation ran) and, for each
+    ``aat.*`` span name, ``{"count", "device_ms", "idle_ms"}``: its ranges,
+    the device time of the operations launched while the host was inside
+    one of them, and the time inside them (in the window) that the device
+    sat idle."""
+    spans, device, launch, win = {}, [], {}, None
+    for e in events:
+        start, end, name = e.start_ns(), e.start_ns() + e.duration_ns(), e.name()
+        if str(e.device_type()).endswith("CPU"):
+            if e.is_user_annotation():
+                if name == window:
+                    win = (start, end)
+                elif name.startswith("aat."):
+                    spans.setdefault(name, []).append((start, end))
+            elif name.startswith("cu"):          # a runtime or driver call
+                launch[e.correlation_id()] = start
+        elif not e.is_user_annotation():
+            device.append((start, end, e.correlation_id()))
+    if win is None:
+        return {"idle_share": None, "spans": {}}
+    lo, hi = win
+    busy = _union((max(s, lo), min(e, hi)) for s, e, _ in device if e > lo and s < hi)
+    table = {}
+    for name, ranges in sorted(spans.items()):
+        inner = _union(ranges)
+        starts = [a for a, _ in inner]
+        launched = 0
+        for s, e, corr in device:
+            t = launch.get(corr)
+            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t < inner[i][1]:
+                launched += e - s
+        in_window = _union((max(s, lo), min(e, hi)) for s, e in inner if e > lo and s < hi)
+        idle = sum(e - s for s, e in in_window) - _overlap_ns(in_window, busy)
+        table[name] = {"count": len(ranges), "device_ms": launched / 1e6, "idle_ms": idle / 1e6}
+    covered = sum(e - s for s, e in busy)
+    return {"idle_share": 1.0 - covered / (hi - lo) if hi > lo else None, "spans": table}
+
+
 def device_profile(fn: Callable[[], object]) -> Dict:
     """After two warm-up calls: the median wall ms of three calls of ``fn``
     (each ended by a device sync), then one profiled call's device
-    kernels and host operations: ``{"wall_ms", "walls_ms", "kernel_ms",
-    "idle_share", "groups": {group: ms}, "group_kernels": {group: kernels
-    run}, "kernels": [[ms, calls, name], ...], "host_ms", "host_ops": [[ms,
+    kernels, spans and host operations: ``{"wall_ms", "walls_ms",
+    "kernel_ms", "idle_share", "groups": {group: ms}, "group_kernels":
+    {group: kernels run}, "kernels": [[ms, calls, name], ...], "spans":
+    {name: {"count", "device_ms", "idle_ms"}}, "host_ms", "host_ops": [[ms,
     calls, name], ...]}``, the kernels and the host operations (self time)
-    largest first. On the H100 machine (torch 2.11, CUDA 12.8) a process
-    that has run for some tens of seconds loses the device records of most
-    profiles, whole: there ``kernels`` can come back empty or short, and
-    ``idle_share`` too high."""
+    largest first; ``idle_share`` and ``spans`` as ``trace_spans`` reads
+    them from the profiled call. On the H100 machine (torch 2.11, CUDA
+    12.8) a process that has run for some tens of seconds loses the device
+    records of most profiles, whole: there ``kernels`` can come back empty
+    or short, and ``idle_share`` too high."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,10 +177,13 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     wall_ms = sorted(walls_ms)[len(walls_ms) // 2]
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        fn()
-        sync()
+        with torch.autograd.profiler.record_function(CALL):
+            fn()
+            sync()
     kernels, host = [], []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False) or e.key == CALL or e.key.startswith("aat."):
+            continue     # ranges, not operations: on the device each spans kernels counted
         if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
             host.append([e.self_cpu_time_total / 1e3, e.count, e.key])
         if e.device_type != DeviceType.CUDA:
@@ -122,11 +200,11 @@ def device_profile(fn: Callable[[], object]) -> Dict:
         groups[kernel_group(name)] += ms
         runs[kernel_group(name)] += calls
     host.sort(reverse=True)
+    traced = trace_spans(prof.profiler.kineto_results.events())
     return dict(wall_ms=wall_ms, walls_ms=walls_ms, kernel_ms=kernel_ms,
-                idle_share=max(0.0, 1.0 - kernel_ms / wall_ms),
-                groups=dict(groups.most_common()),
+                idle_share=traced["idle_share"], groups=dict(groups.most_common()),
                 group_kernels={g: runs[g] for g, _ in groups.most_common()}, kernels=kernels,
-                host_ms=sum(h[0] for h in host), host_ops=host)
+                spans=traced["spans"], host_ms=sum(h[0] for h in host), host_ops=host)
 
 
 def _report(name: str, prof: Dict) -> None:
@@ -140,6 +218,9 @@ def _report(name: str, prof: Dict) -> None:
               f"{prof['group_kernels'][group]:6d} kernels")
     for ms, calls, kname in prof["kernels"][:20]:
         print(f"   {ms:9.2f} ms  x{calls:5d}  {kname[:110]}")
+    for sname, row in prof["spans"].items():
+        print(f"   span {sname:28s} x{row['count']:5d}  device {row['device_ms']:9.2f} ms  "
+              f"idle {row['idle_ms']:9.2f} ms")
     for ms, calls, hname in prof["host_ops"][:12]:
         print(f"   host {ms:9.2f} ms  x{calls:5d}  {hname[:100]}")
 

@@ -244,3 +244,84 @@ def test_profiler_groups_kernels_and_times_a_call():
     assert prof["wall_ms"] == sorted(prof["walls_ms"])[1]
     assert prof["host_ms"] > 0 and any("mm" in op[2] for op in prof["host_ops"])
     assert prof["kernels"] == [] and prof["kernel_ms"] == 0   # no device on this host
+    assert prof["idle_share"] == 1.0 and prof["spans"] == {}
+
+
+def test_profiler_tables_the_ports_spans():
+    """``device_profile`` reads the ``aat.*`` spans of the profiled call: the
+    count, the device time launched inside (none here) and the idle time
+    inside, which on a host without a device is each span's whole length."""
+    from animate_anything_tpu_torch.utils.profiling import device_profile
+    from animate_anything_tpu_torch.utils.tracing import span, traced
+
+    @traced("op.matmul")
+    def op():
+        return torch.ones(64, 64) @ torch.ones(64, 64)
+
+    def call():
+        with span("step"):
+            op()
+            op()
+
+    prof = device_profile(call)
+    assert set(prof["spans"]) == {"aat.step", "aat.op.matmul"}
+    step, ops = prof["spans"]["aat.step"], prof["spans"]["aat.op.matmul"]
+    assert step["count"] == 1 and ops["count"] == 2
+    assert step["device_ms"] == ops["device_ms"] == 0.0
+    assert 0 < ops["idle_ms"] <= step["idle_ms"]
+    # the ranges are not operations: neither the host's nor (on a card) the device's
+    assert not [op for op in prof["host_ops"] if op[2].startswith("aat.") or "profile" in op[2]]
+
+
+class _Event:
+    """A kineto event of a synthetic trace (ms → ns)."""
+
+    def __init__(self, name, device, start, end, corr=0, annotation=False):
+        self.v = (name, "DeviceType." + device, int(start * 1e6), int((end - start) * 1e6),
+                  corr, annotation)
+
+    def name(self):
+        return self.v[0]
+
+    def device_type(self):
+        return self.v[1]
+
+    def start_ns(self):
+        return self.v[2]
+
+    def duration_ns(self):
+        return self.v[3]
+
+    def correlation_id(self):
+        return self.v[4]
+
+    def is_user_annotation(self):
+        return self.v[5]
+
+
+def test_trace_spans_on_a_synthetic_trace():
+    """A 100 ms call, the device busy over [10, 50) and [60, 90) ms; a UNet
+    span [5, 55) holding two wrapper spans [6, 8) and [20, 22) that launch
+    a 20 ms and a 15 ms kernel; a third kernel launched outside them."""
+    from animate_anything_tpu_torch.utils.profiling import CALL, trace_spans
+
+    ev = [_Event(CALL, "CPU", 0, 100, annotation=True),
+          _Event("aat.unet", "CPU", 5, 55, annotation=True),
+          _Event("aat.op.k", "CPU", 6, 8, annotation=True),
+          _Event("aat.op.k", "CPU", 20, 22, annotation=True),
+          _Event("cudaLaunchKernel", "CPU", 7, 7.01, corr=1),
+          _Event("cudaLaunchKernel", "CPU", 21, 21.01, corr=2),
+          _Event("cudaLaunchKernel", "CPU", 58, 58.01, corr=3),
+          _Event("aten::mm", "CPU", 21, 21.5, corr=4),
+          _Event("k1", "CUDA", 10, 30, corr=1),
+          _Event("k2", "CUDA", 35, 50, corr=2),
+          _Event("k3", "CUDA", 60, 90, corr=3),
+          _Event("aat.unet", "CUDA", 10, 50, annotation=True)]
+    out = trace_spans(ev)
+    assert out["idle_share"] == pytest.approx(0.35)     # idle [0,10) [30,35) [50,60) [90,100)
+    unet, ops = out["spans"]["aat.unet"], out["spans"]["aat.op.k"]
+    assert unet["count"] == 1 and ops["count"] == 2
+    assert unet["device_ms"] == pytest.approx(35.0) and ops["device_ms"] == pytest.approx(35.0)
+    assert unet["idle_ms"] == pytest.approx(15.0)      # [5,10), [30,35), [50,55)
+    assert ops["idle_ms"] == pytest.approx(2.0)        # [6,8); [20,22) is busy
+    assert trace_spans(ev[1:])["idle_share"] is None    # no call range
